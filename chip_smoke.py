@@ -21,6 +21,14 @@ Phases, each reported on its own line:
    cycles (2048 grad steps, two 1000-step refreshes), one train() chunk
    and evaluate(32). Checks finiteness, the stored-step count, and that
    K1 was launched at each of its four sites.
+5. learners: RACER, RACER-discrete, DQN, NAF, DPG and MixedPG, each
+   through the launcher (smarties_tpu_torch.launch.run) at its recipe's
+   published widths and batch with 1024 envs: warmup, train(1000) timed
+   with CUDA events (so the 1000-step refresh runs), evaluate(8, 200).
+   Checks finiteness and K1's launches at ingest, initialize_stats and
+   refresh on every Retrace path (DQN's recipe has no Retrace sweep: its
+   0 is measured and printed); then the port on the card against the port
+   on the CPU at a small size (4 pinned train steps and a refresh).
 Then one JSON line with the kernels' results and, last, the device line.
 
 The script imports no JAX and nothing of the JAX package. Any failed
@@ -35,13 +43,24 @@ import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 
 # agreement of kernel and plain version, as tests/test_pallas_retrace.py
 RTOL = 1e-4
 ATOL = 1e-4
 KERNEL_SHAPES = ((200, 37), (33, 22), (4096, 501))
 MAIN_E, MAIN_L1 = 4096, 501
+# the learners phase: (name, app, recipe as the launcher takes it)
+LEARNER_PATHS = (
+    ("racer", "cartpole", "RACER"),
+    ("racer_discrete", "cartpole_discrete", "RACER"),
+    ("dqn", "cartpole_discrete", "DQN"),
+    ("naf", "pendulum", "NAF"),
+    ("dpg", "pendulum", "DPG"),
+    ("mixedpg", "cartpole", '{"learner": "MixedPG"}'),
+)
+LEARNER_ENVS, LEARNER_STEPS = 1024, 1000
 
 
 def phase_device():
@@ -180,13 +199,13 @@ def phase_kernels():
 
 
 class SiteCounter:
-    """Attributes K1 launches to the four main-path sites by diffing the
-    launch counter around the trainer's three return-sweep callables and
-    tagging them with the phase that called them."""
+    """Attributes K1 launches to their sites by diffing the launch counter
+    around the trainer's three return-sweep callables. The ingest sweep
+    counts under `ingest_site`, which the main path sets per phase."""
 
     def __init__(self, trainer, rk):
         self.rk = rk
-        self.phase = None
+        self.ingest_site = "ingest"
         self.sites = {}
         for attr, site in (("_fix_returns", "ingest"),
                            ("_init_stats", "initialize_stats"),
@@ -197,10 +216,7 @@ class SiteCounter:
         def counted(*a, **kw):
             n0 = self.rk.launches["batched_retrace"]
             out = fn(*a, **kw)
-            key = site
-            if site == "ingest":
-                key = ("fused_cycle_ingest" if self.phase == "train_fused"
-                       else "warmup_train_ingest")
+            key = self.ingest_site if site == "ingest" else site
             self.sites[key] = (self.sites.get(key, 0)
                                + self.rk.launches["batched_retrace"] - n0)
             return out
@@ -218,34 +234,35 @@ def _leaves(tree, prefix=""):
     return [(prefix.rstrip("."), tree)]
 
 
-def phase_reference():
+def _card_vs_cpu(env, cfg, n_steps):
     """The port on the card against the port on the CPU (whose K1 is the
-    plain torch loop) at a small size, from the same state: 8 train steps
-    on pinned samples and a refresh. cuBLAS and the CPU BLAS reduce in
-    another order (TF32 off): rtol 1e-4; values pass through scale_net2v,
-    which cancels two terms near 5100 (one f32 ulp is 4.9e-4): atol 2e-3
-    on V, TD errors and returns."""
+    plain torch loop) at a small size, from the same state: the CPU
+    trainer's warmup, then its params, optimiser state and replay copied
+    to the card, n_steps train steps on the same pinned samples and a
+    refresh on both. cuBLAS and the CPU BLAS reduce in another order (TF32
+    off): rtol 1e-4; values pass through scale_net2v in RACER, which
+    cancels two terms near 5100 (one f32 ulp is 4.9e-4): atol 2e-3 on V,
+    TD errors and returns. Returns the worst |diff| of params, qret, rho
+    and value."""
     import numpy as np
     import torch
-    from smarties_tpu_torch.envs import cartpole
     from smarties_tpu_torch.models import convert
     from smarties_tpu_torch.runtime.trainer import Trainer
-    from smarties_tpu_torch.utils.config import HyperParameters
 
-    cfg = HyperParameters(minTotObsNum=256, maxTotObsNum=2048, batchSize=32,
-                          nnLayerSizes=[16, 16], randSeed=0)
     size = dict(n_envs=16, n_slots=64, max_len=64)
-    cpu = Trainer(cartpole, cartpole.MDP, cfg, device="cpu", **size)
+    cpu = Trainer(env, env.MDP, cfg, device="cpu", **size)
     cpu.warmup(chunk=16)
-    gpu = Trainer(cartpole, cartpole.MDP, cfg, device="cuda", **size)
+    gpu = Trainer(env, env.MDP, cfg, device="cuda", **size)
     gpu.params = convert.params_from_jax(convert.params_to_jax(cpu.params),
                                          "cuda")
+    gpu.opt_state = convert.opt_state_from_jax(
+        convert.opt_state_to_numpy(cpu.opt_state), "cuda")
     gpu.carry = gpu.carry._replace(replay=convert.replay_from_jax(
         convert.replay_to_numpy(cpu.replay), "cuda"))
     rng = np.random.RandomState(0)
     lens = convert.replay_to_numpy(cpu.replay)["length"]
     valid = np.nonzero(convert.replay_to_numpy(cpu.replay)["ep_id"] >= 0)[0]
-    for _ in range(8):
+    for _ in range(n_steps):
         pairs = set()
         while len(pairs) < cfg.batchSize:
             e = int(rng.choice(valid))
@@ -257,11 +274,13 @@ def phase_reference():
                 sample_override=(ep.to(tr.device), t.to(tr.device)))
     for tr in (cpu, gpu):
         tr.carry = tr.carry._replace(replay=tr._refresh(tr.replay, 1000.0))
-    worst = {}
+    worst = {"params": 0.0}
+    got_p = dict(_leaves(gpu.params))
     for k, p in _leaves(cpu.params):
-        g = dict(_leaves(gpu.params))[k].detach().cpu()
-        torch.testing.assert_close(g, p.detach(), rtol=1e-4, atol=1e-6)
-        worst["params"] = max(worst.get("params", 0.0),
+        g = got_p[k].detach().cpu()
+        torch.testing.assert_close(g, p.detach(), rtol=1e-4, atol=1e-6,
+                                   msg=lambda m: f"param {k}: {m}")
+        worst["params"] = max(worst["params"],
                               float((g - p.detach()).abs().max()))
     want = convert.replay_to_numpy(cpu.replay)
     got = convert.replay_to_numpy(gpu.replay)
@@ -272,6 +291,17 @@ def phase_reference():
                                    err_msg=f"replay field {k}")
         if k in ("qret", "rho", "value"):
             worst[k] = float(np.abs(got[k] - want[k]).max())
+    return worst
+
+
+def phase_reference():
+    """V-RACER on cart-pole, 8 pinned train steps and a refresh."""
+    from smarties_tpu_torch.envs import cartpole
+    from smarties_tpu_torch.utils.config import HyperParameters
+
+    cfg = HyperParameters(minTotObsNum=256, maxTotObsNum=2048, batchSize=32,
+                          nnLayerSizes=[16, 16], randSeed=0)
+    worst = _card_vs_cpu(cartpole, cfg, 8)
     print(f"reference: port on the card vs on the CPU, 16 envs x 64 slots, "
           f"8 train steps + refresh: max |diff| "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()), flush=True)
@@ -300,14 +330,14 @@ def phase_main_path():
           flush=True)
 
     rk.reset_launches()
-    sites.phase = "warmup"
+    sites.ingest_site = "warmup_train_ingest"
     t0 = time.perf_counter()
     tr.warmup(chunk=16, blind_sweeps=16)
     torch.cuda.synchronize()
     print(f"main: warmup (16 blind sweeps + initialize_stats) "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    sites.phase = "train_fused"
+    sites.ingest_site = "fused_cycle_ingest"
     cycle_ms = []
     for _ in range(2):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -317,13 +347,12 @@ def phase_main_path():
         e1.record()
         e1.synchronize()
         cycle_ms.append(e0.elapsed_time(e1))
-    sites.phase = "train"
+    sites.ingest_site = "warmup_train_ingest"
     g0 = tr.n_grad_steps
     t0 = time.perf_counter()
     tr.train(100, log_every=10 ** 9)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    sites.phase = "evaluate"
     t0 = time.perf_counter()
     rets = tr.evaluate(32)
     eval_s = time.perf_counter() - t0
@@ -360,12 +389,114 @@ def phase_main_path():
     return {"cycle_ms": cycle_ms, "launches": counts, "sites": site_counts}
 
 
+def _small_cfg(recipe):
+    """The launcher's recipe cut to the reference phase's small size."""
+    from smarties_tpu_torch import launch
+    cfg = launch.load_recipe(recipe, 0)
+    cfg.minTotObsNum, cfg.maxTotObsNum, cfg.batchSize = 256, 2048, 32
+    cfg.nnLayerSizes = [16, 16]
+    if any(s > 0 for s in cfg.encoderLayerSizes):
+        cfg.encoderLayerSizes = [16]
+    return cfg
+
+
+def phase_learners():
+    """The six other learners through the launcher, each at its recipe's
+    widths: K1 counted per site around warmup + train(1000), the grad
+    step timed with CUDA events, then evaluate and the small-size
+    reference against the CPU."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from smarties_tpu_torch import launch
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+
+    runs = os.path.join(ROOT, "build", "chip_smoke_runs")
+    results = {}
+    for name, app, recipe in LEARNER_PATHS:
+        args = launch.parse_args([
+            app, "--recipe", recipe, "--device", "cuda", "--nEnvironments",
+            str(LEARNER_ENVS), "--nTrainSteps", str(LEARNER_STEPS),
+            "--runprefix", runs, "--runname", name])
+        hooks = {}
+
+        def prepare(tr):
+            tr.log_flush_threshold = 10 ** 9
+            hooks["sites"] = SiteCounter(tr, rk)
+            train = tr.train
+
+            def timed_train(n, **kw):
+                g0 = tr.n_grad_steps
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                e0.record()
+                train(n, **kw)
+                e1.record()
+                e1.synchronize()
+                hooks.update(train_ms=e0.elapsed_time(e1),
+                             train_wall_s=time.perf_counter() - t0,
+                             steps=tr.n_grad_steps - g0)
+            tr.train = timed_train
+
+        rk.reset_launches()
+        t0 = time.perf_counter()
+        tr = launch.run(args, prepare=prepare)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts, sites = dict(rk.launches), dict(hooks["sites"].sites)
+        rets = tr.evaluate(8, max_steps=200)
+
+        for k, p in _leaves(tr.params):
+            assert torch.isfinite(p).all(), f"{name}: non-finite param {k}"
+        for k, m in tr._last_metrics.items():
+            assert torch.isfinite(m).all(), f"{name}: non-finite metric {k}"
+        assert np.isfinite(rets).all() and rets.shape == (8,), (name, rets)
+        assert hooks["steps"] >= LEARNER_STEPS, (name, hooks)
+        assert counts["batched_retrace"] == sum(sites.values()), \
+            (name, counts, sites)
+        mode = tr.algo.returns_mode
+        if mode == "none":
+            assert counts["batched_retrace"] == 0, (name, counts)
+            k1 = ("K1 launches 0, measured: returnsEstimator 'none' "
+                  "(1-step targets) runs no Retrace sweep")
+        else:
+            for site in ("ingest", "initialize_stats", "refresh"):
+                assert sites.get(site, 0) > 0, \
+                    f"{name}: K1 was not launched at the {site} site: {sites}"
+            k1 = f"K1 launches by site {sites}"
+        worst = _card_vs_cpu(launch.env_module(app), _small_cfg(recipe), 4)
+        shutil.rmtree(tr.run_dir)
+        cfg = tr.cfg
+        widths = (f"enc {cfg.encoderLayerSizes} + {cfg.nnLayerSizes}"
+                  if type(tr.algo).__name__ == "DPG" else
+                  f"{cfg.nnLayerSizes}")
+        ms_step = hooks["train_ms"] / hooks["steps"]
+        print(f"learners: {name} ({type(tr.algo).__name__}, {app}, "
+              f"{widths}, batch {cfg.batchSize}, {LEARNER_ENVS} envs, "
+              f"returns {mode}): train({LEARNER_STEPS}) "
+              f"{hooks['train_ms']:.1f} ms by events "
+              f"({ms_step:.3f} ms/grad step, host wall "
+              f"{hooks['train_wall_s']:.2f} s) | launch.run {run_s:.2f} s | "
+              f"evaluate(8, 200) mean return {float(np.mean(rets)):.2f} | "
+              f"{k1} | card vs CPU max |diff| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()),
+              flush=True)
+        results[name] = {"sites": sites, "launches": counts["batched_retrace"],
+                         "ms_per_grad_step": ms_step,
+                         "train_ms": hooks["train_ms"], "run_s": run_s,
+                         "card_vs_cpu": worst}
+    return results
+
+
 def main():
     phase_device()
     import torch
     kern = phase_kernels()
     phase_reference()
     main_res = phase_main_path()
+    learners = phase_learners()
     launches = main_res["launches"]
     k_ms, p_ms = kern["times"]["batched_retrace"]
     a_ms, ap_ms = kern["times"]["affine_suffix_scan"]
@@ -390,7 +521,11 @@ def main():
                 "ms": a_ms, "plain_ms": ap_ms,
                 "gb_per_s": kern["gbps"]["affine_suffix_scan"]}},
         "build_s": kern["build_s"],
-        "sites": main_res["sites"],
+        "sites": {"vracer_main": main_res["sites"],
+                  **{k: v["sites"] for k, v in learners.items()}},
+        "launches_by_path": {"vracer_main": launches["batched_retrace"],
+                             **{k: v["launches"]
+                                for k, v in learners.items()}},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """Common learner machinery: minibatch gather, write-backs, bookkeeping.
 
-Port of the parts of smarties_tpu/algos/base.py that V-RACER calls
-(reference: Learners/Learner*.cpp, ReplayMemory/MiniBatch.h). The
-gathers index the replay's time-major fields at [t, ep]; the write-backs
-are in-place index writes with no host synchronisation.
+Port of the feed-forward parts of smarties_tpu/algos/base.py (reference:
+Learners/Learner*.cpp, ReplayMemory/MiniBatch.h). The gathers index the
+replay's time-major fields at [t, ep]; the write-backs are in-place index
+writes with no host synchronisation. `Learner` holds what every ported
+learner shares: the minibatch draw and the two return sweeps. The target
+copy serves DQN, NAF and DPG; the OU exploration serves NAF and DPG.
 """
 from __future__ import annotations
 
@@ -11,16 +13,18 @@ from typing import NamedTuple
 
 import torch
 
-from smarties_tpu_torch.models.net import tree_leaves
+from smarties_tpu_torch.models.net import tree_leaves, tree_map
+from smarties_tpu_torch.ops import continuous_policy as cp
 from smarties_tpu_torch.replay import buffer as rb
+from smarties_tpu_torch.utils.config import anneal_rate
 
 F32 = torch.float32
 
 
 class MiniBatch(NamedTuple):
     """Gathered view of B sampled transitions (MiniBatch.h:60-123): the
-    fields V-RACER reads. The JAX package's reward_next, terminal_next,
-    per_w and value_old arrive with the learners that read them."""
+    fields the off-policy learners read. The JAX package's per_w and
+    value_old arrive with PER sampling and PPO."""
     ep: torch.Tensor             # [B] episode slot
     t: torch.Tensor              # [B] time index
     s_t: torch.Tensor            # [B, dimS] standardized state
@@ -28,6 +32,8 @@ class MiniBatch(NamedTuple):
     action: torch.Tensor         # [B, dimA]
     mu: torch.Tensor             # [B, dimPol]
     qret: torch.Tensor           # [B] stored return estimate
+    reward_next: torch.Tensor    # [B] scaled reward r_{t+1}
+    terminal_next: torch.Tensor  # [B] t+1 is a true terminal state
     truncated_next: torch.Tensor  # [B] t+1 == T is a truncation point
     # sample points at a stored transition (False only for an empty
     # replay): such rows give no gradient and no write-backs
@@ -54,11 +60,107 @@ def gather_minibatch(rs: rb.ReplayState, ep, t) -> MiniBatch:
     length = rs.slot_len[epl]
     is_last = (t + 1) == length
     valid = (rs.slot_id[epl] >= 0) & (t < length)
+    terminal = rs.slot_term[epl]
+    r_next = (rs.rewards_tm[t1, epl] - rs.rew_mean) * rs.rew_scale
     return MiniBatch(ep=ep, t=t, s_t=s_cat[:B], s_t1=s_cat[B:],
                      action=rs.actions_tm[tl, epl], mu=rs.mus_tm[tl, epl],
-                     qret=rs.qret_tm[tl, epl],
-                     truncated_next=is_last & (~rs.slot_term[epl]),
+                     qret=rs.qret_tm[tl, epl], reward_next=r_next,
+                     terminal_next=is_last & terminal,
+                     truncated_next=is_last & (~terminal),
                      valid=valid, rho_old=rs.rho_tm[tl, epl])
+
+
+def check_ported(mdp, cfg):
+    """Raise NotImplementedError, naming the ROADMAP item, for settings
+    whose code paths the port does not have yet."""
+    if cfg.nnType != "FFNN":
+        raise NotImplementedError(
+            f"nnType {cfg.nnType!r}: recurrent nets are not ported "
+            f"(ROADMAP B5)")
+    if cfg.dataSamplingAlgo not in ("uniform", "default"):
+        raise NotImplementedError(
+            f"dataSamplingAlgo {cfg.dataSamplingAlgo!r}: only uniform "
+            f"sampling is ported (ROADMAP B9)")
+    if mdp.n_appended_obs or mdp.conv_layers:
+        raise NotImplementedError("appended observations and conv inputs "
+                                  "are not ported (ROADMAP B6)")
+
+
+def returns_mode_of(cfg, default: str) -> str:
+    """The return estimator: cfg.returnsEstimator, with "default" meaning
+    the learner's factory default ("retrace" for RACER/MixedPG, "none"
+    for DQN/NAF/DPG)."""
+    mode = cfg.returnsEstimator
+    return default if mode == "default" else mode
+
+
+class Learner:
+    """What every ported off-policy learner shares: the minibatch draw
+    and the every-1000-steps and initial return sweeps. Subclasses set
+    cfg and returns_mode."""
+
+    def sample_minibatch(self, rs: rb.ReplayState, gen, sample_override):
+        """Pinned (ep, t) indices (the trainer's presampled chunk, the
+        parity tests), or a uniform draw of batchSize from `gen`."""
+        if sample_override is not None:
+            ep, t = sample_override
+        else:
+            ep, t = rb.sample_uniform(gen, rs, self.cfg.batchSize)
+        return gather_minibatch(rs, ep, t)
+
+    @torch.no_grad()
+    def refresh(self, rs: rb.ReplayState, n_grad_steps: float):
+        """Every-1000-steps sweep (updateTrainingStatistics recompute
+        branch + updateRewardsStats(.., rRateFac=10), Learner.cpp:74-100):
+        returns recomputed with the OLD reward scaling, then the scaling
+        updated."""
+        cfg = self.cfg
+        rs = rb.recompute_returns(rs, cfg.gamma, cfg.lambda_,
+                                  self.returns_mode)
+        lr = anneal_rate(cfg.learnrate, n_grad_steps, cfg.epsAnneal)
+        return rb.update_state_rew_stats(rs, 10.0 * lr)
+
+    @torch.no_grad()
+    def initialize_stats(self, rs: rb.ReplayState):
+        """At training start: exact state/reward stats from the gathered
+        data, then all return estimators (Learner::initializeLearner,
+        Learner.cpp:47-72)."""
+        rs = rb.update_state_rew_stats(rs, 1.0, b_init=True)
+        return rb.recompute_returns(rs, self.cfg.gamma, self.cfg.lambda_,
+                                    self.returns_mode)
+
+
+def target_copy(net):
+    """Target weights: a copy of `net` that does not require grad (an
+    alias would make the Polyak update a no-op)."""
+    return tree_map(lambda x: x.detach().clone(), net)
+
+
+def ou_acting(cfg, train: bool):
+    """The exploration of DPG and NAF: (sample, use_ou). OU noise decays
+    the state by 0.85 when clipImpWeight <= 0 (DPG.h:20, NAF.h:25)."""
+    sample = train and cfg.explNoise > 0
+    return sample, sample and cfg.clipImpWeight <= 0
+
+
+def explore(gen, mean, sigma, bounded, ou_prev, use_ou, noise=None):
+    """A training action of DPG/NAF -> (action, new OU state): OU noise
+    or a plain Gaussian draw, from `gen` or the given clipped normals."""
+    if noise is None:
+        noise = cp.clipped_normal(gen, tuple(mean.shape), mean)
+    if use_ou:
+        return cp.sample_ou(noise, ou_prev, mean, sigma, bounded)
+    return cp.sample_with_noise(noise, mean, sigma, bounded), ou_prev
+
+
+def backprop(params, outputs, cotangents):
+    """Pull output-space ascent gradients back through the net:
+    `out.backward(gradient=g)` for each (out, g) pair, into the leaves of
+    `params`, which must all take part. Returns the gradient tree."""
+    for p in tree_leaves(params):
+        p.grad = None
+    torch.autograd.backward(outputs, grad_tensors=cotangents)
+    return tree_map(lambda p: p.grad, params)
 
 
 def write_back_with_next(rs: rb.ReplayState, mb: MiniBatch, rho, dkl,

@@ -23,10 +23,12 @@ class MDPSpec:
     - bounded continuous actions are produced by the learner in an
       unbounded space, squashed by tanh and affine-mapped into
       [lower, upper] (StateAction.h:284-295);
+    - discrete multi-component actions are flattened to one label with
+      mixed-radix shifts (StateAction.h:305-341);
     - only dims with ``observable[i]`` are fed to the network.
 
-    The discrete label codec and the user state box (setStateScales)
-    arrive with the discrete learners and the external-env runtime.
+    The user state box (setStateScales) arrives with the external-env
+    runtime.
     """
 
     dim_state: int
@@ -76,6 +78,14 @@ class MDPSpec:
         for v in self.discrete_values:
             n *= v
         return n
+
+    @property
+    def discrete_shifts(self) -> Tuple[int, ...]:
+        """Mixed-radix shifts: shifts[0] = 1, shifts[i] = prod(values[:i])."""
+        shifts = [1]
+        for v in self.discrete_values[:-1]:
+            shifts.append(shifts[-1] * v)
+        return tuple(shifts)
 
     @property
     def dim_policy(self) -> int:
@@ -148,3 +158,24 @@ class MDPSpec:
         return torch.where(
             b, torch.atanh(torch.clamp(descaled, -1 + 1e-7, 1 - 1e-7)),
             descaled)
+
+    def _radix(self, like: torch.Tensor):
+        """(shifts, values) as int64 tensors on `like`'s device, made once."""
+        key = ("radix", like.device)
+        if key not in self._consts:
+            self._consts[key] = tuple(
+                torch.as_tensor(v, dtype=torch.long, device=like.device)
+                for v in (self.discrete_shifts, self.discrete_values))
+        return self._consts[key]
+
+    def label_to_components(self, label: torch.Tensor) -> torch.Tensor:
+        """Discrete label -> per-component option indices [..., nComp]
+        (ActionInfo::label2actionMessage, StateAction.h:323-341)."""
+        shifts, values = self._radix(label)
+        return (label.long()[..., None] // shifts) % values
+
+    def components_to_label(self, comps: torch.Tensor) -> torch.Tensor:
+        """Per-component option indices -> flat int32 label
+        (ActionInfo::actionMessage2label, StateAction.h:305-321)."""
+        shifts, _ = self._radix(comps)
+        return torch.sum(comps.long() * shifts, dim=-1).to(torch.int32)

@@ -7,7 +7,8 @@ hidden (cos/sin observed), bounded 1-D force in [-10, 10], reward
 
 Every function is a tensor function over a leading env axis [n_envs, 4].
 Initial conditions come from an explicit torch.Generator, or are injected
-(`u_new`) so tests can hand both frameworks the same draws.
+(`u_new`) so tests can hand both frameworks the same draws. `discrete` is
+the two-label variant.
 """
 from __future__ import annotations
 
@@ -111,3 +112,23 @@ def reset_where(state: CartPoleState, mask: torch.Tensor,
     u = torch.where(mask[:, None], u_new, state.u)
     stp = torch.where(mask, torch.zeros_like(state.step), state.step)
     return CartPoleState(u=u, step=stp)
+
+
+class discrete:
+    """Discrete-action variant: force in {-10, +10} selected by the label
+    (smarties_tpu/envs/cartpole.py:125-142), the bang-bang cart-pole of
+    the discrete learners (RACER-discrete, DQN)."""
+
+    MDP = MDPSpec(dim_state=6, dim_action=1, discrete_values=(2,),
+                  observable=(True, True, False, True, True, True))
+    MAX_STEPS = MAX_STEPS
+
+    init = staticmethod(init)
+    observe = staticmethod(observe)
+    reset_where = staticmethod(reset_where)
+
+    @staticmethod
+    def step(state, env_action):
+        """label {0, 1} -> force {-10, 10}."""
+        force = (env_action[..., 0] * 2.0 - 1.0) * 10.0
+        return step(state, force[..., None])

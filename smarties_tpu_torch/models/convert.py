@@ -8,8 +8,11 @@ into the port (and parameters back) without the JAX runtime.
 
 - params: the same nested dict on both sides ({"layers": [{"W", "b"}],
   "out": {"W", "b"}, "param"}), W as [in, out] in both, so conversion is
-  a leaf-wise copy.
-- Adam state: m1/m2 trees plus beta_t_1, beta_t_2 and step.
+  a leaf-wise copy. The learners nest these: {"net", "tgt"} (DQN, NAF,
+  DPG; the target leaves come out without grad) and {"actor", "critic",
+  "enc"} (DPG, MixedPG).
+- optimiser state: Adam's m1/m2 trees plus beta_t_1, beta_t_2 and step;
+  MixedPG's adds dpg_factor and err_q_factor around it.
 - replay: built from the JAX ReplayState's FIELD VIEWS (not its packed
   record): `REPLAY_FIELDS` lists the keys, each an array in the JAX
   orientation ([E, L+1, ...] per step, [E] per slot, scalars).
@@ -57,7 +60,12 @@ def _copy(x, dtype, device):
 
 
 def params_from_jax(params_np, device=None):
-    """numpy param tree -> the port's leaf tensors (requiring grad)."""
+    """numpy param tree -> the port's leaf tensors: trained leaves require
+    grad, the target weights under a top-level "tgt" key do not."""
+    if isinstance(params_np, dict) and "tgt" in params_np:
+        return {k: (tree_map(lambda x: _copy(x, torch.float32, device), v)
+                    if k == "tgt" else params_from_jax(v, device))
+                for k, v in params_np.items()}
     return tree_map(lambda x: _copy(x, torch.float32, device
                                     ).requires_grad_(True), params_np)
 
@@ -75,15 +83,44 @@ def params_to_jax(params):
 def adam_state_from_jax(opt_np, device=None) -> AdamState:
     """numpy Adam state (an AdamState namedtuple or a dict with m1, m2,
     beta_t_1, beta_t_2, step) -> the port's AdamState."""
-    get = (opt_np.get if isinstance(opt_np, dict)
-           else lambda k: getattr(opt_np, k))
     moment = lambda t: tree_map(lambda x: _copy(x, torch.float32, device),
                                 t)
-    scalar = lambda k, dt: _copy(get(k), dt, device)
-    return AdamState(m1=moment(get("m1")), m2=moment(get("m2")),
+    scalar = lambda k, dt: _copy(_get(opt_np, k), dt, device)
+    return AdamState(m1=moment(_get(opt_np, "m1")),
+                     m2=moment(_get(opt_np, "m2")),
                      beta_t_1=scalar("beta_t_1", torch.float32),
                      beta_t_2=scalar("beta_t_2", torch.float32),
                      step=scalar("step", torch.int32))
+
+
+def _get(obj, k):
+    return obj[k] if isinstance(obj, dict) else getattr(obj, k)
+
+
+def opt_state_from_jax(opt_np, device=None):
+    """numpy optimiser state -> the port's: an AdamState, or MixedPG's
+    MixedPGOptState(adam, dpg_factor, err_q_factor) (namedtuples or
+    dicts with those keys)."""
+    from smarties_tpu_torch.algos.mixedpg import MixedPGOptState
+    has = (lambda k: k in opt_np) if isinstance(opt_np, dict) \
+        else (lambda k: hasattr(opt_np, k))
+    if not has("adam"):
+        return adam_state_from_jax(opt_np, device)
+    return MixedPGOptState(
+        adam=adam_state_from_jax(_get(opt_np, "adam"), device),
+        dpg_factor=_copy(_get(opt_np, "dpg_factor"), torch.float32, device),
+        err_q_factor=_copy(_get(opt_np, "err_q_factor"), torch.float32,
+                           device))
+
+
+def opt_state_to_numpy(opt) -> dict:
+    """The port's optimiser state as nested dicts of numpy copies under
+    the JAX package's field names (the input of opt_state_from_jax)."""
+    if hasattr(opt, "_fields"):
+        return {k: opt_state_to_numpy(getattr(opt, k)) for k in opt._fields}
+    if isinstance(opt, (dict, list, tuple)):
+        return tree_map(_to_numpy, opt)
+    return _to_numpy(opt)
 
 
 def replay_from_jax(rs_np, device=None) -> rb.ReplayState:

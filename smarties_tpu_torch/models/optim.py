@@ -83,3 +83,23 @@ def adam_step(params, grads, state: AdamState, cfg: AdamConfig,
     bt2 = state.beta_t_2 * b2
     bt2 = torch.where(bt2 < NN_EPS, torch.zeros_like(bt2), bt2)
     return params, AdamState(state.m1, state.m2, bt1, bt2, state.step + 1)
+
+
+@torch.no_grad()
+def update_target(params, target, target_delay: float, step):
+    """Target-weight update (Optimizer.cpp:163-178), in place on `target`:
+    targetDelay >= 1 copies the weights when step % int(targetDelay) == 0,
+    decided on the device from the 0-d `step`; 0 < targetDelay < 1 is
+    Polyak averaging with rate targetDelay; 0 leaves the targets alone.
+    The learners pass the post-increment step, as the JAX package does."""
+    if target_delay <= 0:
+        return target
+    pairs = zip(tree_leaves(target), tree_leaves(params))
+    if target_delay >= 1:
+        do_copy = (step % int(target_delay)) == 0
+        for t, w in pairs:
+            t.copy_(torch.where(do_copy, w, t))
+    else:
+        for t, w in pairs:
+            t.lerp_(w, float(target_delay))
+    return target

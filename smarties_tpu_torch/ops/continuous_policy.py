@@ -179,6 +179,14 @@ def sample_with_noise(noise, mean, sigma, bounded):
                        torch.clamp(a, -MEAN_MAX, MEAN_MAX), a)
 
 
+def sample_ou(noise, ou_state, mean, sigma, bounded):
+    """Ornstein-Uhlenbeck correlated exploration (sample_OrnsteinUhlenbeck,
+    Continuous_policy.h:198-205): the per-agent state becomes noise +
+    0.85 * state. Returns (action, new_state)."""
+    new_state = noise + 0.85 * ou_state
+    return sample_with_noise(new_state, mean, sigma, bounded), new_state
+
+
 def mu_vector(mean, sigma, bounded):
     """Behavior-policy vector stored into replay: [means, stdevs] with
     squashed means clamped (getVector, Continuous_policy.h:745-752)."""

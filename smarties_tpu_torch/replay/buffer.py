@@ -185,7 +185,11 @@ def _full(value, dtype, device):
 
 def safe_mu(mdp) -> np.ndarray:
     """A numerically-safe behavior-policy vector for EMPTY slots: unit-
-    stdev standard normal (continuous policies)."""
+    stdev standard normal (continuous policies), uniform probabilities
+    (discrete)."""
+    if mdp.is_discrete:
+        n = mdp.max_action_label
+        return np.full((n,), 1.0 / n, np.float32)
     nA = mdp.dim_action
     return np.concatenate([np.zeros(nA), np.ones(nA)]).astype(np.float32)
 

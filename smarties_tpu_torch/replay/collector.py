@@ -11,7 +11,9 @@ Retrace estimates are computed once per chunk afterwards
 The per-agent in-progress episodes are fixed-shape per-env tensors,
 time-major [L+1, V, ...] like the replay, with a step cursor per lane,
 written in place. `rollout_chunk` is a Python loop over `one_step`; no
-step reads a device value back to the host.
+step reads a device value back to the host. The learner's per-env acting
+carry (`rnn`: the Ornstein-Uhlenbeck state of DPG and NAF) rides in the
+carry and is zeroed for each lane whose episode ends.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from smarties_tpu_torch.models.net import tree_map
 from smarties_tpu_torch.replay.buffer import ReplayState, commit_episodes
 
 F32 = torch.float32
@@ -70,6 +73,7 @@ class RolloutCarry(NamedTuple):
     inprog: InProgress
     env_state: object
     gens: RolloutGens
+    # per-env acting carry (AgentContext, Network/ThreadContext.h:19-100)
     rnn: tuple = ()
 
 
@@ -126,6 +130,9 @@ def make_rollout_chunk(env_module, mdp, act_fn: Callable, max_tot_obs: int,
         log = (done, ip.t, ip.cum_reward)
         ip = _reset_lanes(ip, done)
         es2 = env_module.reset_where(es2, done, gens.reset)
+        rnn = tree_map(lambda h: torch.where(
+            done.view((-1,) + (1,) * (h.dim() - 1)), torch.zeros_like(h), h),
+            rnn)
         return RolloutCarry(rs, ip, es2, gens, rnn), log
 
     def rollout_chunk(params, carry: RolloutCarry, n_steps: int):

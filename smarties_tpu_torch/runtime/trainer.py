@@ -53,6 +53,32 @@ def _seeds(seed: int, n: int):
             for s in np.random.SeedSequence(seed).spawn(n)]
 
 
+def _plain(tree):
+    """Named tuples -> dicts, tuples -> lists, recursively: what
+    torch.load(weights_only=True) reads back."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {k: _plain(v) for k, v in tree._asdict().items()}
+    if isinstance(tree, dict):
+        return {k: _plain(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_plain(v) for v in tree]
+    return tree
+
+
+def _restructure(template, plain):
+    """Inverse of _plain, shaped like `template`."""
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(**{k: _restructure(getattr(template, k),
+                                                 plain[k])
+                                 for k in template._fields})
+    if isinstance(template, dict):
+        return {k: _restructure(v, plain[k]) for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_restructure(t, p)
+                              for t, p in zip(template, plain, strict=True))
+    return plain
+
+
 class Trainer:
     def __init__(self, env_module, mdp: MDPSpec, cfg: HyperParameters,
                  n_envs: int = 64, n_slots: Optional[int] = None,
@@ -62,6 +88,13 @@ class Trainer:
         is required: nothing picks the CPU when a card is missing."""
         if device is None:
             raise ValueError("Trainer needs an explicit device")
+        # the learner first: one the port lacks is reported before any
+        # settings check
+        if algo_cls is None:
+            from smarties_tpu_torch.algos.registry import make_learner
+            self.algo = make_learner(mdp, cfg)
+        else:
+            self.algo = algo_cls(mdp, cfg)
         cfg.check()
         if cfg.nnBf16:
             raise NotImplementedError("nnBf16: the port computes in f32")
@@ -86,11 +119,6 @@ class Trainer:
             self._rew_file = open(os.path.join(
                 run_dir, "agent_00_rank00_cumulative_rewards.dat"), "a")
 
-        if algo_cls is None:
-            from smarties_tpu_torch.algos.registry import make_learner
-            self.algo = make_learner(mdp, cfg)
-        else:
-            self.algo = algo_cls(mdp, cfg)
         s_init, s_env, s_act, s_batch = _seeds(cfg.randSeed, 4)
         self.params, self.opt_state = self.algo.init(
             torch.Generator().manual_seed(s_init), self.device)
@@ -110,7 +138,8 @@ class Trainer:
                              device=self.device)
         env_state = env_module.init(self.gen_env, n_envs, self.device)
         self.carry = RolloutCarry(rs, ip, env_state,
-                                  RolloutGens(self.gen_act, self.gen_env))
+                                  RolloutGens(self.gen_act, self.gen_env),
+                                  self._init_rnn(n_envs))
 
         act_fn = self.algo.make_act_fn(train=cfg.bTrain)
         self._rollout = make_rollout_chunk(
@@ -139,6 +168,12 @@ class Trainer:
     @property
     def replay(self) -> rb.ReplayState:
         return self.carry.replay
+
+    def _init_rnn(self, n: int) -> tuple:
+        """The learner's zero acting carry for n lanes, () if it has none."""
+        if hasattr(self.algo, "init_rnn"):
+            return self.algo.init_rnn(n, self.device)
+        return ()
 
     def _roll(self, n_steps: int):
         self.carry, logs = self._rollout(self.params, self.carry, n_steps)
@@ -364,11 +399,12 @@ class Trainer:
                            device=self.device)
         done = torch.zeros((n_episodes,), dtype=torch.bool,
                            device=self.device)
+        rnn = self._init_rnn(n_episodes)
         for _ in range(max_steps):
             obs = mdp.observed(env.observe(es))
-            a, _, _, _, _ = act(self.params,
-                                (obs - rs.state_mean) * rs.state_scale,
-                                self.gen_act)
+            a, _, _, _, rnn = act(self.params,
+                                  (obs - rs.state_mean) * rs.state_scale,
+                                  self.gen_act, rnn)
             es, r, d, _ = env.step(es, mdp.learner_to_env_action(a))
             rets = rets + r * (~done).to(r.dtype)
             done = done | d
@@ -383,19 +419,23 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def save(self, path: str):
-        """Checkpoint params/opt/replay/rollout state/generators/counters
-        with torch.save (the fields of the JAX package's pickle; the
-        replay in the port's per-field layout). Loadable with
-        weights_only=True."""
+        """Checkpoint params/opt/replay/rollout state/acting carry/
+        generators/counters with torch.save (the fields of the JAX
+        package's pickle; the replay in the port's per-field layout), and
+        flush cumulative_rewards.dat. Loadable with weights_only=True:
+        named tuples are stored as plain dicts and lists."""
         self._flush_logs()
+        if self._rew_file:
+            self._rew_file.flush()
         ip = self.carry.inprog
         state = {
             "params": tree_map(lambda x: x.detach(), self.params),
-            "opt_state": self.opt_state._asdict(),
+            "opt_state": _plain(self.opt_state),
             "replay": {f: getattr(self.carry.replay, f)
                        for f in self.carry.replay.__dataclass_fields__},
             "inprog": ip._asdict(),
             "env_state": self.carry.env_state._asdict(),
+            "rnn": _plain(self.carry.rnn),
             "gens": {k: getattr(self, "gen_" + k).get_state()
                      for k in ("env", "act", "batch")},
             "n_env_steps": self.n_env_steps,
@@ -408,17 +448,21 @@ class Trainer:
         os.replace(tmp, path)  # write-then-rename atomicity
 
     def restore(self, path: str):
-        from smarties_tpu_torch.models.optim import AdamState
+        """Load a checkpoint of this configuration: the params are copied
+        into the existing leaves (nested {"net", "tgt"} trees included),
+        the optimiser state and acting carry are rebuilt in the structure
+        of the current ones (AdamState, MixedPGOptState, ...)."""
         state = torch.load(path, map_location=self.device, weights_only=True)
         with torch.no_grad():
             tree_map(lambda dst, src: dst.copy_(src), self.params,
                      state["params"])
-        self.opt_state = AdamState(**state["opt_state"])
+        self.opt_state = _restructure(self.opt_state, state["opt_state"])
         self.carry = RolloutCarry(
             rb.ReplayState(**state["replay"]),
             InProgress(**state["inprog"]),
             type(self.carry.env_state)(**state["env_state"]),
-            self.carry.gens)
+            self.carry.gens,
+            _restructure(self.carry.rnn, state["rnn"]))
         for k, st in state["gens"].items():
             getattr(self, "gen_" + k).set_state(st.cpu())
         self.n_env_steps = state["n_env_steps"]

@@ -40,9 +40,12 @@ def test_port_imports_no_jax():
     assert res["reference"] == [], res["reference"]
     assert not res["kernel_loaded"]
     for sub in ("core.mdp", "ops.returns", "ops.retrace_kernel",
-                "ops.continuous_policy", "envs.cartpole", "models.net",
+                "ops.continuous_policy", "ops.discrete_policy",
+                "ops.advantages", "envs.cartpole", "envs.pendulum",
+                "envs.acrobot", "envs.mountaincar", "models.net",
                 "models.optim", "models.convert", "replay.buffer",
                 "replay.collector", "algos.base", "algos.vracer",
+                "algos.dqn", "algos.naf", "algos.dpg", "algos.mixedpg",
                 "algos.registry", "runtime.trainer", "runtime.profile_main",
-                "utils.config"):
+                "utils.config", "utils.recipes", "launch"):
         assert "smarties_tpu_torch." + sub in res["submodules"], sub

@@ -1,0 +1,253 @@
+"""Port parity: the off-policy learners beyond V-RACER.
+
+Ten configurations of RACER (Gaussian and discrete advantage), DQN,
+NAF, DPG and MixedPG. For each, the JAX package builds the learner, its
+params and optimiser state and a replay of synthetic episodes shaped like
+the cart-pole's (continuous, or the two-label discrete variant), and
+initialises the replay's statistics and returns; everything goes through
+smarties_tpu_torch.models.convert into the port. Both frameworks then
+take 4 train steps on the same pinned (ep, t) samples (half of them just
+before a truncation, so the V(s_T) refresh runs) and the params, target
+params, optimiser state, metrics and replay write-backs are compared.
+The act functions are held against the JAX ones with train=False, and
+with train=True on the JAX draw injected into the port (the clipped
+normals through `noise`, the categorical draw through the uniform at the
+middle of the chosen option's CDF interval).
+
+Tolerances are those of test_torch_vracer.py: params rtol 1e-5 / atol
+1e-7, optimiser moments (and MixedPG's EMA factors) rtol 1e-3, policy
+quantities rtol 1e-4 / atol 1e-5, RACER's values (with the avg_v and
+rmse metrics) atol 2e-3 (its V passes through scale_net2v, which cancels
+two terms near 5100), other metrics rtol 1e-4 / atol 1e-6. The other
+learners' values are raw net outputs: rtol 1e-4 / atol 1e-6 there, which
+also shows a value read from the post-step weights of the in-place Adam
+step (it moves V by ~1e-5). Far counts and step counters are exact.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from smarties_tpu.algos.registry import make_learner as jmake
+from smarties_tpu.envs import cartpole as jc
+from smarties_tpu.ops import continuous_policy as jcp
+from smarties_tpu.replay import buffer as jrb
+from smarties_tpu.utils.config import HyperParameters as JHP
+from smarties_tpu_torch.algos.registry import make_learner as tmake
+from smarties_tpu_torch.envs import cartpole as tc
+from smarties_tpu_torch.models import convert
+from smarties_tpu_torch.models.net import tree_leaves
+from smarties_tpu_torch.utils.config import HyperParameters as THP
+
+from _torch_parity import (assert_replay_close, assert_tree_close,
+                           jax_replay_views, np32, tn, tt)
+
+E, L, B = 24, 20, 32
+BASE = dict(nnLayerSizes=[16, 16], batchSize=B, minTotObsNum=64,
+            maxTotObsNum=400, randSeed=0)
+PARAM_TOL = dict(rtol=1e-5, atol=1e-7)
+MOMENT_TOL = dict(rtol=1e-3, atol=1e-9)
+POLICY_TOL = dict(rtol=1e-4, atol=1e-5)
+VALUE_TOL = dict(rtol=1e-4, atol=2e-3)
+# values of the learners without scale_net2v (DQN, NAF, DPG, MixedPG):
+# tight enough to see one post-step weight read (an Adam step moves V by
+# ~1e-5 here)
+RAW_VALUE_TOL = dict(rtol=1e-4, atol=1e-6)
+
+# name: (discrete MDP?, settings)
+CASES = {
+    "racer_gaussian": (False, dict(learner="RACER")),
+    "racer_discrete": (True, dict(learner="RACER")),
+    "dqn_boltzmann_1step": (True, dict(learner="DQN", clipImpWeight=0.0,
+                                       targetDelay=2)),
+    "dqn_refer_retrace": (True, dict(learner="DQN", clipImpWeight=4.0,
+                                     returnsEstimator="retrace",
+                                     targetDelay=1e-3)),
+    "dqn_eps_greedy": (True, dict(learner="DQN", dqnEpsGreedy=True,
+                                  explNoise=0.1, clipImpWeight=0.0,
+                                  targetDelay=0.01)),
+    "naf": (False, dict(learner="NAF", returnsEstimator="retrace",
+                        targetDelay=1e-3)),
+    "naf_gaussian": (False, dict(learner="NAF", nafAdvGaussian=True,
+                                 clipImpWeight=0.0, targetDelay=0.01)),
+    "dpg_retrace": (False, dict(learner="DPG", returnsEstimator="retrace",
+                                encoderLayerSizes=[16], targetDelay=1e-3)),
+    "dpg_1step_ou": (False, dict(learner="DPG", clipImpWeight=0.0,
+                                 encoderLayerSizes=[16], targetDelay=0.01)),
+    "mixedpg": (False, dict(learner="MixedPG")),
+}
+
+
+def _mdp(discrete):
+    return (jc.discrete.MDP, tc.discrete.MDP) if discrete else (jc.MDP,
+                                                                tc.MDP)
+
+
+def _jax_replay(jmdp, clip):
+    """E slots of synthetic episodes (lengths 3..L, four full ones, half
+    terminal), committed by the JAX package."""
+    rng = np.random.RandomState(0)
+    V, L1 = E, L + 1
+    lens = rng.randint(3, L + 1, V).astype(np.int32)
+    lens[:4] = L
+    terminal = rng.rand(V) > 0.5
+    rew = np.zeros((V, L1), np.float32)
+    rho = np.zeros((V, L1), np.float32)
+    for v, n in enumerate(lens):
+        rew[v, 1:n + 1] = np32(rng.randn(n) + 1.0)
+        rho[v, :n] = 1.0
+    if jmdp.is_discrete:
+        n_opt = jmdp.max_action_label
+        acts = np32(rng.randint(0, n_opt, (V, L1, 1)))
+        p = np32(0.2 + rng.rand(V, L1, n_opt))
+        mus = p / p.sum(-1, keepdims=True)
+    else:
+        acts = np32(rng.randn(V, L1, 1))
+        mus = np.concatenate([np32(rng.randn(V, L1, 1) * 0.5),
+                              np32(0.3 + np.abs(rng.randn(V, L1, 1)) * 0.2)],
+                             -1)
+    rs = jrb.init_replay(E, L, 5, 1, jmdp.dim_policy, clip,
+                         mu_init=jrb.safe_mu(jmdp))
+    return jrb.commit_episodes(
+        rs, jnp.asarray(np32(rng.randn(V, L1, 5) * 0.5)), jnp.asarray(acts),
+        jnp.asarray(mus), jnp.asarray(rew),
+        jnp.asarray(np32(rng.randn(V, L1))), jnp.zeros((V, L1)),
+        jnp.zeros((V, L1)), jnp.asarray(rho), jnp.asarray(lens),
+        jnp.asarray(terminal), jnp.ones(V, bool), BASE["maxTotObsNum"],
+        "oldest")
+
+
+def _pinned(rs, seed, n_steps):
+    """Distinct (ep, t) pairs per step; half the batch at t = T-1."""
+    rng = np.random.RandomState(seed)
+    lens = np.asarray(rs.length)
+    valid = np.nonzero(np.asarray(rs.ep_id) >= 0)[0]
+    out = []
+    for _ in range(n_steps):
+        pairs = {(int(e), int(lens[e]) - 1)
+                 for e in rng.choice(valid, B // 2, replace=False)}
+        while len(pairs) < B:
+            e = int(rng.choice(valid))
+            pairs.add((e, int(rng.randint(0, lens[e]))))
+        out.append(tuple(np.asarray(x, np.int32) for x in zip(*sorted(pairs))))
+    return out
+
+
+def _setup(name):
+    discrete, extra = CASES[name]
+    jmdp, tmdp = _mdp(discrete)
+    d = dict(BASE, **extra)
+    jl, tl = jmake(jmdp, JHP(**d)), tmake(tmdp, THP(**d))
+    assert type(tl).__name__ == type(jl).__name__
+    params, opt = jl.init(jax.random.PRNGKey(0))
+    rs = jl.initialize_stats(_jax_replay(jmdp, JHP(**d).clipImpWeight))
+    return jl, tl, params, opt, rs
+
+
+def _opt_parts(opt):
+    """(Adam state, extra EMA fields or {}) of either optimiser state."""
+    if hasattr(opt, "adam"):
+        return opt.adam, {"dpg_factor": opt.dpg_factor,
+                          "err_q_factor": opt.err_q_factor}
+    return opt, {}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_four_train_steps(name):
+    jl, tl, params, opt, rs = _setup(name)
+    tp = convert.params_from_jax(jax.device_get(params))
+    to = convert.opt_state_from_jax(jax.device_get(opt))
+    tr = convert.replay_from_jax(jax_replay_views(rs))
+    jp, jo, jr = params, opt, rs
+    for ep, t in _pinned(rs, 2, 4):
+        jp, jo, jr, jm = jl.train_step(
+            jp, jo, jr, jax.random.PRNGKey(0),
+            sample_override=(jnp.asarray(ep), jnp.asarray(t)))
+        tp, to, tr, tm = tl.train_step(
+            tp, to, tr, sample_override=(tt(ep, torch.int32),
+                                         tt(t, torch.int32)))
+    assert_tree_close(tp, jax.device_get(jp), **PARAM_TOL)
+    (ja, jx), (ta, tx) = _opt_parts(jo), _opt_parts(to)
+    assert_tree_close(ta.m1, jax.device_get(ja.m1), **MOMENT_TOL)
+    assert_tree_close(ta.m2, jax.device_get(ja.m2), **MOMENT_TOL)
+    assert int(ta.step) == int(ja.step) == 4
+    np.testing.assert_allclose(float(ta.beta_t_1), float(ja.beta_t_1),
+                               rtol=1e-6)
+    assert_tree_close(tx, jax.device_get(jx), **MOMENT_TOL)
+    assert_replay_close(jr, tr, fields=("rho", "kl", "advantage"),
+                        **POLICY_TOL)
+    value_tol = VALUE_TOL if name.startswith("racer") else RAW_VALUE_TOL
+    assert_replay_close(jr, tr, fields=("delta", "value", "v_trunc",
+                                        "max_abs_error"), **value_tol)
+    assert_replay_close(jr, tr, fields=("far_count", "length", "ep_id"),
+                        rtol=0, atol=0)
+    assert_replay_close(jr, tr, fields=("beta", "alpha", "cmax_ret"),
+                        rtol=1e-5, atol=1e-7)
+    # V(s_T) was refreshed for the truncated slots that were sampled
+    assert (tn(tr.v_trunc) != np.asarray(rs.v_trunc)).any()
+    assert sorted(tm) == sorted(jm)
+    for k in jm:
+        tol = value_tol if k in ("avg_v", "rmse") else dict(rtol=1e-4,
+                                                             atol=1e-6)
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), err_msg=k,
+                                   **tol)
+    if isinstance(tp, dict) and "tgt" in tp:
+        assert not any(x.requires_grad for x in tree_leaves(tp["tgt"]))
+
+
+def _jax_noise(jl, key, out):
+    """The draw JAX's act made with `key`, as the port's `noise`: the
+    clipped normals, or a uniform inside the chosen option's interval."""
+    a, mu = out[0], np.asarray(out[1])
+    if not jl.mdp.is_discrete:
+        return tt(jcp.clipped_normal(key, np.asarray(a).shape))
+    o = np.asarray(a)[:, 0].astype(int)
+    c = np.cumsum(mu, -1)
+    p_o = np.take_along_axis(mu, o[:, None], -1)[:, 0]
+    return tt((np.take_along_axis(c, o[:, None], -1)[:, 0] - p_o / 2)
+              / c[:, -1])
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_act(name, train):
+    jl, tl, params, _, _ = _setup(name)
+    tp = convert.params_from_jax(jax.device_get(params))
+    rng = np.random.RandomState(3)
+    n = 16
+    obs = np32(rng.randn(n, 5))
+    if hasattr(jl, "init_rnn") and jl.init_rnn(n):
+        ou = np32(rng.randn(n, jl.mdp.dim_action))
+        jrnn, trnn = (jnp.asarray(ou),), (tt(ou),)
+    else:
+        jrnn, trnn = (), ()
+    key = jax.random.PRNGKey(5)
+    jout = jl.make_act_fn(train)(params, jnp.asarray(obs), key, jrnn)
+    noise = _jax_noise(jl, key, jout) if train else None
+    tout = tl.make_act_fn(train)(tp, tt(obs), None, trnn, noise=noise)
+    for what, got, want, tol in zip(
+            ("action", "mu", "value", "advantage"), tout[:4], jout[:4],
+            (POLICY_TOL, POLICY_TOL, VALUE_TOL, VALUE_TOL)):
+        np.testing.assert_allclose(tn(got), np.asarray(want), err_msg=what,
+                                   **tol)
+    assert len(tout[4]) == len(jout[4])
+    for got, want in zip(tout[4], jout[4]):
+        np.testing.assert_allclose(tn(got), np.asarray(want), **POLICY_TOL)
+
+
+def test_optimiser_state_round_trip():
+    """MixedPG's optimiser state and DQN's {"net", "tgt"} params cross
+    both ways."""
+    jl, _, params, opt, _ = _setup("mixedpg")
+    to = convert.opt_state_from_jax(jax.device_get(opt))
+    back = convert.opt_state_to_numpy(to)
+    assert sorted(back) == ["adam", "dpg_factor", "err_q_factor"]
+    again = convert.opt_state_from_jax(back)
+    assert_tree_close(again.adam.m1, back["adam"]["m1"], rtol=0, atol=0)
+    assert int(again.step) == int(opt.adam.step)
+    _, _, dparams, _, _ = _setup("dqn_refer_retrace")
+    tp = convert.params_from_jax(jax.device_get(dparams))
+    assert all(x.requires_grad for x in tree_leaves(tp["net"]))
+    assert not any(x.requires_grad for x in tree_leaves(tp["tgt"]))
+    assert_tree_close(tp, convert.params_to_jax(tp), rtol=0, atol=0)
