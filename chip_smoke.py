@@ -8,11 +8,16 @@ Phases, each reported on its own line:
    fallback). Prints `nvidia-smi --query-gpu=name,power.limit` and turns
    TF32 off for matmuls and cuDNN.
 2. kernels: builds K1 (csrc/retrace.cu) with nvcc from this checkout and
-   holds both entry points against their plain torch versions on the
-   card at [200, 37], [33, 22] and the main path's [4096, 501], in the
-   time-major layout the replay stores and in row-major, for Retrace and
-   GAE. Times kernel and plain version at [4096, 501] with CUDA events,
-   and turns the kernel's time into the bandwidth of the bytes it moves.
+   holds its three entry points against their plain torch versions on
+   the card at [200, 37], [33, 22] and the main path's [4096, 501], for
+   Retrace and GAE: `affine_suffix_scan` and `batched_retrace` in the
+   time-major layout the replay stores (bit-equal) and in row-major, the
+   in-place `retrace_sweep_` with a mixed, a full and an empty select,
+   both `zero_unselected` values and lengths 0 and L1-1 among the slots
+   (bit-equal). Times every entry point at [4096, 501] with CUDA events
+   on a cold L2 (runtime/bench_retrace.py's table: random and full
+   lengths, the ingest's 1024 of 4096 slots) beside the bound its bytes
+   set at 3.35 TB/s, a clone of as many bytes and the plain version.
 3. reference: the port on the card against the port on the CPU at a
    small size, from one state (8 train steps and a refresh, so K1 runs
    inside the pipeline against its plain version).
@@ -20,15 +25,16 @@ Phases, each reported on its own line:
    4096 slots x 501 steps, [128, 128] net, batch 256): warmup, two fused
    cycles (2048 grad steps, two 1000-step refreshes), one train() chunk
    and evaluate(32). Checks finiteness, the stored-step count, and that
-   K1 was launched at each of its four sites.
+   every call of K1's four sites made exactly one sweep launch.
 5. learners: RACER, RACER-discrete, DQN, NAF, DPG and MixedPG, each
    through the launcher (smarties_tpu_torch.launch.run) at its recipe's
    published widths and batch with 1024 envs: warmup, train(1000) timed
    with CUDA events (so the 1000-step refresh runs), evaluate(8, 200).
-   Checks finiteness and K1's launches at ingest, initialize_stats and
-   refresh on every Retrace path (DQN's recipe has no Retrace sweep: its
-   0 is measured and printed); then the port on the card against the port
-   on the CPU at a small size (4 pinned train steps and a refresh).
+   Checks finiteness and one sweep launch per call at ingest,
+   initialize_stats and refresh on every Retrace path (DQN's recipe has
+   no Retrace sweep: its 0 is measured and printed); then the port on
+   the card against the port on the CPU at a small size (4 pinned train
+   steps and a refresh).
 Then one JSON line with the kernels' results and, last, the device line.
 
 The script imports no JAX and nothing of the JAX package. Any failed
@@ -83,26 +89,6 @@ def phase_device():
     return card
 
 
-def _event_ms(fn, n, flush=None):
-    """Median ms of `fn` over n timed launches after 3 warm-up calls;
-    `flush` runs before each launch, outside the timed region."""
-    import torch
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(n):
-        if flush is not None:
-            flush()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        fn()
-        t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1))
-    return statistics.median(times)
-
-
 def _retrace_inputs(rng, E, L1, time_major, dev):
     import numpy as np
     import torch
@@ -122,11 +108,49 @@ def _retrace_inputs(rng, E, L1, time_major, dev):
     return r, v, adv, rho, b, lens, terms
 
 
+def _check_sweep(rng, E, L1, dev, check):
+    """`retrace_sweep_` against `retrace_sweep_plain_` on time-major
+    replay fields: Retrace and GAE, both zero_unselected values, a mixed,
+    a full and an empty select, lengths 0 and L1-1 among the slots."""
+    import numpy as np
+    import torch
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+    from smarties_tpu_torch.ops import returns as ret
+
+    def f32(*shape):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32),
+                               device=dev)
+
+    qret, r, v, adv = (f32(L1, E) for _ in range(4))
+    rho, v_trunc = torch.exp(f32(L1, E)), f32(E)
+    lens = rng.randint(0, L1, E)
+    lens[:2] = [0, L1 - 1]
+    lens = torch.as_tensor(lens.astype(np.int32), device=dev)
+    terms = torch.as_tensor(rng.rand(E) > 0.5, device=dev)
+    mean = torch.full((), 0.3, device=dev)
+    scale = torch.full((), 1.7, device=dev)
+    selects = {"mixed": torch.as_tensor(rng.rand(E) > 0.5, device=dev),
+               "all": torch.ones(E, dtype=torch.bool, device=dev),
+               "none": torch.zeros(E, dtype=torch.bool, device=dev)}
+    for mode in ("retrace", "GAE"):
+        for zero in (False, True):
+            for tag, select in selects.items():
+                got, want = qret.clone(), qret.clone()
+                for fn, q in ((rk.retrace_sweep_, got),
+                              (ret.retrace_sweep_plain_, want)):
+                    fn(q, r, v, adv, rho, v_trunc, lens, terms, select,
+                       mean, scale, 0.995, 0.95, mode, zero)
+                check("retrace_sweep", got, want,
+                      f"[{E},{L1}] {mode} select {tag} "
+                      f"zero_unselected={zero}", True)
+
+
 def phase_kernels():
     import numpy as np
     import torch
     from smarties_tpu_torch.ops import retrace_kernel as rk
     from smarties_tpu_torch.ops import returns as ret
+    from smarties_tpu_torch.runtime import bench_retrace as bench
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -136,20 +160,26 @@ def phase_kernels():
     print(f"kernels: K1 built in {build_s:.2f} s (nvcc "
           f"{'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'}) -> "
           f"{os.path.relpath(rk.build_info['path'])}", flush=True)
-    for line in rk.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    for line in bench.ptxas_lines():
+        print(f"  ptxas: {line}", flush=True)
 
     rng = np.random.RandomState(0)
-    err = {"affine_suffix_scan": 0.0, "batched_retrace": 0.0}
+    err = {"affine_suffix_scan": 0.0, "batched_retrace": 0.0,
+           "retrace_sweep": 0.0}
 
-    def check(name, got, want, what):
+    def check(name, got, want, what, exact):
         torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL,
-                                   msg=lambda m: f"{name} {what}: {m}")
+        if exact:
+            assert torch.equal(got, want), \
+                f"{name} {what}: not bit-equal to the plain version, " \
+                f"max |diff| {float((got - want).abs().max()):.3e}"
+        else:
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL,
+                                       msg=lambda m: f"{name} {what}: {m}")
         e = float((got - want).abs().max()) if got.numel() else 0.0
         err[name] = max(err[name], e)
-        print(f"  {name} {what}: max|kernel - plain| = {e:.3e}", flush=True)
+        print(f"  {name} {what}: max|kernel - plain| = {e:.3e}"
+              f"{' (bit-equal)' if exact else ''}", flush=True)
 
     for E, L1 in KERNEL_SHAPES:
         for tm in (True, False):
@@ -157,56 +187,41 @@ def phase_kernels():
             r, v, adv, rho, b, lens, terms = _retrace_inputs(rng, E, L1,
                                                              tm, dev)
             check("affine_suffix_scan", rk.affine_suffix_scan(r, b),
-                  ret.affine_suffix_scan_plain(r, b), f"[{E},{L1}] {lay}")
+                  ret.affine_suffix_scan_plain(r, b), f"[{E},{L1}] {lay}",
+                  tm)
             for mode in ("retrace", "GAE"):
                 args = (r, v, adv, rho, lens, terms, 0.995, 0.95, mode)
                 check("batched_retrace", rk.batched_retrace(*args),
                       ret.batched_retrace_plain(*args),
-                      f"[{E},{L1}] {lay} {mode}")
+                      f"[{E},{L1}] {lay} {mode}", tm)
+        _check_sweep(rng, E, L1, dev, check)
 
-    # times at the main path's shape and layout; the 64 MB scratch write
-    # evicts the 33 MB of inputs from the 50 MB L2, as at a refresh
-    r, v, adv, rho, b, lens, terms = _retrace_inputs(rng, MAIN_E, MAIN_L1,
-                                                     True, dev)
-    scratch = torch.empty(16 * 2 ** 20, device=dev)
-    flush = scratch.zero_
-    args = (r, v, adv, rho, lens, terms, 0.995, 0.95, "retrace")
-    times = {
-        "batched_retrace": (
-            _event_ms(lambda: rk.batched_retrace(*args), 50, flush),
-            _event_ms(lambda: ret.batched_retrace_plain(*args), 20, flush)),
-        "affine_suffix_scan": (
-            _event_ms(lambda: rk.affine_suffix_scan(r, b), 50, flush),
-            _event_ms(lambda: ret.affine_suffix_scan_plain(r, b), 20,
-                      flush)),
-    }
-    # bytes each kernel moves: batched_retrace reads r, V, A and rho at
-    # t = 1..length only (V[length] is the bootstrap), plus length and
-    # terminal, and writes all L1 steps; affine_suffix_scan reads a and b
-    # and writes q over all L1 steps
-    moved = {
-        "batched_retrace": (4 * int(lens.sum()) + MAIN_E * MAIN_L1) * 4
-                           + 5 * MAIN_E,
-        "affine_suffix_scan": 3 * MAIN_E * MAIN_L1 * 4,
-    }
-    gbps = {}
-    for name, (k_ms, p_ms) in times.items():
-        gbps[name] = moved[name] / (k_ms * 1e-3) / 1e9
-        print(f"kernels: {name} [{MAIN_E},{MAIN_L1}] time-major, cold L2: "
-              f"kernel {k_ms:.4f} ms | plain {p_ms:.4f} ms (median) | "
-              f"{moved[name]} B moved, {gbps[name]:.1f} GB/s", flush=True)
-    return {"build_s": build_s, "err": err, "times": times, "gbps": gbps}
+    # times at the main path's shape and layout, each launch on a cold L2
+    rows = bench.measure(dev, n=30)
+    for row in rows:
+        print(f"kernels: {bench.format_row(row)}", flush=True)
+    floor_ms = bench.launch_floor_ms(dev, n=30)
+    print(f"kernels: a launch that selects no slot {floor_ms:.4f} ms",
+          flush=True)
+    plain = bench.plain_ms(dev, n=10)
+    for name, ms in plain.items():
+        print(f"kernels: plain torch version of {name}, Retrace, random "
+              f"lengths: {ms:.4f} ms (median)", flush=True)
+    return {"build_s": build_s, "err": err, "rows": rows, "plain": plain,
+            "floor_ms": floor_ms}
 
 
 class SiteCounter:
-    """Attributes K1 launches to their sites by diffing the launch counter
-    around the trainer's three return-sweep callables. The ingest sweep
-    counts under `ingest_site`, which the main path sets per phase."""
+    """Attributes K1 launches to their sites by diffing the launch
+    counters around the trainer's three return-sweep callables: per site
+    the calls and the launches they made. The ingest sweep counts
+    under `ingest_site`, which the main path sets per phase."""
 
     def __init__(self, trainer, rk):
         self.rk = rk
         self.ingest_site = "ingest"
         self.sites = {}
+        self.calls = {}
         for attr, site in (("_fix_returns", "ingest"),
                            ("_init_stats", "initialize_stats"),
                            ("_refresh", "refresh")):
@@ -214,13 +229,26 @@ class SiteCounter:
 
     def _wrap(self, fn, site):
         def counted(*a, **kw):
-            n0 = self.rk.launches["batched_retrace"]
+            n0 = sum(self.rk.launches.values())
             out = fn(*a, **kw)
             key = self.ingest_site if site == "ingest" else site
             self.sites[key] = (self.sites.get(key, 0)
-                               + self.rk.launches["batched_retrace"] - n0)
+                               + sum(self.rk.launches.values()) - n0)
+            self.calls[key] = self.calls.get(key, 0) + 1
             return out
         return counted
+
+    def check_one_launch_per_call(self, counts, expected_sites, what):
+        """Every call of a site made exactly one launch, all of them
+        through the fused sweep, and every expected site was reached."""
+        for site in expected_sites:
+            assert self.sites.get(site, 0) > 0, \
+                f"{what}: K1 was not launched at the {site} site: " \
+                f"{self.sites}"
+        assert self.sites == self.calls, \
+            f"{what}: launches {self.sites} != calls {self.calls}"
+        assert counts["retrace_sweep"] == sum(self.sites.values()) \
+            == sum(counts.values()), (what, counts, self.sites)
 
 
 def _leaves(tree, prefix=""):
@@ -368,12 +396,9 @@ def phase_main_path():
     n_stored = int(tr.replay.n_stored_steps())
     assert n_stored > 0, n_stored
     assert tr.n_grad_steps - g0 >= 100 and g0 >= 2048, (g0, tr.n_grad_steps)
-    for site in ("warmup_train_ingest", "initialize_stats", "refresh",
-                 "fused_cycle_ingest"):
-        assert site_counts.get(site, 0) > 0, \
-            f"K1 was not launched at the {site} site: {site_counts}"
-    assert counts["batched_retrace"] == sum(site_counts.values()), \
-        (counts, site_counts)
+    sites.check_one_launch_per_call(
+        counts, ("warmup_train_ingest", "initialize_stats", "refresh",
+                 "fused_cycle_ingest"), "main")
 
     per_cycle = statistics.median(cycle_ms)
     print(f"main: fused cycle {cycle_ms[0]:.1f} / {cycle_ms[1]:.1f} ms "
@@ -385,7 +410,8 @@ def phase_main_path():
           f"{float(np.mean(rets)):.2f} | stored steps {n_stored} | "
           f"grad steps {tr.n_grad_steps} | env steps {tr.n_env_steps}",
           flush=True)
-    print(f"main: K1 launches {counts} by site {site_counts}", flush=True)
+    print(f"main: K1 launches {counts} by site {site_counts}, one per "
+          f"call of each site", flush=True)
     return {"cycle_ms": cycle_ms, "launches": counts, "sites": site_counts}
 
 
@@ -454,18 +480,16 @@ def phase_learners():
             assert torch.isfinite(m).all(), f"{name}: non-finite metric {k}"
         assert np.isfinite(rets).all() and rets.shape == (8,), (name, rets)
         assert hooks["steps"] >= LEARNER_STEPS, (name, hooks)
-        assert counts["batched_retrace"] == sum(sites.values()), \
-            (name, counts, sites)
         mode = tr.algo.returns_mode
         if mode == "none":
-            assert counts["batched_retrace"] == 0, (name, counts)
+            assert sum(counts.values()) == 0 == sum(sites.values()), \
+                (name, counts, sites)
             k1 = ("K1 launches 0, measured: returnsEstimator 'none' "
                   "(1-step targets) runs no Retrace sweep")
         else:
-            for site in ("ingest", "initialize_stats", "refresh"):
-                assert sites.get(site, 0) > 0, \
-                    f"{name}: K1 was not launched at the {site} site: {sites}"
-            k1 = f"K1 launches by site {sites}"
+            hooks["sites"].check_one_launch_per_call(
+                counts, ("ingest", "initialize_stats", "refresh"), name)
+            k1 = f"K1 sweep launches by site {sites}, one per call"
         worst = _card_vs_cpu(launch.env_module(app), _small_cfg(recipe), 4)
         shutil.rmtree(tr.run_dir)
         cfg = tr.cfg
@@ -483,7 +507,7 @@ def phase_learners():
               f"{k1} | card vs CPU max |diff| "
               + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()),
               flush=True)
-        results[name] = {"sites": sites, "launches": counts["batched_retrace"],
+        results[name] = {"sites": sites, "launches": counts["retrace_sweep"],
                          "ms_per_grad_step": ms_step,
                          "train_ms": hooks["train_ms"], "run_s": run_s,
                          "card_vs_cpu": worst}
@@ -498,32 +522,50 @@ def main():
     main_res = phase_main_path()
     learners = phase_learners()
     launches = main_res["launches"]
-    k_ms, p_ms = kern["times"]["batched_retrace"]
-    a_ms, ap_ms = kern["times"]["affine_suffix_scan"]
+
+    def row(entry, mode, case):
+        return next(r for r in kern["rows"] if (r["entry"], r["mode"],
+                                                r["case"]) == (entry, mode,
+                                                               case))
+
+    # per entry point: the Retrace case with random lengths (the affine
+    # scan has one case), which the plain version is timed at as well
+    entry_rows = {"retrace_sweep": row("retrace_sweep", "retrace", "random"),
+                  "batched_retrace": row("batched_retrace", "retrace",
+                                         "random"),
+                  "affine_suffix_scan": row("affine_suffix_scan", "-",
+                                            "all steps")}
+    entry_points = {
+        name: {"launches": launches[name],
+               "max_abs_err": kern["err"][name], "ms": r["ms"],
+               "plain_ms": kern["plain"][name], "bytes": r["bytes"],
+               "bound_ms": r["bound_ms"], "bound_by": "bytes",
+               "share_of_bound": r["share_of_bound"],
+               "device_loop_ms": r["loop_ms"], "clone_ms": r["clone_ms"],
+               "library_ms": None}
+        for name, r in entry_rows.items()}
+    sweep = entry_points["retrace_sweep"]
     print(json.dumps({"kernels": [{
         "name": "retrace_suffix_scan",
         "route": "cuda",
         "source": "smarties_tpu_torch/csrc/retrace.cu",
         "replaces": "smarties_tpu/ops/pallas_retrace.py:42",
-        "launches": launches["batched_retrace"],
+        # the main path reaches the kernel through the fused sweep only
+        "launches": sum(launches.values()),
         "max_abs_err": max(kern["err"].values()),
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "entry_points": {
-            "batched_retrace": {
-                "launches": launches["batched_retrace"],
-                "max_abs_err": kern["err"]["batched_retrace"],
-                "ms": k_ms, "plain_ms": p_ms,
-                "gb_per_s": kern["gbps"]["batched_retrace"]},
-            "affine_suffix_scan": {
-                "launches": launches["affine_suffix_scan"],
-                "max_abs_err": kern["err"]["affine_suffix_scan"],
-                "ms": a_ms, "plain_ms": ap_ms,
-                "gb_per_s": kern["gbps"]["affine_suffix_scan"]}},
+        "ms": sweep["ms"],
+        "plain_ms": sweep["plain_ms"],
+        "bound_ms": sweep["bound_ms"],
+        "bound_by": "bytes",
+        "share_of_bound": sweep["share_of_bound"],
+        "library_ms": None,
+        "entry_points": entry_points,
+        "cases": kern["rows"],
+        "launch_floor_ms": kern["floor_ms"],
         "build_s": kern["build_s"],
         "sites": {"vracer_main": main_res["sites"],
                   **{k: v["sites"] for k, v in learners.items()}},
-        "launches_by_path": {"vracer_main": launches["batched_retrace"],
+        "launches_by_path": {"vracer_main": launches["retrace_sweep"],
                              **{k: v["launches"]
                                 for k, v in learners.items()}},
     }]}), flush=True)

@@ -14,6 +14,9 @@ module holds the PLAIN torch form of that sweep (`retrace_coeffs`,
 `affine_suffix_scan_plain`, `batched_retrace_plain`): the CPU tests run
 it, `chip_smoke.py` holds the CUDA kernel against it, and
 `ops/retrace_kernel.py` calls it for tensors on the CPU.
+`retrace_sweep_plain_` is the plain form of the replay's fused in-place
+sweep (`ops/retrace_kernel.retrace_sweep_`): reward scaling, the v_trunc
+substitution, the recursion and the per-slot select in one function.
 `batched_return_estimate` dispatches retrace/GAE to that wrapper, which
 launches the CUDA kernel for CUDA tensors. retraceExplore is not affine
 and keeps the sequential recursion (`sequential_returns`).
@@ -87,6 +90,33 @@ def batched_retrace_plain(r_scaled, value, advantage, rho, length,
     q = affine_suffix_scan_plain(a, b)
     idx = torch.arange(r_scaled.shape[1], device=q.device)[None, :]
     return torch.where(idx <= length.long()[:, None], q, torch.zeros_like(q))
+
+
+def retrace_sweep_plain_(qret_tm, rewards_tm, value_tm, advantage_tm, rho_tm,
+                         v_trunc, slot_len, slot_term, select, rew_mean,
+                         rew_scale, gamma, lam, mode="retrace",
+                         zero_unselected=False):
+    """The replay's return sweep over its stored time-major [L1, E]
+    fields, written into `qret_tm` in place: the plain version of
+    `ops/retrace_kernel.retrace_sweep_`.
+
+    For every slot e with select[e]: rewards are scaled as
+    (r - rew_mean) * rew_scale, v_trunc[e] stands where the value at
+    t == length is read, and qret gets the Retrace/GAE recursion for
+    t <= length and 0 beyond. A slot that is not selected keeps its row,
+    or gets zeros when `zero_unselected`. Lengths are clamped to
+    [0, L1-1]. select must hold only slots whose v_trunc is current (the
+    valid ones). Returns qret_tm."""
+    L1 = qret_tm.shape[0]
+    ln = torch.clamp(slot_len, 0, L1 - 1)
+    t = torch.arange(L1, device=qret_tm.device)[:, None]
+    r_scaled = (rewards_tm - rew_mean) * rew_scale
+    value = torch.where(t == ln[None, :], v_trunc[None, :], value_tm)
+    q = batched_retrace_plain(r_scaled.t(), value.t(), advantage_tm.t(),
+                              rho_tm.t(), ln, slot_term, gamma, lam, mode).t()
+    other = torch.zeros_like(qret_tm) if zero_unselected else qret_tm
+    qret_tm.copy_(torch.where(select[None, :], q, other))
+    return qret_tm
 
 
 def sequential_returns(r_scaled, value, advantage, rho, length, terminal,

@@ -12,6 +12,8 @@ LAYOUT. The JAX package packs every per-step scalar into one record
 field instead, stored TIME-MAJOR, [L+1, E, ...] (the `*_tm` fields): the
 Retrace kernel (ops/retrace_kernel.py) walks t with one thread per slot,
 and in this layout a warp's loads at each t are 32 neighbouring slots.
+Both return sweeps hand the stored fields to that kernel's fused
+in-place entry point as they are: one launch per sweep.
 The public field views (`rewards`, `actions`, `mus`, `qret`, `rho`, `kl`,
 `delta`, `value`, `advantage`, `states`) return the JAX package's
 [E, L+1, ...] orientation as transposed views without a copy; `length`,
@@ -502,15 +504,29 @@ def update_state_rew_stats(rs: ReplayState, learn_rate, b_init: bool = False,
 # return-estimator sweeps (the four K1 sites go through these two)
 # ---------------------------------------------------------------------------
 
-def _returns_tm(rs: ReplayState, gamma, lam, mode):
-    """qret of every slot, time-major [L1, E]: the kernel reads the
-    replay's time-major fields through [E, L1] views, no copy."""
-    from smarties_tpu_torch.ops.returns import batched_return_estimate
-    qret = batched_return_estimate(
+def _sweep_returns_(rs: ReplayState, select, gamma, lam, mode,
+                    zero_unselected: bool):
+    """qret of the `select` slots, written into rs.qret_tm in place; the
+    other slots keep their row or, with `zero_unselected`, get zeros.
+
+    retrace/GAE: one call of the fused sweep over the stored time-major
+    fields (ops/retrace_kernel.retrace_sweep_: one kernel launch on CUDA
+    tensors, its plain version on the CPU). retraceExplore is not affine:
+    it keeps the sequential recursion on materialised inputs."""
+    if mode in ("retrace", "GAE"):
+        from smarties_tpu_torch.ops.retrace_kernel import retrace_sweep_
+        retrace_sweep_(rs.qret_tm, rs.rewards_tm, rs.value_tm,
+                       rs.advantage_tm, rs.rho_tm, rs.v_trunc, rs.slot_len,
+                       rs.slot_term, select, rs.rew_mean, rs.rew_scale,
+                       gamma, lam, mode, zero_unselected)
+        return
+    from smarties_tpu_torch.ops.returns import sequential_returns
+    q = sequential_returns(
         rs.scaled_rewards_tm().t(), rs.value_with_trunc_tm().t(),
         rs.advantage_tm.t(), rs.rho_tm.t(), rs.slot_len, rs.slot_term,
-        gamma, lam, mode, err_baseline=rs.max_abs_error)
-    return qret.t()
+        gamma, lam, mode, err_baseline=rs.max_abs_error).t()
+    other = torch.zeros_like(rs.qret_tm) if zero_unselected else rs.qret_tm
+    rs.qret_tm.copy_(torch.where(select[None, :], q, other))
 
 
 def refresh_new_returns(rs: ReplayState, gamma: float, lam: float,
@@ -518,11 +534,10 @@ def refresh_new_returns(rs: ReplayState, gamma: float, lam: float,
     """Return estimates for freshly-committed episodes only (qret_stale
     slots): the at-ingest Retrace of MemoryBuffer::terminateCurrentEpisode
     (MemoryBuffer.cpp:118-170), batched once per rollout chunk. Writes
-    qret in place."""
+    qret in place; the other slots' rows are neither read nor written."""
     if mode != "none":
-        sel = (rs.qret_stale & rs.valid_slots())[None, :]
-        rs.qret_tm.copy_(torch.where(sel, _returns_tm(rs, gamma, lam, mode),
-                                     rs.qret_tm))
+        _sweep_returns_(rs, rs.qret_stale & rs.valid_slots(), gamma, lam,
+                        mode, zero_unselected=False)
     rs.qret_stale.zero_()
     return rs
 
@@ -531,12 +546,12 @@ def recompute_returns(rs: ReplayState, gamma: float, lam: float,
                       mode: str = "retrace") -> ReplayState:
     """Backward recursion over every stored episode (at ingest and every
     1000 grad steps, MemoryProcessing.cpp:187-259, :460-481); also resyncs
-    the incremental far-policy counts exactly. Writes in place."""
+    the incremental far-policy counts exactly. Writes in place; empty
+    slots get zeros."""
     rs.far_count.copy_(far_count_exact(rs))
     rs.qret_stale.zero_()
     if mode == "none":
         return rs
-    valid = rs.valid_slots()[None, :]
-    rs.qret_tm.copy_(torch.where(valid, _returns_tm(rs, gamma, lam, mode),
-                                 torch.zeros_like(rs.qret_tm)))
+    _sweep_returns_(rs, rs.valid_slots(), gamma, lam, mode,
+                    zero_unselected=True)
     return rs

@@ -15,7 +15,13 @@ runs one fused cycle, and then times each part of a cycle alone:
   wall time per call, the device's busy time per call (the summed
   durations of its kernels, which run on one stream and do not
   overlap), the busy share of the profiled wall, and the CUDA kernel
-  launches and device kernels per call.
+  launches and device kernels per call;
+- the two return sweeps (the ingest's refresh_new_returns, with no
+  stale slot and with 1024 of them, and the 1000-step refresh) both
+  ways in this one run: through the fused in-place sweep, one K1 launch
+  per call, and through the composition it replaced (`composed_sweep_`:
+  scaled rewards and the v_trunc substitution materialised, K1's plain
+  device loop, a where and a copy), with the kernel launches of each.
 
 Needs a CUDA card (exits 2 without one). Imports no JAX.
 """
@@ -29,6 +35,8 @@ import torch
 
 from smarties_tpu_torch.algos.base import presample_uniform
 from smarties_tpu_torch.envs import cartpole
+from smarties_tpu_torch.ops import retrace_kernel as rk
+from smarties_tpu_torch.replay import buffer as rb
 from smarties_tpu_torch.runtime.trainer import Trainer
 from smarties_tpu_torch.utils.config import HyperParameters
 
@@ -81,6 +89,19 @@ def profile_calls(fn, n: int):
             "device_kernels": len(kernels) / n}
 
 
+def composed_sweep_(rs, select, gamma, lam, mode, zero_unselected):
+    """The replay's return sweep as it was composed before K1 had its
+    fused entry point (same signature as buffer._sweep_returns_): the
+    scaled rewards and the v_trunc substitution as full [L1, E] tensors,
+    K1's plain device loop over every slot, then a where and a copy."""
+    q = rk.batched_retrace(
+        rs.scaled_rewards_tm().t(), rs.value_with_trunc_tm().t(),
+        rs.advantage_tm.t(), rs.rho_tm.t(), rs.slot_len, rs.slot_term,
+        gamma, lam, mode, pipelined=False).t()
+    other = torch.zeros_like(rs.qret_tm) if zero_unselected else rs.qret_tm
+    rs.qret_tm.copy_(torch.where(select[None, :], q, other))
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_main: needs a CUDA card", file=sys.stderr)
@@ -127,14 +148,49 @@ def main():
         print(f"{name}: {ev:.3f} ms/call (events) | host enqueue "
               f"{enq:.3f} ms/call | host total {tot:.3f} ms/call (n={n})",
               flush=True)
-    for name, fn, n in (("train_step", train_step, 20),
-                        ("env sweep", roll, 5)):
+    def report_profile(name, fn, n):
         p = profile_calls(fn, n)
         print(f"profile {name}: wall {p['wall_ms']:.3f} ms/call (profiled) "
               f"| device busy {p['busy_ms']:.3f} ms/call | busy share "
               f"{p['busy_share']:.4f} | kernel launches/call "
               f"{p['launches']:.1f} | device kernels/call "
               f"{p['device_kernels']:.1f} (n={n})", flush=True)
+
+    for name, fn, n in (("train_step", train_step, 20),
+                        ("env sweep", roll, 5)):
+        report_profile(name, fn, n)
+
+    # the return sweeps, fused and as composed before, in turns
+    some_stale = torch.zeros_like(tr.replay.qret_stale)
+    some_stale[torch.randperm(
+        tr.replay.n_slots, generator=torch.Generator().manual_seed(0)
+    )[:1024].to(some_stale.device)] = True
+
+    def ingest_some_stale():
+        tr.replay.qret_stale.copy_(some_stale)   # one launch of its own
+        ingest()
+
+    sweeps = (("ingest sweep, no stale slot", ingest),
+              ("ingest sweep, 1024 stale slots (+1 launch to mark them)",
+               ingest_some_stale),
+              ("refresh", refresh))
+    fused = rb._sweep_returns_
+    for way, impl in (("composed", composed_sweep_), ("fused", fused),
+                      ("fused", fused), ("composed", composed_sweep_)):
+        rb._sweep_returns_ = impl
+        try:
+            for name, fn in sweeps:
+                fn()
+                k0 = sum(rk.launches.values())
+                ev, enq, tot = time_calls(fn, 20)
+                k1 = (sum(rk.launches.values()) - k0) / 20
+                print(f"{name} [{way}]: {ev:.3f} ms/call (events) | host "
+                      f"enqueue {enq:.3f} ms/call | host total {tot:.3f} "
+                      f"ms/call | K1 launches/call {k1:.1f} (n=20)",
+                      flush=True)
+                report_profile(f"{name} [{way}]", fn, 10)
+        finally:
+            rb._sweep_returns_ = fused
 
 
 if __name__ == "__main__":

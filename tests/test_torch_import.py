@@ -47,5 +47,5 @@ def test_port_imports_no_jax():
                 "replay.collector", "algos.base", "algos.vracer",
                 "algos.dqn", "algos.naf", "algos.dpg", "algos.mixedpg",
                 "algos.registry", "runtime.trainer", "runtime.profile_main",
-                "utils.config", "utils.recipes", "launch"):
+                "runtime.bench_retrace", "utils.config", "utils.recipes", "launch"):
         assert "smarties_tpu_torch." + sub in res["submodules"], sub

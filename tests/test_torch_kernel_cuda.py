@@ -7,9 +7,13 @@ there, skip the repository's conftest (which configures jax):
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_kernel_cuda.py
 
-Both entry points, row-major and time-major layouts, Retrace and GAE, at
+Every entry point, row-major and time-major layouts, Retrace and GAE, at
 the shapes of tests/test_pallas_retrace.py; rtol/atol 1e-4 as there
 (chip_smoke.py runs the same checks at the main path's [4096, 501]).
+The time-major pipeline and the in-place sweep keep the plain version's
+operations in its order, so those are held to torch.equal: slot counts
+that are no multiple of 32, lengths 0 and L1-1, a select of all, some
+and no slots.
 """
 import numpy as np
 import pytest
@@ -70,3 +74,93 @@ def test_kernel_rejects_mixed_layouts(cuda):
     with pytest.raises(ValueError):
         rk.batched_retrace(r, V, A, rho, lens.long(), terms, 0.995, 0.95,
                            "retrace")
+
+
+def _sweep_inputs(seed, E, L1, dev):
+    """Time-major replay fields with lengths 0 and L1-1 among them."""
+    rng = np.random.RandomState(seed)
+
+    def f32(*shape):
+        return torch.tensor(rng.randn(*shape).astype(np.float32), device=dev)
+
+    lens = rng.randint(0, L1, E)
+    lens[:3] = [0, L1 - 1, min(1, L1 - 1)]
+    return dict(
+        qret=f32(L1, E), r=f32(L1, E), v=f32(L1, E), adv=f32(L1, E),
+        rho=torch.exp(f32(L1, E)), v_trunc=f32(E),
+        lens=torch.tensor(lens, dtype=torch.int32, device=dev),
+        terms=torch.tensor(rng.rand(E) > 0.5, device=dev),
+        mean=torch.full((), 0.3, device=dev),
+        scale=torch.full((), 1.7, device=dev), rng=rng)
+
+
+def _sweep(fn, f, qret, select, mode, zero):
+    return fn(qret, f["r"], f["v"], f["adv"], f["rho"], f["v_trunc"],
+              f["lens"], f["terms"], select, f["mean"], f["scale"], 0.995,
+              0.95, mode, zero)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_unselected", [False, True])
+@pytest.mark.parametrize("mode", ["retrace", "GAE"])
+@pytest.mark.parametrize("shape", [(33, 22), (200, 37), (64, 70), (5, 1)])
+def test_sweep_matches_plain(cuda, shape, mode, zero_unselected):
+    E, L1 = shape
+    f = _sweep_inputs(2, E, L1, cuda)
+    selects = (torch.tensor(f["rng"].rand(E) > 0.5, device=cuda),
+               torch.zeros(E, dtype=torch.bool, device=cuda),
+               torch.ones(E, dtype=torch.bool, device=cuda))
+    for select in selects:
+        got, want = f["qret"].clone(), f["qret"].clone()
+        n0 = rk.launches["retrace_sweep"]
+        out = _sweep(rk.retrace_sweep_, f, got, select, mode,
+                     zero_unselected)
+        assert rk.launches["retrace_sweep"] == n0 + 1
+        assert out is got
+        _sweep(tret.retrace_sweep_plain_, f, want, select, mode,
+               zero_unselected)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), float((got - want).abs().max())
+        if not zero_unselected:     # unselected rows are left as they were
+            assert torch.equal(got[:, ~select], f["qret"][:, ~select])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(33, 22), (200, 37), (64, 70), (5, 1)])
+def test_pipeline_is_exact_and_equals_the_loop(cuda, shape):
+    """Time-major input: the async-copy pipeline, the same kernel's plain
+    loop and the plain torch version agree to the last bit."""
+    E, L1 = shape
+    f = _sweep_inputs(3, E, L1, cuda)
+    a, b = f["r"].t(), (f["rho"] * 0.1).t()
+    want = tret.affine_suffix_scan_plain(a, b)
+    for pipelined in (True, False):
+        assert torch.equal(rk.affine_suffix_scan(a, b, pipelined=pipelined),
+                           want)
+    for mode in ("retrace", "GAE"):
+        args = (f["r"].t(), f["v"].t(), f["adv"].t(), f["rho"].t(),
+                f["lens"], f["terms"], 0.995, 0.95, mode)
+        want = tret.batched_retrace_plain(*args)
+        for pipelined in (True, False):
+            got = rk.batched_retrace(*args, pipelined=pipelined)
+            torch.cuda.synchronize()
+            assert got.t().is_contiguous()      # time-major, as the input
+            assert torch.equal(got, want), (mode, pipelined)
+
+
+@pytest.mark.cuda
+def test_sweep_rejects_unsupported_input(cuda):
+    f = _sweep_inputs(4, 16, 9, cuda)
+    select = torch.ones(16, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):     # a transposed (slot-major) field
+        _sweep(rk.retrace_sweep_, dict(f, r=f["r"].t().contiguous().t()),
+               f["qret"], select, "retrace", False)
+    with pytest.raises(ValueError):     # reward scalars on the host
+        _sweep(rk.retrace_sweep_, dict(f, mean=torch.tensor(0.3)),
+               f["qret"], select, "retrace", False)
+    with pytest.raises(ValueError):
+        _sweep(rk.retrace_sweep_, f, f["qret"], select.to(torch.uint8),
+               "retrace", False)
+    with pytest.raises(ValueError):
+        _sweep(rk.retrace_sweep_, f, f["qret"], select, "retraceExplore",
+               False)

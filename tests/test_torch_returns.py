@@ -125,7 +125,8 @@ def test_cpu_branch_uses_plain_version_and_counts_nothing():
     a = tt(np.random.RandomState(5).randn(33, 22))
     assert torch.equal(rk.affine_suffix_scan(a, a * 0.5),
                        tret.affine_suffix_scan_plain(a, a * 0.5))
-    assert rk.launches == {"affine_suffix_scan": 0, "batched_retrace": 0}
+    assert rk.launches == {"affine_suffix_scan": 0, "batched_retrace": 0,
+                           "retrace_sweep": 0}
     assert rk._lib is None         # nothing compiled or loaded on the CPU
 
 
