@@ -9,15 +9,18 @@ Phases, each reported on its own line:
    TF32 off for matmuls and cuDNN.
 2. kernels: builds K1 (csrc/retrace.cu) with nvcc from this checkout and
    holds its three entry points against their plain torch versions on
-   the card at [200, 37], [33, 22] and the main path's [4096, 501], for
-   Retrace and GAE: `affine_suffix_scan` and `batched_retrace` in the
+   the card at [200, 37], [33, 22], the main path's [4096, 501] and the
+   [256, 501] and [1024, 501] of the PPO and GRU paths, for Retrace and
+   GAE: `affine_suffix_scan` and `batched_retrace` in the
    time-major layout the replay stores (bit-equal) and in row-major, the
    in-place `retrace_sweep_` with a mixed, a full and an empty select,
    both `zero_unselected` values and lengths 0 and L1-1 among the slots
    (bit-equal). Times every entry point at [4096, 501] with CUDA events
    on a cold L2 (runtime/bench_retrace.py's table: random and full
    lengths, the ingest's 1024 of 4096 slots) beside the bound its bytes
-   set at 3.35 TB/s, a clone of as many bytes and the plain version.
+   set at 3.35 TB/s, a clone of as many bytes and the plain version;
+   the sweep also at the PPO path's [256, 501] in GAE mode and the GRU
+   path's [1024, 501].
 3. reference: the port on the card against the port on the CPU at a
    small size, from one state (8 train steps and a refresh, so K1 runs
    inside the pipeline against its plain version).
@@ -35,6 +38,23 @@ Phases, each reported on its own line:
    no Retrace sweep: its 0 is measured and printed); then the port on
    the card against the port on the CPU at a small size (4 pinned train
    steps and a refresh).
+6. on-policy: PPO on cartpole and on cartpole_discrete through the
+   launcher at the recipe's widths (encoder [64] + heads [64], batch 64,
+   horizon 2048, 10 epochs) with the launcher's default 64 envs (at
+   1024 lanes one wave of a fresh policy's episodes exceeds the commit
+   cap of 4 horizons and fresh data would be pruned): two whole horizon
+   cycles (fill, 320 updates, the statistics refresh, clear_all), the
+   train chunks timed with CUDA events, evaluate(8, 200). Checks that
+   every K1 launch ran in GAE mode, one per ingest and one in
+   initialize_stats, and none in PPO's refresh; then the card against the
+   CPU at a small size.
+7. recurrent: RACER_RNN (LSTM [32, 32], BPTT 16, batch 128) on
+   cartpole.pomdp with the Trainer built as the main path's (1024 envs,
+   4096 slots x 501 steps, training from 16384 observations): warmup,
+   train(200), a refresh, evaluate(8, 200); the GRU recipe
+   VRACER_expensiveData the same way at 1024 slots.
+   Checks that every K1 launch ran in Retrace mode, one per site call;
+   then LSTM and GRU V-RACER on the card against the CPU at a small size.
 Then one JSON line with the kernels' results and, last, the device line.
 
 The script imports no JAX and nothing of the JAX package. Any failed
@@ -55,8 +75,12 @@ sys.path.insert(0, ROOT)
 # agreement of kernel and plain version, as tests/test_pallas_retrace.py
 RTOL = 1e-4
 ATOL = 1e-4
-KERNEL_SHAPES = ((200, 37), (33, 22), (4096, 501))
 MAIN_E, MAIN_L1 = 4096, 501
+# the replay shapes K1 meets on the other paths: PPO's 256 slots (GAE) and
+# the GRU recipe's 1024 (Retrace); the learners and RACER_RNN use MAIN_E
+PATH_SWEEPS = (("ppo", 256, "GAE"), ("vracer_gru", 1024, "retrace"))
+KERNEL_SHAPES = ((200, 37), (33, 22), (256, MAIN_L1), (1024, MAIN_L1),
+                 (MAIN_E, MAIN_L1))
 # the learners phase: (name, app, recipe as the launcher takes it)
 LEARNER_PATHS = (
     ("racer", "cartpole", "RACER"),
@@ -67,6 +91,16 @@ LEARNER_PATHS = (
     ("mixedpg", "cartpole", '{"learner": "MixedPG"}'),
 )
 LEARNER_ENVS, LEARNER_STEPS = 1024, 1000
+# the on-policy phase: two horizons of 320 updates each, 64 lanes
+PPO_PATHS = (("ppo", "cartpole"), ("ppo_discrete", "cartpole_discrete"))
+PPO_ENVS, PPO_STEPS = 64, 640
+# the recurrent phase: (name, recipe, replay slots, minTotObsNum); 1024
+# lanes each. RACER_RNN starts at the main path's 16384 observations (its
+# settings leave the default of 131072, which 4096 slots of a fresh
+# policy's short episodes cannot hold)
+RNN_PATHS = (("racer_rnn", "RACER_RNN", 4096, 16384),
+             ("vracer_gru", "VRACER_expensiveData", 1024, 4096))
+RNN_ENVS, RNN_STEPS = 1024, 200
 
 
 def phase_device():
@@ -207,8 +241,17 @@ def phase_kernels():
     for name, ms in plain.items():
         print(f"kernels: plain torch version of {name}, Retrace, random "
               f"lengths: {ms:.4f} ms (median)", flush=True)
+    path_rows = {}
+    for path, E, mode in PATH_SWEEPS:
+        r = path_rows[path] = bench.measure_sweep_at(dev, E, MAIN_L1, mode)
+        print(f"kernels: retrace_sweep {mode} at the {path} path's "
+              f"[{E}, {MAIN_L1}]: kernel {r['ms']:.4f} ms | plain torch "
+              f"version {r['plain_ms']:.4f} ms | {r['bytes']} B, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us, share of bound "
+              f"{r['share_of_bound']:.3f} | clone of as many bytes "
+              f"{r['clone_ms']:.4f} ms", flush=True)
     return {"build_s": build_s, "err": err, "rows": rows, "plain": plain,
-            "floor_ms": floor_ms}
+            "floor_ms": floor_ms, "path_rows": path_rows}
 
 
 class SiteCounter:
@@ -238,14 +281,19 @@ class SiteCounter:
             return out
         return counted
 
-    def check_one_launch_per_call(self, counts, expected_sites, what):
-        """Every call of a site made exactly one launch, all of them
+    def check_one_launch_per_call(self, counts, expected_sites, what,
+                                  no_sweep_sites=()):
+        """Every call of a site made exactly one launch (none at a
+        `no_sweep_sites` site, which must have been called), all of them
         through the fused sweep, and every expected site was reached."""
         for site in expected_sites:
             assert self.sites.get(site, 0) > 0, \
                 f"{what}: K1 was not launched at the {site} site: " \
                 f"{self.sites}"
-        assert self.sites == self.calls, \
+        want = {k: 0 if k in no_sweep_sites else n
+                for k, n in self.calls.items()}
+        assert set(no_sweep_sites) <= set(self.calls), (what, self.calls)
+        assert self.sites == want, \
             f"{what}: launches {self.sites} != calls {self.calls}"
         assert counts["retrace_sweep"] == sum(self.sites.values()) \
             == sum(counts.values()), (what, counts, self.sites)
@@ -514,6 +562,181 @@ def phase_learners():
     return results
 
 
+def _check_finite(name, tr, rets, n_eval):
+    import numpy as np
+    import torch
+    for k, p in _leaves(tr.params):
+        assert torch.isfinite(p).all(), f"{name}: non-finite param {k}"
+    for k, m in tr._last_metrics.items():
+        assert torch.isfinite(m).all(), f"{name}: non-finite metric {k}"
+    assert np.isfinite(rets).all() and rets.shape == (n_eval,), (name, rets)
+
+
+def _fmt_diffs(worst):
+    return ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+
+
+def phase_on_policy():
+    """PPO, continuous and discrete, through the launcher: two horizon
+    cycles each; the train chunks timed with CUDA events; K1 counted per
+    site and by mode; evaluate; the small-size reference against the
+    CPU."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from smarties_tpu_torch import launch
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+
+    runs = os.path.join(ROOT, "build", "chip_smoke_runs")
+    results = {}
+    for name, app in PPO_PATHS:
+        args = launch.parse_args([
+            app, "--recipe", "PPO", "--device", "cuda", "--nEnvironments",
+            str(PPO_ENVS), "--nTrainSteps", str(PPO_STEPS), "--runprefix",
+            runs, "--runname", name])
+        hooks = {"events": [], "cleared": [], "stored": []}
+
+        def prepare(tr):
+            tr.log_flush_threshold = 10 ** 9
+            hooks["sites"] = SiteCounter(tr, rk)
+            chunk, refresh = tr._train_chunk, tr._refresh
+
+            def timed_chunk(n):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = chunk(n)
+                e1.record()
+                hooks["events"].append((e0, e1, n))
+                return out
+
+            def watched_refresh(rs, n):
+                # the horizon as the updates saw it, before clear_all
+                hooks["stored"].append(rs.n_stored_steps())
+                return refresh(rs, n)
+
+            tr._train_chunk, tr._refresh = timed_chunk, watched_refresh
+
+        rk.reset_launches()
+        t0 = time.perf_counter()
+        tr = launch.run(args, prepare=prepare)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts, modes = dict(rk.launches), dict(rk.launch_modes)
+        sites, calls = dict(hooks["sites"].sites), dict(hooks["sites"].calls)
+        n_left = int(tr.replay.n_stored_steps())
+        rets = tr.evaluate(8, max_steps=200)
+
+        _check_finite(name, tr, rets, 8)
+        cfg, algo = tr.cfg, tr.algo
+        per_cycle = algo.n_epochs * algo.n_horizon // cfg.batchSize
+        steps = sum(n for _, _, n in hooks["events"])
+        assert tr.on_policy and algo.returns_mode == "GAE", name
+        assert steps == tr.n_grad_steps == PPO_STEPS == 2 * per_cycle, \
+            (name, steps, tr.n_grad_steps, per_cycle)
+        assert calls["refresh"] == 2 and calls["initialize_stats"] == 1, \
+            (name, calls)
+        stored = [int(x) for x in hooks["stored"]]
+        assert all(algo.n_horizon <= x <= 4 * algo.n_horizon
+                   for x in stored), (name, stored)
+        assert n_left == 0, f"{name}: replay not cleared: {n_left}"
+        hooks["sites"].check_one_launch_per_call(
+            counts, ("ingest", "initialize_stats"), name,
+            no_sweep_sites=("refresh",))
+        assert modes == {"retrace": 0, "GAE": counts["retrace_sweep"]}, \
+            (name, modes, counts)
+        train_ms = sum(e0.elapsed_time(e1) for e0, e1, _ in hooks["events"])
+        ms_step = train_ms / steps
+        worst = _card_vs_cpu(launch.env_module(app), _small_cfg("PPO"), 4)
+        shutil.rmtree(tr.run_dir)
+        print(f"on-policy: {name} (PPO, {app}, enc {cfg.encoderLayerSizes} "
+              f"+ {cfg.nnLayerSizes}, batch {cfg.batchSize}, horizon "
+              f"{algo.n_horizon}, {algo.n_epochs} epochs, {PPO_ENVS} envs): "
+              f"2 horizon cycles, {steps} updates {train_ms:.1f} ms by "
+              f"events ({ms_step:.3f} ms/grad step) | launch.run "
+              f"{run_s:.2f} s, {tr.n_env_steps} env steps, horizons held "
+              f"{stored} steps, cleared to {n_left} | evaluate(8, 200) mean "
+              f"return {float(np.mean(rets)):.2f} | K1 sweep launches by "
+              f"site {sites} of calls {calls}, by mode {modes} | card vs "
+              f"CPU max |diff| {_fmt_diffs(worst)}", flush=True)
+        results[name] = {"sites": sites, "launches": counts["retrace_sweep"],
+                         "modes": modes, "ms_per_grad_step": ms_step,
+                         "run_s": run_s, "card_vs_cpu": worst}
+    return results
+
+
+def phase_recurrent():
+    """The recurrent recipes on the no-velocity cart-pole, the Trainer
+    built directly at the main path's replay shape: warmup, train(n) by
+    CUDA events, a refresh, evaluate; K1 per site, all in Retrace mode;
+    then LSTM and GRU V-RACER on the card against the CPU."""
+    import numpy as np
+    import torch
+    from smarties_tpu_torch import launch
+    from smarties_tpu_torch.envs import cartpole
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+    from smarties_tpu_torch.runtime.trainer import Trainer
+
+    env = cartpole.pomdp
+    results = {}
+    for name, recipe, n_slots, min_obs in RNN_PATHS:
+        cfg = launch.load_recipe(recipe, 0)
+        cfg.minTotObsNum = min_obs
+        tr = Trainer(env, env.MDP, cfg, n_envs=RNN_ENVS, n_slots=n_slots,
+                     max_len=env.MAX_STEPS, device="cuda")
+        tr.log_flush_threshold = 10 ** 9
+        assert tr.algo_is_recurrent and tr.algo.spec.kind == cfg.nnType
+        assert tr.replay.rewards.shape == (n_slots, MAIN_L1)
+        sites = SiteCounter(tr, rk)
+        rk.reset_launches()
+        t0 = time.perf_counter()
+        tr.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        tr.train(RNN_STEPS, log_every=10 ** 9)
+        e1.record()
+        e1.synchronize()
+        train_s = time.perf_counter() - t0
+        train_ms = e0.elapsed_time(e1)
+        tr.carry = tr.carry._replace(
+            replay=tr._refresh(tr.replay, float(tr.n_grad_steps)))
+        counts, modes = dict(rk.launches), dict(rk.launch_modes)
+        rets = tr.evaluate(8, max_steps=200)
+
+        _check_finite(name, tr, rets, 8)
+        assert tr.n_grad_steps == RNN_STEPS, (name, tr.n_grad_steps)
+        sites.check_one_launch_per_call(
+            counts, ("ingest", "initialize_stats", "refresh"), name)
+        assert modes == {"retrace": counts["retrace_sweep"], "GAE": 0}, \
+            (name, modes, counts)
+        # the acting carry: one entry per layer, (h, c) pairs for the LSTM
+        assert len(tr.carry.rnn) == len(cfg.nnLayerSizes), name
+        worst = _card_vs_cpu(env, _small_cfg(recipe), 4)
+        ms_step = train_ms / RNN_STEPS
+        print(f"recurrent: {name} (VRacer, cartpole.pomdp, {cfg.nnType} "
+              f"{cfg.nnLayerSizes}, BPTT {cfg.nnBPTTseq}, batch "
+              f"{cfg.batchSize}, {RNN_ENVS} envs, {n_slots} x {MAIN_L1} "
+              f"slots): warmup {warm_s:.2f} s | train({RNN_STEPS}) "
+              f"{train_ms:.1f} ms by events ({ms_step:.3f} ms/grad step, "
+              f"host wall {train_s:.2f} s) | stored steps "
+              f"{int(tr.replay.n_stored_steps())} | evaluate(8, 200) mean "
+              f"return {float(np.mean(rets)):.2f} | K1 sweep launches by "
+              f"site {dict(sites.sites)}, one per call, by mode {modes} | "
+              f"card vs CPU max |diff| {_fmt_diffs(worst)}", flush=True)
+        results[name] = {"sites": dict(sites.sites),
+                         "launches": counts["retrace_sweep"], "modes": modes,
+                         "ms_per_grad_step": ms_step, "warmup_s": warm_s,
+                         "card_vs_cpu": worst}
+        del tr
+        torch.cuda.empty_cache()
+    return results
+
+
 def main():
     phase_device()
     import torch
@@ -521,6 +744,8 @@ def main():
     phase_reference()
     main_res = phase_main_path()
     learners = phase_learners()
+    learners.update(phase_on_policy())
+    learners.update(phase_recurrent())
     launches = main_res["launches"]
 
     def row(entry, mode, case):
@@ -561,6 +786,7 @@ def main():
         "library_ms": None,
         "entry_points": entry_points,
         "cases": kern["rows"],
+        "path_cases": kern["path_rows"],
         "launch_floor_ms": kern["floor_ms"],
         "build_s": kern["build_s"],
         "sites": {"vracer_main": main_res["sites"],
@@ -568,6 +794,8 @@ def main():
         "launches_by_path": {"vracer_main": launches["retrace_sweep"],
                              **{k: v["launches"]
                                 for k, v in learners.items()}},
+        "modes_by_path": {k: v["modes"] for k, v in learners.items()
+                          if "modes" in v},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

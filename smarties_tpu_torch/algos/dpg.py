@@ -1,6 +1,6 @@
 """DPG/DDPG: deterministic policy gradient with ReF-ER.
 
-Port of the feed-forward path of smarties_tpu/algos/dpg.py (reference:
+Port of smarties_tpu/algos/dpg.py (reference:
 Learners/DPG.{h,cpp}): an optional shared encoder (encoderLayerSizes,
 its output through nnFunc), an actor (mean + param-stdev exploration)
 and a Q-critic taking the action as an extra input; target nets on every
@@ -16,6 +16,13 @@ features, so it reaches only the actor. As in the JAX package
 (DEVIATIONS #3) the ONLINE critic is used, not the target one, and the
 1-step target reads r_{t+1}.
 
+With a recurrent nnType the recurrence lives in the shared encoder (one
+is synthesised from nnLayerSizes[0] when none is set: every encoder size
+is then a recurrent hidden layer, with a same-size projection out); the
+actor and critic heads stay feed-forward. Features at t and t+1 come
+from the truncated-BPTT window (algos/base.py); the encoder's carry
+follows the Ornstein-Uhlenbeck state in the acting carry.
+
 In place: the Adam step updates the leaves, so every value the step
 writes back (Q(s, a), V(s) = Q(s, pol(s)), the bootstrap) is computed
 from the pre-step weights, before the step, as the JAX package computes
@@ -25,15 +32,16 @@ from __future__ import annotations
 
 import torch
 
-from smarties_tpu_torch.algos.base import (Learner, check_ported,
-                                           default_metrics, explore,
-                                           grad_stats, ou_acting,
+from smarties_tpu_torch.algos.base import (Learner, bptt_window,
+                                           check_ported, default_metrics,
+                                           explore, grad_stats, ou_acting,
                                            post_step_processing,
-                                           returns_mode_of, target_copy,
-                                           write_back_with_next)
+                                           returns_mode_of, seq_outputs,
+                                           target_copy, write_back_with_next)
 from smarties_tpu_torch.core.mdp import MDPSpec
-from smarties_tpu_torch.models.net import (NetSpec, apply_net, init_params,
-                                           tree_leaves, tree_map)
+from smarties_tpu_torch.models.net import (NetSpec, apply_net, init_carry,
+                                           init_params, join, tree_leaves,
+                                           tree_map)
 from smarties_tpu_torch.models.optim import (AdamConfig, AdamState,
                                              adam_init, adam_step,
                                              update_target)
@@ -60,6 +68,27 @@ def split_adam_step(net, grads, opt: AdamState, part_cfgs, grad_factor):
     return AdamState(opt.m1, opt.m2, st.beta_t_1, st.beta_t_2, st.step)
 
 
+def shared_encoder(mdp, cfg):
+    """The shared encoder of DPG and PPO -> (recurrent?, its NetSpec or
+    None, the feature width the heads read, the heads' kind). Its last
+    size is its output, through nnFunc. A recurrent nnType puts the
+    recurrence in the encoder, synthesised from nnLayerSizes[0] when none
+    is set: every size is then a recurrent hidden layer, with a same-size
+    projection out, and the heads are feed-forward."""
+    recurrent = cfg.nnType in ("LSTM", "GRU", "RNN")
+    sizes = tuple(s for s in cfg.encoderLayerSizes if s > 0)
+    if recurrent and not sizes:
+        sizes = (cfg.nnLayerSizes[0],)
+    head_kind = "FFNN" if recurrent else cfg.nnType
+    if not sizes:
+        return recurrent, None, mdp.dim_net_input, head_kind
+    spec = NetSpec(n_in=mdp.dim_net_input,
+                   hidden=sizes if recurrent else sizes[:-1],
+                   n_out=sizes[-1], kind=cfg.nnType, act=cfg.nnFunc,
+                   out_prefac=1.0, out_act=cfg.nnFunc)
+    return recurrent, spec, sizes[-1], head_kind
+
+
 class DPG(Learner):
 
     def __init__(self, mdp: MDPSpec, cfg: HyperParameters):
@@ -69,23 +98,18 @@ class DPG(Learner):
         self.mdp = mdp
         self.cfg = cfg
         nA = mdp.dim_action
-        enc_sizes = tuple(s for s in cfg.encoderLayerSizes if s > 0)
-        self.has_enc = len(enc_sizes) > 0
-        feat = enc_sizes[-1] if self.has_enc else mdp.dim_net_input
+        self.recurrent, self.enc_spec, feat, head_kind = shared_encoder(
+            mdp, cfg)
+        self.has_enc = self.enc_spec is not None
         sig0 = float(cp.initial_sigma_raw(cfg.explNoise))
-        if self.has_enc:
-            self.enc_spec = NetSpec(
-                n_in=mdp.dim_net_input, hidden=enc_sizes[:-1],
-                n_out=enc_sizes[-1], kind=cfg.nnType, act=cfg.nnFunc,
-                out_prefac=1.0, out_act=cfg.nnFunc)
         self.actor_spec = NetSpec(
             n_in=feat, hidden=tuple(cfg.nnLayerSizes), n_out=nA,
-            kind=cfg.nnType, act=cfg.nnFunc,
+            kind=head_kind, act=cfg.nnFunc,
             out_prefac=cfg.outWeightsPrefac,
             n_param_out=nA, param_init=tuple([sig0] * nA))
         self.critic_spec = NetSpec(
             n_in=feat + nA, hidden=tuple(cfg.nnLayerSizes), n_out=1,
-            kind=cfg.nnType, act=cfg.nnFunc,
+            kind=head_kind, act=cfg.nnFunc,
             out_prefac=cfg.outWeightsPrefac)
         actor_adam = AdamConfig(eta=cfg.learnrate, lambda_=cfg.nnLambda,
                                 eps_anneal=cfg.epsAnneal)
@@ -103,9 +127,13 @@ class DPG(Learner):
         return {"net": net, "tgt": target_copy(net)}, adam_init(net)
 
     def init_rnn(self, n_envs: int, device=None):
-        """Per-env carry: (Ornstein-Uhlenbeck noise state [n_envs, nA],)."""
-        return (torch.zeros((n_envs, self.mdp.dim_action),
-                            dtype=torch.float32, device=device),)
+        """Per-env carry: (Ornstein-Uhlenbeck noise state [n_envs, nA],
+        *the encoder's recurrent carry)."""
+        ou = torch.zeros((n_envs, self.mdp.dim_action), dtype=torch.float32,
+                         device=device)
+        enc = (init_carry(self.enc_spec, (n_envs,), device)
+               if self.has_enc else ())
+        return (ou,) + enc
 
     # ------------------------------------------------------------------
     def _feat(self, net, x):
@@ -120,20 +148,25 @@ class DPG(Learner):
 
     def _critic(self, net, feat, action):
         q, _ = apply_net(net["critic"], self.critic_spec,
-                         torch.cat([feat, action], dim=-1))
+                         join(feat, action))
         return q[..., 0]
 
     # ------------------------------------------------------------------
     def make_act_fn(self, train: bool = True):
-        """act(params, obs_std, gen, rnn=(ou,), noise=None); `noise` is the
-        clipped-normal draw [V, nA] that replaces one from `gen`."""
+        """act(params, obs_std, gen, rnn=(ou, *encoder carry), noise=None);
+        `noise` is the clipped-normal draw [V, nA] that replaces one from
+        `gen`."""
         mdp = self.mdp
         sample, use_ou = ou_acting(self.cfg, train)
 
         @torch.no_grad()
         def act(params, obs_std, gen, rnn=(), noise=None):
             net = params["net"]
-            feat = self._feat(net, obs_std)
+            if self.has_enc:
+                feat, enc_carry = apply_net(net["enc"], self.enc_spec,
+                                            obs_std, rnn[1:])
+            else:
+                feat, enc_carry = obs_std, ()
             mean, sraw = self._actor(net, feat)
             ou = rnn[0] if rnn else torch.zeros_like(mean)
             sigma = cp.sigma_of(sraw)
@@ -146,7 +179,7 @@ class DPG(Learner):
             # appendValues(V = Q(s, pol(s)), Q = Q(s, a)) (DPG.cpp:100-105)
             v = self._critic(net, feat, mean)
             q = self._critic(net, feat, a)
-            return a, mu, v, q - v, (ou,)
+            return a, mu, v, q - v, (ou,) + enc_carry
 
         return act
 
@@ -159,8 +192,13 @@ class DPG(Learner):
         mb = self.sample_minibatch(rs, gen, sample_override)
         net, tgt = params["net"], params["tgt"]
 
-        # the objective's forward, with grad
-        feat = self._feat(net, mb.s_t)
+        # the objective's forward, with grad; a recurrent encoder runs the
+        # BPTT window and gives the features at t+1 (without grad) too
+        if self.recurrent:
+            window = bptt_window(rs, mb.ep, mb.t, cfg.nnBPTTseq)
+            feat, feat1_on = seq_outputs(net["enc"], self.enc_spec, *window)
+        else:
+            feat = self._feat(net, mb.s_t)
         q_taken = self._critic(net, feat, mb.action)
         m, sr = self._actor(net, feat)
         # dQ/da through the critic's action input only
@@ -174,15 +212,18 @@ class DPG(Learner):
             rho = cp.imp_weight(mb.action, mean, sigma, mb.mu, bounded)
             dkl = cp.kl_div(mb.mu, mean, sigma)
             is_far = rb.is_far_policy(rho, rs.cmax_ret, rs.cinv_ret)
-            if self.returns_mode != "none":
-                target = mb.qret
-                boot_net = net
+            boot_net = net if self.returns_mode != "none" else tgt
+            if not self.recurrent:
+                feat1 = self._feat(boot_net, mb.s_t1)
+            elif boot_net is net:
+                feat1 = feat1_on
             else:
-                boot_net = tgt
-            feat1 = self._feat(boot_net, mb.s_t1)
+                feat1 = seq_outputs(tgt["enc"], self.enc_spec, *window)[1]
             v_next = self._critic(boot_net, feat1,
                                   self._actor(boot_net, feat1)[0])
-            if self.returns_mode == "none":
+            if self.returns_mode != "none":
+                target = mb.qret
+            else:
                 target = mb.reward_next + torch.where(
                     mb.terminal_next | is_far, torch.zeros_like(v_next),
                     cfg.gamma * v_next)

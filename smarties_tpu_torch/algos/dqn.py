@@ -13,18 +13,23 @@ the reference reads r_t (DQN.cpp:174, an off-by-one).
 
 params = {"net", "tgt"}; the target leaves do not require grad and are
 updated in place (models/optim.py::update_target).
+
+A recurrent nnType carries the recurrence in the single net: the online
+and the target net both run the truncated-BPTT window (algos/base.py).
 """
 from __future__ import annotations
 
 import torch
 
-from smarties_tpu_torch.algos.base import (Learner, backprop, check_ported,
-                                           default_metrics, grad_stats,
-                                           post_step_processing,
-                                           returns_mode_of, target_copy,
+from smarties_tpu_torch.algos.base import (Learner, backprop, bptt_window,
+                                           check_ported, default_metrics,
+                                           grad_stats, post_step_processing,
+                                           returns_mode_of, seq_forward_vjp,
+                                           seq_outputs, target_copy,
                                            write_back_with_next)
 from smarties_tpu_torch.core.mdp import MDPSpec
-from smarties_tpu_torch.models.net import NetSpec, apply_net, init_params
+from smarties_tpu_torch.models.net import (NetSpec, apply_net, init_carry,
+                                           init_params)
 from smarties_tpu_torch.models.optim import (AdamConfig, AdamState,
                                              adam_init, adam_step,
                                              update_target)
@@ -74,6 +79,10 @@ class DQN(Learner):
         net = init_params(gen, self.spec, device)
         return {"net": net, "tgt": target_copy(net)}, adam_init(net)
 
+    def init_rnn(self, n_envs: int, device=None):
+        """Per-env acting carry: the net's recurrent state, () for FFNN."""
+        return init_carry(self.spec, (n_envs,), device)
+
     def _value(self, qs):
         return (_greedy_expected_value(qs, qs) if self.eps_greedy
                 else _soft_expected_value(qs, qs))
@@ -113,19 +122,33 @@ class DQN(Learner):
         cfg, spec = self.cfg, self.spec
         mb = self.sample_minibatch(rs, gen, sample_override)
         net, tgt = params["net"], params["tgt"]
-        qs_g, _ = apply_net(net, spec, mb.s_t)
+        if spec.is_recurrent:
+            xs, active = bptt_window(rs, mb.ep, mb.t, cfg.nnBPTTseq)
+            qs, q_hat_next, pullback = seq_forward_vjp(net, spec, xs,
+                                                       active)
+        else:
+            qs_g, _ = apply_net(net, spec, mb.s_t)
+            qs = qs_g.detach()
+            with torch.no_grad():
+                q_hat_next, _ = apply_net(net, spec, mb.s_t1)
+
+            def pullback(g):
+                return backprop(net, qs_g, g)
+
         with torch.no_grad():
             opt = mb.action[..., 0].long()
-            qs = qs_g.detach()
-            q_hat_next, _ = apply_net(net, spec, mb.s_t1)
             q_a = torch.gather(qs, -1, opt[:, None])[..., 0]
             exp_val = (_greedy_expected_value if self.eps_greedy
                        else _soft_expected_value)
             if self.use_retrace:
                 td_error = mb.qret - q_a
             else:
-                q_tilde_next = (apply_net(tgt, spec, mb.s_t1)[0]
-                                if self.use_target else q_hat_next)
+                if not self.use_target:
+                    q_tilde_next = q_hat_next
+                elif spec.is_recurrent:
+                    q_tilde_next = seq_outputs(tgt, spec, xs, active)[1]
+                else:
+                    q_tilde_next = apply_net(tgt, spec, mb.s_t1)[0]
                 # double-Q: select with the online net, evaluate with target
                 boot = exp_val(q_hat_next, q_tilde_next)
                 target = mb.reward_next + torch.where(
@@ -156,7 +179,7 @@ class DQN(Learner):
                     is_far = torch.zeros_like(rho, dtype=torch.bool)
             v_val = self._value(qs)
 
-        grads = backprop(net, qs_g, g)
+        grads = pullback(g)
         _, opt_state = adam_step(net, grads, opt_state, self.adam_cfg,
                                  1.0 / cfg.batchSize)
         update_target(net, tgt, cfg.targetDelay, opt_state.step)

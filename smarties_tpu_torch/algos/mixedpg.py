@@ -52,6 +52,10 @@ class MixedPG(Learner):
     def __init__(self, mdp: MDPSpec, cfg: HyperParameters):
         if mdp.is_discrete:
             raise ValueError("MixedPG requires continuous actions")
+        if cfg.nnType != "FFNN":
+            # the JAX package's MixedPG has no BPTT window either
+            raise ValueError(f"MixedPG has no recurrent path: nnType "
+                             f"{cfg.nnType!r}")
         check_ported(mdp, cfg)
         self.mdp = mdp
         self.cfg = cfg

@@ -17,19 +17,24 @@ HardSigmoid into [0, 1] while actions stay in the unbounded learner space
 
 Acting with clipImpWeight <= 0 uses Ornstein-Uhlenbeck noise; its state is
 slot 0 of the per-env carry, which the collector zeroes at episode ends.
+A recurrent nnType carries the recurrence in the single net: its carry
+follows the OU state, and the online and target nets both run the
+truncated-BPTT window (algos/base.py).
 """
 from __future__ import annotations
 
 import torch
 
-from smarties_tpu_torch.algos.base import (Learner, backprop, check_ported,
-                                           default_metrics, explore,
-                                           grad_stats, ou_acting,
+from smarties_tpu_torch.algos.base import (Learner, backprop, bptt_window,
+                                           check_ported, default_metrics,
+                                           explore, grad_stats, ou_acting,
                                            post_step_processing,
-                                           returns_mode_of, target_copy,
+                                           returns_mode_of, seq_forward_vjp,
+                                           seq_outputs, target_copy,
                                            write_back_with_next)
 from smarties_tpu_torch.core.mdp import MDPSpec
-from smarties_tpu_torch.models.net import NetSpec, apply_net, init_params
+from smarties_tpu_torch.models.net import (NetSpec, apply_net, init_carry,
+                                           init_params)
 from smarties_tpu_torch.models.optim import (AdamConfig, AdamState,
                                              adam_init, adam_step,
                                              update_target)
@@ -78,9 +83,11 @@ class NAF(Learner):
         return {"net": net, "tgt": target_copy(net)}, adam_init(net)
 
     def init_rnn(self, n_envs: int, device=None):
-        """Per-env carry: (Ornstein-Uhlenbeck noise state [n_envs, nA],)."""
-        return (torch.zeros((n_envs, self.mdp.dim_action),
-                            dtype=torch.float32, device=device),)
+        """Per-env carry: (Ornstein-Uhlenbeck noise state [n_envs, nA],
+        *the net's recurrent carry)."""
+        ou = torch.zeros((n_envs, self.mdp.dim_action), dtype=torch.float32,
+                         device=device)
+        return (ou,) + init_carry(self.spec, (n_envs,), device)
 
     def _split(self, out):
         nA = self.mdp.dim_action
@@ -106,14 +113,15 @@ class NAF(Learner):
 
     # ------------------------------------------------------------------
     def make_act_fn(self, train: bool = True):
-        """act(params, obs_std, gen, rnn=(ou,), noise=None); `noise` is the
-        clipped-normal draw [V, nA] that replaces one from `gen`."""
+        """act(params, obs_std, gen, rnn=(ou, *net carry), noise=None);
+        `noise` is the clipped-normal draw [V, nA] that replaces one from
+        `gen`."""
         spec, mdp = self.spec, self.mdp
         sample, use_ou = ou_acting(self.cfg, train)
 
         @torch.no_grad()
         def act(params, obs_std, gen, rnn=(), noise=None):
-            out, _ = apply_net(params["net"], spec, obs_std)
+            out, carry = apply_net(params["net"], spec, obs_std, rnn[1:])
             v, l_out, mean, sraw = self._split(out)
             ou = rnn[0] if rnn else torch.zeros_like(mean)
             sigma = cp.sigma_of(sraw)
@@ -123,7 +131,8 @@ class NAF(Learner):
             else:
                 a = cp.eff_mean(mean, bounded)
             mu = cp.mu_vector(mean, sigma, bounded)
-            return a, mu, v, self._advantage(l_out, mean, a, sigma), (ou,)
+            return a, mu, v, self._advantage(l_out, mean, a, sigma), \
+                (ou,) + carry
 
         return act
 
@@ -135,9 +144,18 @@ class NAF(Learner):
         cfg, spec = self.cfg, self.spec
         mb = self.sample_minibatch(rs, gen, sample_override)
         net, tgt = params["net"], params["tgt"]
-        out_g, _ = apply_net(net, spec, mb.s_t)
+        if spec.is_recurrent:
+            xs, active = bptt_window(rs, mb.ep, mb.t, cfg.nnBPTTseq)
+            out, out_next, pullback = seq_forward_vjp(net, spec, xs, active)
+        else:
+            out_g, _ = apply_net(net, spec, mb.s_t)
+            out = out_g.detach()
+
+            def pullback(g):
+                return backprop(net, out_g, g)
+
         with torch.no_grad():
-            v, l_out, mean, sraw = self._split(out_g.detach())
+            v, l_out, mean, sraw = self._split(out)
             bounded = self.mdp.consts(mean)[1]
             sigma = cp.sigma_of(sraw)
             rho = cp.imp_weight(mb.action, mean, sigma, mb.mu, bounded)
@@ -147,9 +165,12 @@ class NAF(Learner):
             is_far = rb.is_far_policy(rho, rs.cmax_ret, rs.cinv_ret)
             if self.returns_mode != "none":
                 target = mb.qret
-                v_next = apply_net(net, spec, mb.s_t1)[0][..., 0]
+                v_next = (out_next if spec.is_recurrent
+                          else apply_net(net, spec, mb.s_t1)[0])[..., 0]
             else:
-                v_next = apply_net(tgt, spec, mb.s_t1)[0][..., 0]
+                v_next = (seq_outputs(tgt, spec, xs, active)[1]
+                          if spec.is_recurrent
+                          else apply_net(tgt, spec, mb.s_t1)[0])[..., 0]
                 target = mb.reward_next + torch.where(
                     mb.terminal_next | is_far, torch.zeros_like(v_next),
                     cfg.gamma * v_next)
@@ -171,7 +192,7 @@ class NAF(Learner):
             g_s = softplus_diff(sraw) * (cfg.explNoise - sigma) / 2
             g = torch.cat([error[:, None], g_l, g_m, g_s], dim=-1)
 
-        grads = backprop(net, out_g, g)
+        grads = pullback(g)
         _, opt_state = adam_step(net, grads, opt_state, self.adam_cfg,
                                  1.0 / cfg.batchSize)
         update_target(net, tgt, cfg.targetDelay, opt_state.step)

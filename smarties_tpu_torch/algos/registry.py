@@ -2,8 +2,9 @@
 
 Port of smarties_tpu/algos/registry.py (reference AlgoFactory,
 Learners/AlgoFactory.cpp:60-340) for the learners the port has: the RACER
-family (V-RACER, RACER, RACER-discrete), DQN/NFQ, NAF, DPG/DDPG and
-MixedPG. The others raise NotImplementedError naming their ROADMAP item.
+family (V-RACER, RACER, RACER-discrete), DQN/NFQ, NAF, DPG/DDPG,
+MixedPG and PPO. The others raise NotImplementedError naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -34,8 +35,8 @@ def make_learner(mdp: MDPSpec, cfg: HyperParameters):
         from smarties_tpu_torch.algos.mixedpg import MixedPG
         return MixedPG(mdp, cfg)
     if name in ("PPO", "GAE"):
-        raise NotImplementedError(
-            f"learner {name!r}: on-policy PPO is not ported yet (ROADMAP B4)")
+        from smarties_tpu_torch.algos.ppo import PPO
+        return PPO(mdp, cfg)
     if name == "ACER":
         if mdp.is_discrete:
             raise ValueError(

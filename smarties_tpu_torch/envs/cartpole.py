@@ -8,7 +8,7 @@ hidden (cos/sin observed), bounded 1-D force in [-10, 10], reward
 Every function is a tensor function over a leading env axis [n_envs, 4].
 Initial conditions come from an explicit torch.Generator, or are injected
 (`u_new`) so tests can hand both frameworks the same draws. `discrete` is
-the two-label variant.
+the two-label variant, `pomdp` the one with the velocities hidden.
 """
 from __future__ import annotations
 
@@ -112,6 +112,23 @@ def reset_where(state: CartPoleState, mask: torch.Tensor,
     u = torch.where(mask[:, None], u_new, state.u)
     stp = torch.where(mask, torch.zeros_like(state.step), state.step)
     return CartPoleState(u=u, step=stp)
+
+
+class pomdp:
+    """No-velocity cart-pole (smarties_tpu/envs/cartpole.py:105-122): only
+    [x, cos(angle), sin(angle)] are observable, the partially observed
+    task the RACER_RNN recipe targets (README.rst:352): a feed-forward
+    net cannot infer the velocities, a recurrent one must carry them."""
+
+    MDP = MDPSpec(dim_state=6, dim_action=1, bounded=(True,),
+                  upper_action=(10.0,), lower_action=(-10.0,),
+                  observable=(True, False, False, False, True, True))
+    MAX_STEPS = MAX_STEPS
+
+    init = staticmethod(init)
+    observe = staticmethod(observe)
+    reset_where = staticmethod(reset_where)
+    step = staticmethod(step)
 
 
 class discrete:

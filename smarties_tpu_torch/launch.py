@@ -8,6 +8,9 @@ trainer (checkpoint.pt).
 
     python -m smarties_tpu_torch.launch cartpole --recipe VRACER \\
         --device cuda --runname r0 --nEnvironments 64 --nTrainSteps 100000
+    python -m smarties_tpu_torch.launch cartpole --recipe PPO --device cuda
+    python -m smarties_tpu_torch.launch cartpole_pomdp --recipe RACER_RNN \\
+        --device cuda --nEnvironments 1024
 
 --device is required: nothing picks the CPU when a card is missing.
 --recipe takes a name from utils/recipes.py or a settings json (a path
@@ -26,8 +29,10 @@ from typing import Callable, Optional
 from smarties_tpu_torch.utils.config import HyperParameters
 from smarties_tpu_torch.utils.recipes import RECIPES
 
-BUILTIN_ENVS = ("cartpole", "cartpole_discrete", "pendulum", "acrobot",
-                "mountaincar")
+# cartpole_pomdp (velocities hidden, the recurrent recipes' task) is the
+# port's own app name: the JAX launcher has the env but no name for it
+BUILTIN_ENVS = ("cartpole", "cartpole_discrete", "cartpole_pomdp",
+                "pendulum", "acrobot", "mountaincar")
 # built-in apps of the JAX launcher that the port does not have yet
 NOT_PORTED_APPS = {"glider": "B10", "predator_prey": "B10", "catch": "B6"}
 
@@ -64,8 +69,8 @@ def env_module(app: str):
     from smarties_tpu_torch.envs import acrobot, cartpole, mountaincar, \
         pendulum
     return {"cartpole": cartpole, "cartpole_discrete": cartpole.discrete,
-            "pendulum": pendulum, "acrobot": acrobot,
-            "mountaincar": mountaincar}[app]
+            "cartpole_pomdp": cartpole.pomdp, "pendulum": pendulum,
+            "acrobot": acrobot, "mountaincar": mountaincar}[app]
 
 
 def load_recipe(recipe: str, seed: int) -> HyperParameters:
@@ -113,14 +118,16 @@ def make_trainer(args: argparse.Namespace):
 
 def run(args: argparse.Namespace,
         prepare: Optional[Callable] = None):
-    """Build the trainer, gather minTotObsNum observations, take
-    nTrainSteps grad steps and save runs/<runname>/checkpoint.pt.
+    """Build the trainer, gather minTotObsNum observations (off-policy
+    learners only: an on-policy one fills its own horizon in train()),
+    take nTrainSteps grad steps and save runs/<runname>/checkpoint.pt.
     prepare(trainer), when given, runs before the warmup (chip_smoke.py
     attaches its launch counters and timers there). Returns the Trainer."""
     tr = make_trainer(args)
     if prepare is not None:
         prepare(tr)
-    tr.warmup()
+    if not tr.on_policy:
+        tr.warmup()
     tr.train(args.nTrainSteps)
     tr.save(os.path.join(tr.run_dir, "checkpoint.pt"))
     return tr

@@ -6,13 +6,18 @@ smarties_tpu/runtime/trainer.py:750-771). These functions take and
 return numpy dicts and never import jax, so a JAX-trained state moves
 into the port (and parameters back) without the JAX runtime.
 
-- params: the same nested dict on both sides ({"layers": [{"W", "b"}],
-  "out": {"W", "b"}, "param"}), W as [in, out] in both, so conversion is
-  a leaf-wise copy. The learners nest these: {"net", "tgt"} (DQN, NAF,
+- params: the same nested dict on both sides ({"layers": [layer, ...],
+  "out": {"W", "b"}, "param"}; a layer is {"W", "b"}, with "R" for an
+  RNN, the twelve per-gate leaves of an LSTM or the six of a GRU, see
+  models/net.py), every weight as [in, out] in both, so conversion is a
+  leaf-wise copy. The learners nest these: {"net", "tgt"} (DQN, NAF,
   DPG; the target leaves come out without grad) and {"actor", "critic",
-  "enc"} (DPG, MixedPG).
+  "enc"} (DPG, MixedPG, PPO).
 - optimiser state: Adam's m1/m2 trees plus beta_t_1, beta_t_2 and step;
-  MixedPG's adds dpg_factor and err_q_factor around it.
+  MixedPG's adds dpg_factor and err_q_factor around it, PPO's penal_coef
+  and dkl_target.
+- acting carries: tuples of arrays, an LSTM layer's entry the pair
+  (h, c); `carry_from_numpy` / `carry_to_numpy` keep that nesting.
 - replay: built from the JAX ReplayState's FIELD VIEWS (not its packed
   record): `REPLAY_FIELDS` lists the keys, each an array in the JAX
   orientation ([E, L+1, ...] per step, [E] per slot, scalars).
@@ -98,19 +103,23 @@ def _get(obj, k):
 
 
 def opt_state_from_jax(opt_np, device=None):
-    """numpy optimiser state -> the port's: an AdamState, or MixedPG's
-    MixedPGOptState(adam, dpg_factor, err_q_factor) (namedtuples or
-    dicts with those keys)."""
-    from smarties_tpu_torch.algos.mixedpg import MixedPGOptState
+    """numpy optimiser state -> the port's: an AdamState, MixedPG's
+    MixedPGOptState(adam, dpg_factor, err_q_factor) or PPO's
+    PPOOptState(adam, penal_coef, dkl_target) (namedtuples or dicts with
+    those keys)."""
     has = (lambda k: k in opt_np) if isinstance(opt_np, dict) \
         else (lambda k: hasattr(opt_np, k))
     if not has("adam"):
         return adam_state_from_jax(opt_np, device)
-    return MixedPGOptState(
-        adam=adam_state_from_jax(_get(opt_np, "adam"), device),
-        dpg_factor=_copy(_get(opt_np, "dpg_factor"), torch.float32, device),
-        err_q_factor=_copy(_get(opt_np, "err_q_factor"), torch.float32,
-                           device))
+    if has("penal_coef"):
+        from smarties_tpu_torch.algos.ppo import PPOOptState as cls
+        extra = ("penal_coef", "dkl_target")
+    else:
+        from smarties_tpu_torch.algos.mixedpg import MixedPGOptState as cls
+        extra = ("dpg_factor", "err_q_factor")
+    return cls(adam=adam_state_from_jax(_get(opt_np, "adam"), device),
+               **{k: _copy(_get(opt_np, k), torch.float32, device)
+                  for k in extra})
 
 
 def opt_state_to_numpy(opt) -> dict:
@@ -121,6 +130,19 @@ def opt_state_to_numpy(opt) -> dict:
     if isinstance(opt, (dict, list, tuple)):
         return tree_map(_to_numpy, opt)
     return _to_numpy(opt)
+
+
+def carry_from_numpy(carry_np, device=None) -> tuple:
+    """An acting carry (nested tuples of numpy arrays: one entry per
+    recurrent layer, (h, c) pairs for LSTM layers, the OU state first for
+    NAF and DPG) -> the same nesting of tensors."""
+    return tree_map(lambda x: _copy(x, torch.float32, device),
+                    tuple(carry_np))
+
+
+def carry_to_numpy(carry) -> tuple:
+    """The port's acting carry as nested tuples of numpy copies."""
+    return tree_map(_to_numpy, tuple(carry))
 
 
 def replay_from_jax(rs_np, device=None) -> rb.ReplayState:

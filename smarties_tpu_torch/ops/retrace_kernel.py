@@ -23,8 +23,9 @@ Dispatch is by the tensors' device, with no fallback: CPU tensors go to
 the plain torch versions in ops/returns.py; CUDA tensors launch the
 kernel, and anything the kernel does not take raises. Each entry point
 counts its kernel launches in `launches` (a plain dict of ints, touched
-nowhere but at a launch), so a run can show that it went through the
-kernel. The kernel has no gradient and needs none: returns are
+nowhere but at a launch; `launch_modes` counts the same launches by
+Retrace or GAE), so a run can show that it went through the kernel.
+The kernel has no gradient and needs none: returns are
 regression targets, never differentiated.
 
 Layouts: the first two entry points take and return the JAX package's
@@ -66,6 +67,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel launches per entry point (reset by callers that count a run)
 launches = {"affine_suffix_scan": 0, "batched_retrace": 0,
             "retrace_sweep": 0}
+# the same launches of the two return estimators by their mode
+launch_modes = {"retrace": 0, "GAE": 0}
 # what the last build in this process did: library path, nvcc seconds
 # (None when the library was already built) and nvcc's output
 build_info = {"path": None, "seconds": None, "log": ""}
@@ -73,8 +76,9 @@ _lib = None
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, launch_modes):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -250,6 +254,7 @@ def batched_retrace(r_scaled, value, advantage, rho, length, terminal,
             _stream(r_scaled.device))
     _raise_on(err, "batched_retrace")
     launches["batched_retrace"] += 1
+    launch_modes[mode] += 1
     return q
 
 
@@ -316,4 +321,5 @@ def retrace_sweep_(qret_tm, rewards_tm, value_tm, advantage_tm, rho_tm,
             int(zero_unselected), _stream(dev))
     _raise_on(err, "retrace_sweep_")
     launches["retrace_sweep"] += 1
+    launch_modes[mode] += 1
     return qret_tm

@@ -388,6 +388,17 @@ def prune_to_capacity(rs: ReplayState, max_tot_obs: int, filter_algo: str):
     return rebuild_sample_cache(rs)
 
 
+def clear_all(rs: ReplayState) -> ReplayState:
+    """Invalidate every episode (PPO's epoch-end clearAll, PPO.cpp:105-112):
+    lengths 0, ids -1, the terminal flags as they are, the sampling cache
+    rebuilt. As in the JAX package the stored steps, the far counts and
+    the counters of seen episodes and steps stay (new episode ids go on
+    from n_seen_eps). In place."""
+    rs.slot_len.zero_()
+    rs.slot_id.fill_(-1)
+    return rebuild_sample_cache(rs)
+
+
 # ---------------------------------------------------------------------------
 # sampling
 # ---------------------------------------------------------------------------

@@ -196,6 +196,28 @@ def measure(device, n: int = 50):
     return rows
 
 
+def measure_sweep_at(device, E: int, L1: int, mode: str, n: int = 30):
+    """The sweep over every slot (random lengths) at another path's
+    replay shape and mode: a row like `measure`'s, with the plain torch
+    version's `plain_ms` instead of the device loop's."""
+    timer = ColdTimer(device)
+    f = replay_fields(0, E, L1, "random", device)
+    every = torch.ones(E, dtype=torch.bool, device=device)
+    sargs = (f["qret"], f["r"], f["v"], f["adv"], f["rho"], f["v_trunc"],
+             f["len"], f["term"], every, f["mean"], f["scale"], GAMMA, LAM,
+             mode, True)
+    nbytes = moved_bytes("retrace_sweep", mode, L1, f["len"], every, True)
+    ms = timer(lambda: rk.retrace_sweep_(*sargs), n)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    src = torch.empty(nbytes // 8, dtype=torch.float32, device=device)
+    return {"entry": "retrace_sweep", "mode": mode, "case": "random",
+            "shape": [E, L1], "ms": ms, "bytes": nbytes,
+            "bound_ms": bound_ms, "share_of_bound": bound_ms / ms,
+            "clone_ms": timer(src.clone, n),
+            "plain_ms": timer(lambda: ret.retrace_sweep_plain_(*sargs),
+                              max(3, n // 6))}
+
+
 def launch_floor_ms(device, n: int = 50) -> float:
     """Median ms of a sweep launch that selects no slot, so every block
     leaves at once: what the timer reads for a kernel that does no work

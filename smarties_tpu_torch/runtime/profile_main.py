@@ -23,16 +23,27 @@ runs one fused cycle, and then times each part of a cycle alone:
   scaled rewards and the v_trunc substitution materialised, K1's plain
   device loop, a where and a copy), with the kernel launches of each.
 
+    python3 -m smarties_tpu_torch.runtime.profile_main --path PPO RACER_RNN
+
+profiles one grad step and one env sweep of each named path of
+chip_smoke.py instead (`PATHS`: the learners through the launcher's
+recipes at their published widths, PPO with 64 envs on a filled horizon,
+the recurrent recipes on cartpole_pomdp) with the same columns: the
+three times per call, then the profiled wall, device busy time, busy
+share, kernel launches and device kernels per call.
+
 Needs a CUDA card (exits 2 without one). Imports no JAX.
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import time
 
 import torch
 
+from smarties_tpu_torch import launch
 from smarties_tpu_torch.algos.base import presample_uniform
 from smarties_tpu_torch.envs import cartpole
 from smarties_tpu_torch.ops import retrace_kernel as rk
@@ -102,7 +113,87 @@ def composed_sweep_(rs, select, gamma, lam, mode, zero_unselected):
     rs.qret_tm.copy_(torch.where(select[None, :], q, other))
 
 
-def main():
+# name: (app, recipe as the launcher takes it, envs, replay slots or None
+# for the trainer's default, minTotObsNum override or None)
+PATHS = {
+    "RACER": ("cartpole", "RACER", 1024, None, None),
+    "RACER_discrete": ("cartpole_discrete", "RACER", 1024, None, None),
+    "DQN": ("cartpole_discrete", "DQN", 1024, None, None),
+    "NAF": ("pendulum", "NAF", 1024, None, None),
+    "DPG": ("pendulum", "DPG", 1024, None, None),
+    "MixedPG": ("cartpole", '{"learner": "MixedPG"}', 1024, None, None),
+    "PPO": ("cartpole", "PPO", 64, None, None),
+    "PPO_discrete": ("cartpole_discrete", "PPO", 64, None, None),
+    "RACER_RNN": ("cartpole_pomdp", "RACER_RNN", 1024, 4096, 16384),
+    "VRACER_expensiveData": ("cartpole_pomdp", "VRACER_expensiveData", 1024,
+                             1024, 4096),
+}
+
+
+def report_times(name, fn, n, warm: int = 1):
+    for _ in range(warm):
+        fn()
+    ev, enq, tot = time_calls(fn, n)
+    print(f"{name}: {ev:.3f} ms/call (events) | host enqueue "
+          f"{enq:.3f} ms/call | host total {tot:.3f} ms/call (n={n})",
+          flush=True)
+
+
+def report_profile(name, fn, n):
+    p = profile_calls(fn, n)
+    print(f"profile {name}: wall {p['wall_ms']:.3f} ms/call (profiled) "
+          f"| device busy {p['busy_ms']:.3f} ms/call | busy share "
+          f"{p['busy_share']:.4f} | kernel launches/call "
+          f"{p['launches']:.1f} | device kernels/call "
+          f"{p['device_kernels']:.1f} (n={n})", flush=True)
+
+
+def profile_path(name: str):
+    """One grad step and one env sweep of a named path, on data gathered
+    as its trainer gathers it (an off-policy warmup, or a filled PPO
+    horizon with initialize_stats done)."""
+    app, recipe, n_envs, n_slots, min_obs = PATHS[name]
+    env = launch.env_module(app)
+    cfg = launch.load_recipe(recipe, 0)
+    if min_obs is not None:
+        cfg.minTotObsNum = min_obs
+    tr = Trainer(env, env.MDP, cfg, n_envs=n_envs, n_slots=n_slots,
+                 max_len=env.MAX_STEPS, device="cuda")
+    tr.log_flush_threshold = 10 ** 9
+    if tr.on_policy:
+        while int(tr.replay.n_stored_steps()) < tr.algo.n_horizon:
+            tr._roll(4)
+        tr.carry = tr.carry._replace(replay=tr._init_stats(tr.replay))
+    else:
+        tr.warmup()
+    eps, ts = presample_uniform(tr.gen_batch, tr.replay, cfg.batchSize, 1)
+
+    def roll():
+        tr.carry, _ = tr._rollout(tr.params, tr.carry, 1)
+
+    def train_step():
+        tr.params, tr.opt_state, rs, _ = tr.algo.train_step(
+            tr.params, tr.opt_state, tr.replay,
+            sample_override=(eps[0], ts[0]))
+        tr.carry = tr.carry._replace(replay=rs)
+
+    what = (f"{name} ({type(tr.algo).__name__}, {app}, {cfg.nnType} "
+            f"{cfg.nnLayerSizes}, batch {cfg.batchSize}, {n_envs} envs)")
+    # the step first: the sweeps would commit episodes under the sample.
+    # 10 calls first: the first ones pay cuBLAS's and the allocator's set-up
+    for part, fn, n in (("train_step", train_step, 30),
+                        ("env sweep", roll, 10)):
+        report_times(f"{what} {part}", fn, n, warm=10)
+        report_profile(f"{what} {part}", fn, n)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        prog="python3 -m smarties_tpu_torch.runtime.profile_main")
+    p.add_argument("--path", nargs="+", choices=sorted(PATHS), default=(),
+                   help="profile a grad step and an env sweep of these "
+                        "paths instead of the V-RACER main path's report")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_main: needs a CUDA card", file=sys.stderr)
         sys.exit(2)
@@ -110,6 +201,10 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0], flush=True)
+    for name in args.path:
+        profile_path(name)
+    if args.path:
+        return
     tr = main_path_trainer()
     tr.warmup(chunk=16, blind_sweeps=16)
     tr.train_fused(tr.n_envs, log_every=10 ** 9, flush=False)
@@ -143,18 +238,7 @@ def main():
          lambda: tr.evaluate(32, 100, materialize=False), 3),
     )
     for name, fn, n in parts:
-        fn()
-        ev, enq, tot = time_calls(fn, n)
-        print(f"{name}: {ev:.3f} ms/call (events) | host enqueue "
-              f"{enq:.3f} ms/call | host total {tot:.3f} ms/call (n={n})",
-              flush=True)
-    def report_profile(name, fn, n):
-        p = profile_calls(fn, n)
-        print(f"profile {name}: wall {p['wall_ms']:.3f} ms/call (profiled) "
-              f"| device busy {p['busy_ms']:.3f} ms/call | busy share "
-              f"{p['busy_share']:.4f} | kernel launches/call "
-              f"{p['launches']:.1f} | device kernels/call "
-              f"{p['device_kernels']:.1f} (n={n})", flush=True)
+        report_times(name, fn, n)
 
     for name, fn, n in (("train_step", train_step, 20),
                         ("env sweep", roll, 5)):

@@ -134,7 +134,11 @@ class HyperParameters:
         assert self.lambda_ >= 0, "lambda must be >= 0"
         assert self.batchSize > 0
         assert self.learnrate > 0
-        assert self.maxTotObsNum >= self.minTotObsNum, \
+        # an on-policy learner starts when its horizon (maxTotObsNum) is
+        # full, whatever minTotObsNum says; the published PPO settings
+        # leave it at the default, above the horizon
+        assert (self.maxTotObsNum >= self.minTotObsNum
+                or self.learner in ("PPO", "GAE")), \
             "maxTotObsNum must be >= minTotObsNum"
         assert self.obsPerStep > 0
         assert self.clipImpWeight >= 0

@@ -1,4 +1,5 @@
-"""Port parity: the discrete cart-pole, pendulum, acrobot and mountain-car.
+"""Port parity: the discrete and the no-velocity (pomdp) cart-pole,
+pendulum, acrobot and mountain-car.
 
 The same start states and action sequences (from a seed) go through the
 JAX envs and the port's for 200 steps at 32 lanes. Lanes that finish
@@ -65,6 +66,9 @@ def _jax_set_u(js, mask, u):
 
 # name: (JAX module, port module, start/reset draw, action draw)
 ENVS = {
+    "cartpole_pomdp": (
+        jc.pomdp, tc.pomdp, _u_cartpole,
+        lambda rng: np32(rng.uniform(-10, 10, (STEPS, N, 1)))),
     "cartpole_discrete": (
         jc.discrete, tc.discrete, _u_cartpole,
         lambda rng: np32(rng.randint(0, 2, (STEPS, N, 1)))),
@@ -112,6 +116,11 @@ def test_200_steps_with_pinned_resets(name):
         np.testing.assert_allclose(tn(tmod.observe(ts)),
                                    np.asarray(jmod.observe(js)),
                                    err_msg=f"obs at step {k}", **TOL)
+        seen = tmod.MDP.observed(tmod.observe(ts))
+        assert seen.shape == (N, tmod.MDP.dim_state_observed)
+        np.testing.assert_allclose(
+            tn(seen), np.asarray(jmod.MDP.observed(jmod.observe(js))),
+            err_msg=f"observed dims at step {k}", **TOL)
         js, jr, jd, jt = jmod.step(js, jnp.asarray(acts[k]))
         ts, tr, td, tterm = tmod.step(ts, tt(acts[k]))
         np.testing.assert_allclose(tn(tr), np.asarray(jr),
@@ -124,8 +133,14 @@ def test_200_steps_with_pinned_resets(name):
         u_new = draw(rng, N)
         js = _jax_set_u(js, done, u_new)
         ts = tmod.reset_where(ts, tt(done, torch.bool), u_new=tt(u_new))
-    if name == "cartpole_discrete":
+    if name.startswith("cartpole"):
         assert n_done > 0      # the resets ran
+    if name == "cartpole_pomdp":
+        # only x, cos(angle) and sin(angle) are observable
+        assert tmod.MDP.dim_state_observed == 3
+        np.testing.assert_array_equal(
+            tn(tmod.MDP.observed(tmod.observe(ts))),
+            tn(tmod.observe(ts))[:, [0, 4, 5]])
 
 
 @pytest.mark.parametrize("name", sorted(ENVS))

@@ -9,8 +9,11 @@ to_dict(), computed here in-process), the git provenance files,
 cumulative-reward rows of 5 columns, and a checkpoint.pt that restores
 into a fresh Trainer exactly (params with their targets, the optimiser
 state — MixedPG's included —, the replay and the acting carry).
-Unsupported apps and learners raise NotImplementedError naming their
-ROADMAP item.
+PPO (continuous, discrete and ppoStandard) runs whole horizon cycles
+without a warmup, the recurrent recipes (RACER_RNN, the GRU recipe
+VRACER_expensiveData, and LSTM / GRU / RNN nets under DQN, NAF, DPG and
+PPO) run with a BPTT window of 4. Unsupported apps and learners raise
+NotImplementedError naming their ROADMAP item.
 """
 import json
 
@@ -30,6 +33,10 @@ from _torch_parity import tn
 
 TINY = dict(nnLayerSizes=[16], batchSize=16, minTotObsNum=256,
             maxTotObsNum=1024)
+# minTotObsNum stays above the horizon, as in the published PPO settings:
+# an on-policy learner never reads it
+PPO_TINY = dict(encoderLayerSizes=[16], maxTotObsNum=128, obsPerStep=4.0)
+RNN_TINY = dict(nnLayerSizes=[8, 8], nnBPTTseq=4, minTotObsNum=128)
 # (app, recipe, extra settings) -> the learner class it builds
 CASES = [
     ("cartpole", "VRACER", {}, "VRacer"),
@@ -41,7 +48,25 @@ CASES = [
     ("pendulum", "DPG", {"encoderLayerSizes": [16]}, "DPG"),
     ("acrobot", "DQN", {"dqnEpsGreedy": True}, "DQN"),
     ("mountaincar", "DPG_orig", {"encoderLayerSizes": [16]}, "DPG"),
+    # on-policy: the horizon is maxTotObsNum, 4 epochs of 8 updates
+    ("cartpole", "PPO", dict(PPO_TINY), "PPO"),
+    ("cartpole_discrete", "PPO", dict(PPO_TINY, ppoStandard=True), "PPO"),
+    ("pendulum", "PPO", dict(PPO_TINY, nnType="LSTM", **RNN_TINY), "PPO"),
+    # recurrent nets
+    ("cartpole_pomdp", "RACER_RNN", dict(RNN_TINY), "VRacer"),
+    ("cartpole_pomdp", "VRACER_expensiveData", dict(RNN_TINY), "VRacer"),
+    ("cartpole", "RACER", dict(RNN_TINY, nnType="RNN"), "Racer"),
+    ("cartpole_discrete", "DQN", dict(RNN_TINY, nnType="LSTM"), "DQN"),
+    ("pendulum", "NAF", dict(RNN_TINY, nnType="GRU"), "NAF"),
+    ("pendulum", "DPG", dict(RNN_TINY, nnType="LSTM",
+                             encoderLayerSizes=[0]), "DPG"),
 ]
+
+
+def _case_id(app, recipe, extra, cls):
+    tags = (extra.get("nnType"), "std" if extra.get("ppoStandard") else None,
+            recipe if "pomdp" in app else None)
+    return "-".join([app, cls] + [t for t in tags if t])
 
 
 def _args(tmp_path, app, recipe, *extra):
@@ -57,10 +82,10 @@ def test_recipes_are_the_jax_recipes():
 
 
 @pytest.mark.parametrize("app,recipe,extra,cls", CASES,
-                         ids=[f"{a}-{c}" for a, _, _, c in CASES])
+                         ids=[_case_id(*case) for case in CASES])
 def test_launch_builtin(tmp_path, app, recipe, extra, cls):
     path = tmp_path / "recipe.json"
-    path.write_text(json.dumps(dict(RECIPES[recipe], **TINY, **extra)))
+    path.write_text(json.dumps({**RECIPES[recipe], **TINY, **extra}))
     args = _args(tmp_path, app, path)
     tr = launch.run(args)
     assert type(tr.algo).__name__ == cls
@@ -85,8 +110,15 @@ def test_launch_builtin(tmp_path, app, recipe, extra, cls):
                     tree_leaves(_plain(tr.opt_state)), strict=True):
         assert torch.equal(a, b)
     assert type(fresh.opt_state) is type(tr.opt_state)
-    for a, b in zip(fresh.carry.rnn, tr.carry.rnn, strict=True):
+    for a, b in zip(tree_leaves(fresh.carry.rnn), tree_leaves(tr.carry.rnn),
+                    strict=True):
         assert torch.equal(a, b)
+    assert len(fresh.carry.rnn) == len(tr.carry.rnn)
+    if tr.on_policy:
+        # whole horizon cycles of 4 epochs x 8 updates, no warmup
+        assert tr.n_grad_steps % 32 == 0 and tr.n_grad_steps < 40 + 32
+        # a warmup would stop at the horizon, below minTotObsNum
+        assert tr.n_obs_b4_start == tr.cfg.maxTotObsNum <= tr.cfg.minTotObsNum
     before = convert.replay_to_numpy(tr.replay)
     after = convert.replay_to_numpy(fresh.replay)
     for k in before:
@@ -103,10 +135,11 @@ def test_launch_builtin(tmp_path, app, recipe, extra, cls):
     ("apps/cart_pole_py/exec.py", "VRACER", (), "B11"),
     ("cartpole", "VRACER", ("--nLearners", "2"), "B12"),
     ("cartpole", "CMA", (), "B8"),
-    ("cartpole", "PPO", (), "B4"),
     ("cartpole", "ACER", (), "B7"),
     ("cartpole", "VRACER_CMA", (), "B8"),
-    ("cartpole", "RACER_RNN", (), "B5"),
+    ("cartpole", '{"learner": "GAE", "dataSamplingAlgo": "PERrank"}', (),
+     "B9"),
+    ("cartpole", '{"nnType": "LSTM", "ESpopSize": 4}', (), "B8"),
 ])
 def test_not_ported_raises(tmp_path, app, recipe, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

@@ -1,4 +1,5 @@
-"""Port parity: the FFNN, its pullback, Adam, and the param converter.
+"""Port parity: the FFNN, its pullback, Adam (on feed-forward and
+recurrent leaves), and the param converter.
 
 Parameters made by the JAX package's init_params are converted with
 smarties_tpu_torch.models.convert and fed to both frameworks. The net is
@@ -127,3 +128,34 @@ def test_adam_state_from_jax_dict():
     assert int(ts.step) == 0 and ts.step.dtype == torch.int32
     assert float(ts.beta_t_1) == pytest.approx(0.9)
     assert_tree_close(ts.m1, js.m1, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["RNN", "LSTM", "GRU"])
+def test_adam_steps_on_recurrent_leaves(kind):
+    """The recurrent layers' leaves (12 per LSTM layer, 6 per GRU layer)
+    cross both ways in the JAX leaf order, and two Adam steps move every
+    one of them as the JAX package's do."""
+    kw = dict(SPEC_KW, kind=kind)
+    sj = jnet.NetSpec(**kw)
+    pj = jax.device_get(jnet.init_params(jax.random.PRNGKey(9), sj))
+    tp = convert.params_from_jax(pj)
+    n_leaves = {"RNN": 3, "LSTM": 12, "GRU": 6}[kind]
+    assert all(len(layer) == n_leaves for layer in tp["layers"])
+    assert [tuple(x.shape) for x in tnet.tree_leaves(tp)] == \
+        [x.shape for x in jax.tree_util.tree_leaves(pj)]
+    assert_tree_close(tp, convert.params_to_jax(tp), rtol=0, atol=0)
+    rng = np.random.RandomState(10)
+    cfg = dict(eta=1e-3, lambda_=1e-3, eps_anneal=5e-3)
+    jp = jax.tree_util.tree_map(jnp.asarray, pj)
+    js = jopt.adam_init(jp)
+    ts = convert.adam_state_from_jax(jax.device_get(js))
+    for _ in range(2):
+        g = jax.tree_util.tree_map(lambda x: np32(rng.randn(*x.shape)), pj)
+        jp, js = jopt.adam_step(jp, jax.tree_util.tree_map(jnp.asarray, g),
+                                js, jopt.AdamConfig(**cfg), 1.0 / 32)
+        tp, ts = topt.adam_step(tp, tnet.tree_map(tt, g), ts,
+                                topt.AdamConfig(**cfg), 1.0 / 32)
+    assert_tree_close(tp, jax.device_get(jp), **ADAM_TOL)
+    assert_tree_close(ts.m2, jax.device_get(js.m2), **ADAM_TOL)
+    assert all((tn(a) != b).any() for a, b in zip(
+        tnet.tree_leaves(tp), jax.tree_util.tree_leaves(pj)))

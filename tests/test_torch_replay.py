@@ -111,6 +111,36 @@ def test_prune_to_capacity():
     assert_replay_close(rj2, rt2, **EXACT)
 
 
+def test_clear_all():
+    """PPO's epoch-end clear: every slot invalid, the sampling cache
+    empty, the counters kept; then commits fill the same slots with the
+    same ids in both frameworks and sampling works again."""
+    rj, rt = _filled(cap=10 ** 6)
+    assert int(rt.n_stored_steps()) > 0
+    rj, rt = jrb.clear_all(rj), trb.clear_all(rt)
+    assert int(rt.n_stored_steps()) == 0 == int(rt.n_stored_eps())
+    assert not bool(rt.valid_slots().any())
+    assert int(rt.n_seen_eps) == int(rj.n_seen_eps) > 0
+    assert_replay_close(rj, rt, **EXACT)
+    np.testing.assert_array_equal(tn(rt.samp_csum), 0)
+    np.testing.assert_array_equal(tn(rt.samp_csum),
+                                  np.asarray(rj.samp_cl)[:, 0])
+    for i, (d, n, term) in enumerate(BATCHES[:2]):
+        rj, rt = _commit_both(rj, rt, _batch(7 + i, d, n, term), 10 ** 6)
+    assert_replay_close(rj, rt, **EXACT)
+    np.testing.assert_array_equal(tn(rt.samp_csum),
+                                  np.asarray(rj.samp_cl)[:, 0])
+    np.testing.assert_array_equal(tn(rt.samp_start),
+                                  np.asarray(rj.samp_cl)[:, 1])
+    total = int(rt.n_stored_steps())
+    assert total == sum(n for d, ns, _ in BATCHES[:2]
+                        for n, dd in zip(ns, d) if dd)
+    ep, t = trb.sample_uniform_from_flat(
+        rt, torch.arange(total, dtype=torch.int32))
+    assert (tn(rt.ep_id)[tn(ep)] >= 0).all()
+    assert (tn(t) < tn(rt.length)[tn(ep)]).all()
+
+
 def test_sample_uniform_on_fixed_draw():
     """(ep, t) of the same flat integer draw: searchsorted side="right"."""
     rj, rt = _filled(cap=10 ** 6)
