@@ -10,8 +10,8 @@ Phases, each reported on its own line:
 2. kernels: builds K1 (csrc/retrace.cu) with nvcc from this checkout and
    holds its three entry points against their plain torch versions on
    the card at [200, 37], [33, 22], the main path's [4096, 501] and the
-   [256, 501] and [1024, 501] of the PPO and GRU paths, for Retrace and
-   GAE: `affine_suffix_scan` and `batched_retrace` in the
+   [256, 501] and [1024, 501] of the PPO and GRU paths and the Atari
+   path's [65536, 40], for Retrace and GAE: `affine_suffix_scan` and `batched_retrace` in the
    time-major layout the replay stores (bit-equal) and in row-major, the
    in-place `retrace_sweep_` with a mixed, a full and an empty select,
    both `zero_unselected` values and lengths 0 and L1-1 among the slots
@@ -19,8 +19,8 @@ Phases, each reported on its own line:
    on a cold L2 (runtime/bench_retrace.py's table: random and full
    lengths, the ingest's 1024 of 4096 slots) beside the bound its bytes
    set at 3.35 TB/s, a clone of as many bytes and the plain version;
-   the sweep also at the PPO path's [256, 501] in GAE mode and the GRU
-   path's [1024, 501].
+   the sweep also at the PPO path's [256, 501] in GAE mode, the GRU
+   path's [1024, 501] and the Atari path's [65536, 40].
 3. reference: the port on the card against the port on the CPU at a
    small size, from one state (8 train steps and a refresh, so K1 runs
    inside the pipeline against its plain version).
@@ -55,6 +55,27 @@ Phases, each reported on its own line:
    VRACER_expensiveData the same way at 1024 slots.
    Checks that every K1 launch ran in Retrace mode, one per site call;
    then LSTM and GRU V-RACER on the card against the CPU at a small size.
+8. conv / Atari: app `catch` with recipe RACER_atari through the launcher
+   at full width (RACER-discrete, the Mnih stack over 4 stacked 84x84
+   frames + [512], batch 128, maxTotObsNum 262144, a uint8 replay of
+   65,536 slots x 40 frames, 1024 envs, training from the recipe's 131072
+   observations): warmup, train(300) by CUDA events, 10 env sweeps by
+   events, a refresh, evaluate(8, 39). Prints the memory peak of the run
+   and of initialize_stats alone (its chunked statistics must stay far
+   below a second copy of the replay). Checks finiteness, the uint8
+   storage and one Retrace launch of K1 per call at ingest,
+   initialize_stats and refresh; then the conv learner on the card
+   against the CPU on the 20x20 board (two conv layers, 2 appended
+   frames, uint8 replay; cuDNN's f32 backward sums in another order than
+   the CPU's, and the params stay within the other learners' rtol 1e-4 /
+   atol 1e-6).
+9. samplers: the main path's learner (V-RACER, 1024 envs, 4096 x 501
+   slots, [128, 128], batch 256) under dataSamplingAlgo PERrank with
+   ERoldSeqFilter farpolfrac: warmup, train_fused(100), which gives way
+   to train(), and train(100), every step drawing from the TD errors the
+   steps before wrote; then PERrank, PERerr and PERseq draws on the card
+   against the CPU on a copy of the replay for the same injected
+   uniforms (equal).
 Then one JSON line with the kernels' results and, last, the device line.
 
 The script imports no JAX and nothing of the JAX package. Any failed
@@ -76,11 +97,17 @@ sys.path.insert(0, ROOT)
 RTOL = 1e-4
 ATOL = 1e-4
 MAIN_E, MAIN_L1 = 4096, 501
-# the replay shapes K1 meets on the other paths: PPO's 256 slots (GAE) and
-# the GRU recipe's 1024 (Retrace); the learners and RACER_RNN use MAIN_E
-PATH_SWEEPS = (("ppo", 256, "GAE"), ("vracer_gru", 1024, "retrace"))
+# the Atari path's replay: the launcher's 2 * 262144 // 8 slots of catch's
+# 39 steps
+ATARI_E, ATARI_L1 = 65536, 40
+# the replay shapes K1 meets on the other paths: PPO's 256 slots (GAE), the
+# GRU recipe's 1024 and the Atari path's (Retrace); the learners and
+# RACER_RNN use MAIN_E
+PATH_SWEEPS = (("ppo", 256, MAIN_L1, "GAE"),
+               ("vracer_gru", 1024, MAIN_L1, "retrace"),
+               ("racer_atari", ATARI_E, ATARI_L1, "retrace"))
 KERNEL_SHAPES = ((200, 37), (33, 22), (256, MAIN_L1), (1024, MAIN_L1),
-                 (MAIN_E, MAIN_L1))
+                 (MAIN_E, MAIN_L1), (ATARI_E, ATARI_L1))
 # the learners phase: (name, app, recipe as the launcher takes it)
 LEARNER_PATHS = (
     ("racer", "cartpole", "RACER"),
@@ -101,6 +128,10 @@ PPO_ENVS, PPO_STEPS = 64, 640
 RNN_PATHS = (("racer_rnn", "RACER_RNN", 4096, 16384),
              ("vracer_gru", "VRACER_expensiveData", 1024, 4096))
 RNN_ENVS, RNN_STEPS = 1024, 200
+# the conv / Atari phase
+ATARI_ENVS, ATARI_STEPS = 1024, 300
+# the samplers phase: steps through train_fused and through train
+PER_STEPS = 100
 
 
 def phase_device():
@@ -242,10 +273,10 @@ def phase_kernels():
         print(f"kernels: plain torch version of {name}, Retrace, random "
               f"lengths: {ms:.4f} ms (median)", flush=True)
     path_rows = {}
-    for path, E, mode in PATH_SWEEPS:
-        r = path_rows[path] = bench.measure_sweep_at(dev, E, MAIN_L1, mode)
+    for path, E, L1, mode in PATH_SWEEPS:
+        r = path_rows[path] = bench.measure_sweep_at(dev, E, L1, mode)
         print(f"kernels: retrace_sweep {mode} at the {path} path's "
-              f"[{E}, {MAIN_L1}]: kernel {r['ms']:.4f} ms | plain torch "
+              f"[{E}, {L1}]: kernel {r['ms']:.4f} ms | plain torch "
               f"version {r['plain_ms']:.4f} ms | {r['bytes']} B, bound "
               f"{r['bound_ms'] * 1e3:.2f} us, share of bound "
               f"{r['share_of_bound']:.3f} | clone of as many bytes "
@@ -310,7 +341,7 @@ def _leaves(tree, prefix=""):
     return [(prefix.rstrip("."), tree)]
 
 
-def _card_vs_cpu(env, cfg, n_steps):
+def _card_vs_cpu(env, cfg, n_steps, state_dtype=None):
     """The port on the card against the port on the CPU (whose K1 is the
     plain torch loop) at a small size, from the same state: the CPU
     trainer's warmup, then its params, optimiser state and replay copied
@@ -318,14 +349,15 @@ def _card_vs_cpu(env, cfg, n_steps):
     refresh on both. cuBLAS and the CPU BLAS reduce in another order (TF32
     off): rtol 1e-4; values pass through scale_net2v in RACER, which
     cancels two terms near 5100 (one f32 ulp is 4.9e-4): atol 2e-3 on V,
-    TD errors and returns. Returns the worst |diff| of params, qret, rho
-    and value."""
+    TD errors and returns. The conv learner (cuDNN on the card) keeps
+    these tolerances. Returns the worst |diff| of params, qret, rho and
+    value."""
     import numpy as np
     import torch
     from smarties_tpu_torch.models import convert
     from smarties_tpu_torch.runtime.trainer import Trainer
 
-    size = dict(n_envs=16, n_slots=64, max_len=64)
+    size = dict(n_envs=16, n_slots=64, max_len=64, state_dtype=state_dtype)
     cpu = Trainer(env, env.MDP, cfg, device="cpu", **size)
     cpu.warmup(chunk=16)
     gpu = Trainer(env, env.MDP, cfg, device="cuda", **size)
@@ -737,6 +769,225 @@ def phase_recurrent():
     return results
 
 
+def phase_atari():
+    """`catch` with RACER_atari through the launcher at full width."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from smarties_tpu_torch import launch
+    from smarties_tpu_torch.envs import catch
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+
+    name = "racer_atari"
+    runs = os.path.join(ROOT, "build", "chip_smoke_runs")
+    args = launch.parse_args([
+        "catch", "--recipe", "RACER_atari", "--device", "cuda",
+        "--nEnvironments", str(ATARI_ENVS), "--nTrainSteps",
+        str(ATARI_STEPS), "--runprefix", runs, "--runname", name,
+        "--noCheckpoint"])
+    hooks = {}
+    gib = 2.0 ** 30
+
+    def prepare(tr):
+        tr.log_flush_threshold = 10 ** 9
+        hooks["sites"] = SiteCounter(tr, rk)
+        train, warmup, init_stats = tr.train, tr.warmup, tr._init_stats
+
+        def timed_warmup(**kw):
+            t0 = time.perf_counter()
+            warmup(**kw)
+            torch.cuda.synchronize()
+            hooks.update(warmup_s=time.perf_counter() - t0,
+                         warmup_sweeps=tr.n_env_steps // tr.n_envs)
+
+        def watched_init_stats(rs):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = init_stats(rs)
+            torch.cuda.synchronize()
+            hooks.update(init_s=time.perf_counter() - t0, init_base=base,
+                         init_peak=torch.cuda.max_memory_allocated())
+            return out
+
+        def timed_train(n, **kw):
+            g0 = tr.n_grad_steps
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            train(n, **kw)
+            e1.record()
+            e1.synchronize()
+            hooks.update(train_ms=e0.elapsed_time(e1),
+                         train_wall_s=time.perf_counter() - t0,
+                         steps=tr.n_grad_steps - g0)
+
+        tr.train, tr.warmup, tr._init_stats = (timed_train, timed_warmup,
+                                               watched_init_stats)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rk.reset_launches()
+    t0 = time.perf_counter()
+    tr = launch.run(args, prepare=prepare)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    # initialize_stats reset the peak counter: the run's peak is the larger
+    peak = max(hooks["init_peak"], torch.cuda.max_memory_allocated())
+    rs = tr.replay
+    states_bytes = rs.states_tm.numel() * rs.states_tm.element_size()
+
+    # 10 env sweeps alone (act on stacked frames, env step, commit)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    for _ in range(10):
+        tr.carry, _ = tr._rollout(tr.params, tr.carry, 1)
+    e1.record()
+    sweep_enq_ms = (time.perf_counter() - t0) * 1e2
+    e1.synchronize()
+    sweep_ms = e0.elapsed_time(e1) / 10
+    tr.carry = tr.carry._replace(
+        replay=tr._refresh(tr.replay, float(tr.n_grad_steps)))
+    counts, modes = dict(rk.launches), dict(rk.launch_modes)
+    sites = dict(hooks["sites"].sites)
+    rets = tr.evaluate(8, max_steps=catch.MAX_STEPS)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+
+    _check_finite(name, tr, rets, 8)
+    cfg = tr.cfg
+    assert (cfg.batchSize, cfg.nnLayerSizes, cfg.maxTotObsNum,
+            cfg.minTotObsNum) == (128, [512], 262144, 131072), cfg
+    assert [tuple(getattr(c, f) for f in ("in_w", "in_h", "in_c", "out_c",
+                                          "filter", "stride"))
+            for c in tr.algo.spec.conv] == list(catch.CONV_STACK)
+    assert rs.states_tm.dtype == torch.uint8
+    assert tuple(rs.states_tm.shape) == (ATARI_L1, ATARI_E, 84 * 84)
+    assert tr.carry.inprog.states.dtype == torch.uint8
+    assert hooks["steps"] >= ATARI_STEPS, hooks
+    n_stored = int(rs.n_stored_steps())
+    assert n_stored >= cfg.minTotObsNum, n_stored
+    assert set(np.unique(rets)) <= {-1.0, 1.0}, rets
+    hooks["sites"].check_one_launch_per_call(
+        counts, ("ingest", "initialize_stats", "refresh"), name)
+    assert modes == {"retrace": counts["retrace_sweep"], "GAE": 0}, \
+        (name, modes, counts)
+    # the statistics pass never holds a second copy of the replay
+    init_extra = hooks["init_peak"] - hooks["init_base"]
+    assert init_extra < 0.5 * states_bytes, (init_extra, states_bytes)
+    assert peak < 1.5 * states_bytes, (peak, states_bytes)
+    ms_step = hooks["train_ms"] / hooks["steps"]
+    print(f"atari: {name} ({type(tr.algo).__name__}, catch, Mnih conv + "
+          f"{cfg.nnLayerSizes}, batch {cfg.batchSize}, {ATARI_ENVS} envs, "
+          f"uint8 replay {ATARI_E} x {ATARI_L1} x 7056 = "
+          f"{states_bytes / gib:.2f} GiB, minTotObsNum {cfg.minTotObsNum} "
+          f"as published): warmup {hooks['warmup_s']:.2f} s for "
+          f"{hooks['warmup_sweeps']} sweeps, initialize_stats "
+          f"{hooks['init_s']:.2f} s of it with {init_extra / gib:.2f} GiB "
+          f"above the {hooks['init_base'] / gib:.2f} GiB held | "
+          f"train({ATARI_STEPS}) {hooks['train_ms']:.1f} ms by events "
+          f"({ms_step:.3f} ms/grad step, host wall "
+          f"{hooks['train_wall_s']:.2f} s) | env sweep {sweep_ms:.3f} ms by "
+          f"events (host enqueue {sweep_enq_ms:.3f} ms) | launch.run "
+          f"{run_s:.2f} s | stored steps {n_stored} | evaluate(8, 39) mean "
+          f"return {float(np.mean(rets)):.2f} | memory peak "
+          f"{peak / gib:.2f} GiB | K1 sweep launches by site {sites}, one "
+          f"per call, by mode {modes}", flush=True)
+    shutil.rmtree(tr.run_dir)
+    del tr, rs
+    torch.cuda.empty_cache()
+
+    small_cfg = _small_cfg("RACER_atari")
+    small_cfg.nnLayerSizes = [16]
+    worst = _card_vs_cpu(catch.small, small_cfg, 4, state_dtype=torch.uint8)
+    print(f"atari: conv learner on the card vs on the CPU (20x20 board, "
+          f"conv {catch.small.CONV_STACK}, 2 appended frames, uint8 replay, "
+          f"4 train steps + refresh): max |diff| {_fmt_diffs(worst)}",
+          flush=True)
+    return {name: {"sites": sites, "launches": counts["retrace_sweep"],
+                   "modes": modes, "ms_per_grad_step": ms_step,
+                   "ms_per_env_sweep": sweep_ms, "run_s": run_s,
+                   "memory_peak_bytes": peak,
+                   "init_stats_extra_bytes": init_extra,
+                   "card_vs_cpu": worst}}
+
+
+def phase_samplers():
+    """The main path's learner under PERrank + farpolfrac, then every
+    prioritized sampler's draw on the card against the CPU."""
+    import numpy as np
+    import torch
+    from smarties_tpu_torch.envs import cartpole
+    from smarties_tpu_torch.models import convert
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+    from smarties_tpu_torch.replay import buffer as rb
+    from smarties_tpu_torch.runtime.trainer import Trainer
+    from smarties_tpu_torch.utils.config import HyperParameters
+
+    name = "vracer_perrank"
+    cfg = HyperParameters(minTotObsNum=16384, maxTotObsNum=262144,
+                          batchSize=256, obsPerStep=1.0,
+                          nnLayerSizes=[128, 128], randSeed=0,
+                          dataSamplingAlgo="PERrank",
+                          ERoldSeqFilter="farpolfrac")
+    tr = Trainer(cartpole, cartpole.MDP, cfg, n_envs=1024, n_slots=MAIN_E,
+                 max_len=cartpole.MAX_STEPS, device="cuda")
+    tr.log_flush_threshold = 10 ** 9
+    sites = SiteCounter(tr, rk)
+    rk.reset_launches()
+    tr.warmup(chunk=16, blind_sweeps=16)
+    assert not tr._can_presample
+    ms = []
+    for run in (tr.train_fused, tr.train):
+        g0 = tr.n_grad_steps
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        run(PER_STEPS, log_every=10 ** 9)
+        e1.record()
+        e1.synchronize()
+        assert tr.n_grad_steps - g0 == PER_STEPS, (g0, tr.n_grad_steps)
+        ms.append(e0.elapsed_time(e1) / PER_STEPS)
+    counts = dict(rk.launches)
+    rets = tr.evaluate(8, max_steps=200)
+    _check_finite(name, tr, rets, 8)
+    sites.check_one_launch_per_call(counts, ("ingest", "initialize_stats"),
+                                    name)
+    rs = tr.replay
+    assert float(rs.delta_tm.abs().max()) > 0      # TD errors were written
+    cpu = convert.replay_from_jax(convert.replay_to_numpy(rs), "cpu")
+    rng = np.random.RandomState(0)
+    agree = {}
+    for algo in ("PERrank", "PERerr", "PERseq"):
+        shape = (2, cfg.batchSize) if algo == "PERseq" else (cfg.batchSize,)
+        u = torch.as_tensor(rng.rand(*shape).astype(np.float32))
+        ep_c, t_c = rb.sample(None, cpu, cfg.batchSize, algo, u=u)
+        ep_g, t_g = rb.sample(None, rs, cfg.batchSize, algo, u=u.cuda())
+        assert torch.equal(ep_g.cpu(), ep_c) and torch.equal(t_g.cpu(), t_c), \
+            f"{algo}: the card's draw differs from the CPU's"
+        assert bool((t_c < cpu.slot_len[ep_c.long()]).all()), algo
+        agree[algo] = int(torch.unique(ep_c).numel())
+    print(f"samplers: {name} (VRacer, cartpole, [128, 128], batch 256, 1024 "
+          f"envs, {MAIN_E} x {MAIN_L1} slots, PERrank + farpolfrac): "
+          f"train_fused({PER_STEPS}) gave way to train(): {ms[0]:.3f} "
+          f"ms/grad step by events with the sweeps that reach the start "
+          f"threshold, train({PER_STEPS}) {ms[1]:.3f} | stored "
+          f"steps {int(rs.n_stored_steps())} | evaluate(8, 200) mean return "
+          f"{float(np.mean(rets)):.2f} | K1 sweep launches by site "
+          f"{dict(sites.sites)}, one per call | draws of {cfg.batchSize} on "
+          f"the card equal the CPU's for the same uniforms (distinct "
+          f"episodes drawn: {agree})", flush=True)
+    del tr
+    torch.cuda.empty_cache()
+    return {name: {"sites": dict(sites.sites),
+                   "launches": counts["retrace_sweep"],
+                   "ms_per_grad_step": ms[1]}}
+
+
 def main():
     phase_device()
     import torch
@@ -746,6 +997,8 @@ def main():
     learners = phase_learners()
     learners.update(phase_on_policy())
     learners.update(phase_recurrent())
+    learners.update(phase_atari())
+    learners.update(phase_samplers())
     launches = main_res["launches"]
 
     def row(entry, mode, case):

@@ -76,8 +76,7 @@ def seq_forward_vjp(params, spec, xs, active):
 
 class MiniBatch(NamedTuple):
     """Gathered view of B sampled transitions (MiniBatch.h:60-123): the
-    fields the learners read. The JAX package's per_w arrives with PER
-    sampling."""
+    fields the learners read."""
     ep: torch.Tensor             # [B] episode slot
     t: torch.Tensor              # [B] time index
     s_t: torch.Tensor            # [B, dimS] standardized state
@@ -88,6 +87,9 @@ class MiniBatch(NamedTuple):
     reward_next: torch.Tensor    # [B] scaled reward r_{t+1}
     terminal_next: torch.Tensor  # [B] t+1 is a true terminal state
     truncated_next: torch.Tensor  # [B] t+1 == T is a truncation point
+    # PER importance weight (1 for uniform). Carried and never applied to
+    # a gradient, as in the reference (Approximator.h:196 is commented out)
+    per_w: torch.Tensor          # [B]
     # sample points at a stored transition (False only for an empty
     # replay): such rows give no gradient and no write-backs
     valid: torch.Tensor          # [B] bool
@@ -103,14 +105,42 @@ def presample_uniform(gen: torch.Generator, rs: rb.ReplayState, batch: int,
     return rb.sample_uniform_from_flat(rs, rb.draw_flat(gen, rs, (n, batch)))
 
 
-def gather_minibatch(rs: rb.ReplayState, ep, t) -> MiniBatch:
-    """Gather the sampled transitions (the JAX package's non-appended,
-    non-NHWC path)."""
+def stacked_states(rs: rb.ReplayState, ep, t, n_appended: int):
+    """Standardized net input with appended past observations
+    (Episode::standardizedState, Episode.h:171-183): frames ordered
+    [obs_t, obs_{t-1}, ...], clamped at the episode start ->
+    [B, (k+1) dimS]. A uint8 replay is promoted to f32 here."""
+    epl, tl = ep.long(), t.long()
+    if n_appended == 0:
+        return (rs.states_tm[tl, epl] - rs.state_mean) * rs.state_scale
+    offs = torch.arange(n_appended + 1, device=tl.device)
+    tj = torch.clamp(tl[:, None] - offs[None, :], min=0)     # [B, k+1]
+    frames = (rs.states_tm[tj, epl[:, None]]
+              - rs.state_mean) * rs.state_scale              # [B, k+1, dimS]
+    return frames.reshape(frames.shape[0], -1)
+
+
+def gather_minibatch(rs: rb.ReplayState, ep, t,
+                     n_appended: int = 0) -> MiniBatch:
+    """Gather the sampled transitions (the JAX package's flat path; its
+    NHWC-direct gather is not ported). With appended frames the stacks of
+    t and t+1 share k of their k+1 frames: ONE gather of the union window
+    [t+1, t, ..., t-k], clamped at 0, standardized once, then sliced; the
+    values are those of two stacked_states calls."""
     epl, tl = ep.long(), t.long()
     t1 = torch.clamp(tl + 1, max=rs.max_len)
-    s_cat = (rs.states_tm[torch.cat([tl, t1]), torch.cat([epl, epl])]
-             - rs.state_mean) * rs.state_scale
     B = ep.shape[0]
+    if n_appended:
+        offs = torch.arange(-1, n_appended + 1, device=tl.device)
+        tj = torch.clamp(tl[:, None] - offs[None, :], min=0,
+                         max=rs.max_len)                     # [B, k+2]
+        frames = (rs.states_tm[tj, epl[:, None]]
+                  - rs.state_mean) * rs.state_scale          # [B, k+2, dimS]
+        s_cat = torch.cat([frames[:, 1:].reshape(B, -1),
+                           frames[:, :-1].reshape(B, -1)])
+    else:
+        s_cat = (rs.states_tm[torch.cat([tl, t1]), torch.cat([epl, epl])]
+                 - rs.state_mean) * rs.state_scale
     length = rs.slot_len[epl]
     is_last = (t + 1) == length
     valid = (rs.slot_id[epl] >= 0) & (t < length)
@@ -121,20 +151,27 @@ def gather_minibatch(rs: rb.ReplayState, ep, t) -> MiniBatch:
                      qret=rs.qret_tm[tl, epl], reward_next=r_next,
                      terminal_next=is_last & terminal,
                      truncated_next=is_last & (~terminal),
+                     per_w=torch.ones(ep.shape, dtype=F32, device=ep.device),
                      valid=valid, rho_old=rs.rho_tm[tl, epl],
                      value_old=rs.value_tm[tl, epl])
 
 
-def check_ported(mdp, cfg):
-    """Raise NotImplementedError, naming the ROADMAP item, for settings
-    whose code paths the port does not have yet."""
-    if cfg.dataSamplingAlgo not in ("uniform", "default"):
-        raise NotImplementedError(
-            f"dataSamplingAlgo {cfg.dataSamplingAlgo!r}: only uniform "
-            f"sampling is ported (ROADMAP B9)")
-    if mdp.n_appended_obs or mdp.conv_layers:
-        raise NotImplementedError("appended observations and conv inputs "
-                                  "are not ported (ROADMAP B6)")
+def check_ported(mdp, cfg, frames: bool = False):
+    """Refuse the settings that no code path serves. `frames`: the learner
+    gathers appended past observations (RACER family and DQN, as in the
+    JAX package; its other learners size their net for the stacked input
+    and gather single frames, which fails there with a shape error). A
+    recurrent net with appended observations fails there the same way:
+    bptt_window gathers single frames."""
+    if mdp.n_appended_obs and not frames:
+        raise ValueError(
+            f"learner {cfg.learner!r} gathers no appended observations "
+            f"(n_appended_obs = {mdp.n_appended_obs}): only the RACER "
+            f"family and DQN stack frames")
+    if mdp.n_appended_obs and cfg.nnType != "FFNN":
+        raise ValueError(
+            f"nnType {cfg.nnType!r} with appended observations: the BPTT "
+            f"window gathers single frames")
 
 
 def returns_mode_of(cfg, default: str) -> str:
@@ -151,15 +188,20 @@ class Learner:
     returns_mode. An `on_policy` learner (PPO) is driven by the trainer's
     horizon cycle instead of the obsPerStep pacing."""
     on_policy = False
+    # appended past observations in the minibatch gather: set from the MDP
+    # by the learners that stack frames (RACER family, DQN)
+    n_appended = 0
 
     def sample_minibatch(self, rs: rb.ReplayState, gen, sample_override):
         """Pinned (ep, t) indices (the trainer's presampled chunk, the
-        parity tests), or a uniform draw of batchSize from `gen`."""
+        parity tests), or a draw of batchSize from `gen` by the sampler
+        cfg.dataSamplingAlgo names."""
         if sample_override is not None:
             ep, t = sample_override
         else:
-            ep, t = rb.sample_uniform(gen, rs, self.cfg.batchSize)
-        return gather_minibatch(rs, ep, t)
+            ep, t = rb.sample(gen, rs, self.cfg.batchSize,
+                              self.cfg.dataSamplingAlgo)
+        return gather_minibatch(rs, ep, t, n_appended=self.n_appended)
 
     @torch.no_grad()
     def refresh(self, rs: rb.ReplayState, n_grad_steps: float):

@@ -28,8 +28,8 @@ from smarties_tpu_torch.algos.base import (Learner, backprop, bptt_window,
                                            seq_outputs, target_copy,
                                            write_back_with_next)
 from smarties_tpu_torch.core.mdp import MDPSpec
-from smarties_tpu_torch.models.net import (NetSpec, apply_net, init_carry,
-                                           init_params)
+from smarties_tpu_torch.models.net import (Conv2DDesc, NetSpec, apply_net,
+                                           init_carry, init_params)
 from smarties_tpu_torch.models.optim import (AdamConfig, AdamState,
                                              adam_init, adam_step,
                                              update_target)
@@ -56,15 +56,17 @@ class DQN(Learner):
     def __init__(self, mdp: MDPSpec, cfg: HyperParameters):
         if not mdp.is_discrete:
             raise ValueError("DQN requires discrete actions")
-        check_ported(mdp, cfg)
+        check_ported(mdp, cfg, frames=True)
         self.mdp = mdp
         self.cfg = cfg
+        self.n_appended = mdp.n_appended_obs
         # Boltzmann-over-Q + ReF-ER (the reference's compiled default) or
         # the eps-greedy branch with constant eps = explNoise
         self.eps_greedy = bool(cfg.dqnEpsGreedy)
         self.n_opts = mdp.max_action_label
         self.spec = NetSpec(
             n_in=mdp.dim_net_input, hidden=tuple(cfg.nnLayerSizes),
+            conv=tuple(Conv2DDesc(*c) for c in mdp.conv_layers),
             n_out=self.n_opts, kind=cfg.nnType, act=cfg.nnFunc,
             out_prefac=cfg.outWeightsPrefac)
         self.adam_cfg = AdamConfig(eta=cfg.learnrate, lambda_=cfg.nnLambda,

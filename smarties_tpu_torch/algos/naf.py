@@ -33,8 +33,8 @@ from smarties_tpu_torch.algos.base import (Learner, backprop, bptt_window,
                                            seq_outputs, target_copy,
                                            write_back_with_next)
 from smarties_tpu_torch.core.mdp import MDPSpec
-from smarties_tpu_torch.models.net import (NetSpec, apply_net, init_carry,
-                                           init_params)
+from smarties_tpu_torch.models.net import (Conv2DDesc, NetSpec, apply_net,
+                                           init_carry, init_params)
 from smarties_tpu_torch.models.optim import (AdamConfig, AdamState,
                                              adam_init, adam_step,
                                              update_target)
@@ -70,6 +70,7 @@ class NAF(Learner):
               if self.gaussian else ())
         self.spec = NetSpec(
             n_in=mdp.dim_net_input, hidden=tuple(cfg.nnLayerSizes),
+            conv=tuple(Conv2DDesc(*c) for c in mdp.conv_layers),
             n_out=1 + self.nL + nA, kind=cfg.nnType, act=cfg.nnFunc,
             out_prefac=cfg.outWeightsPrefac, out_bias_init=ob,
             n_param_out=nA, param_init=tuple([sig0] * nA))

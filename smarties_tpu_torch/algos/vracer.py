@@ -38,8 +38,8 @@ from smarties_tpu_torch.algos.base import (Learner, backprop, bptt_window,
                                            returns_mode_of, seq_forward_vjp,
                                            write_back_with_next)
 from smarties_tpu_torch.core.mdp import MDPSpec
-from smarties_tpu_torch.models.net import (NetSpec, apply_net, init_carry,
-                                           init_params)
+from smarties_tpu_torch.models.net import (Conv2DDesc, NetSpec, apply_net,
+                                           init_carry, init_params)
 from smarties_tpu_torch.models.optim import (AdamConfig, AdamState,
                                              adam_init, adam_step)
 from smarties_tpu_torch.ops import advantages as adv_ops
@@ -56,9 +56,10 @@ class VRacer(Learner):
 
     def __init__(self, mdp: MDPSpec, cfg: HyperParameters,
                  adv_kind: str | None = None):
-        check_ported(mdp, cfg)
+        check_ported(mdp, cfg, frames=True)
         self.mdp = mdp
         self.cfg = cfg
+        self.n_appended = mdp.n_appended_obs
         self.discrete = mdp.is_discrete
         nA = mdp.dim_action
         if adv_kind is None:
@@ -69,6 +70,7 @@ class VRacer(Learner):
                             else "gaussian")
         self.adv_kind = adv_kind
         common = dict(n_in=mdp.dim_net_input, hidden=tuple(cfg.nnLayerSizes),
+                      conv=tuple(Conv2DDesc(*c) for c in mdp.conv_layers),
                       kind=cfg.nnType, act=cfg.nnFunc,
                       out_prefac=cfg.outWeightsPrefac)
         if self.discrete:

@@ -11,6 +11,12 @@ trainer (checkpoint.pt).
     python -m smarties_tpu_torch.launch cartpole --recipe PPO --device cuda
     python -m smarties_tpu_torch.launch cartpole_pomdp --recipe RACER_RNN \\
         --device cuda --nEnvironments 1024
+    python -m smarties_tpu_torch.launch catch --recipe RACER_atari \\
+        --device cuda --nEnvironments 1024 --noCheckpoint
+
+`catch` is the pixel env: its replay stores uint8 frames (65,536 slots of
+40 frames of 84x84 at the recipe's maxTotObsNum, 18.5 GB on the card, and
+as much in checkpoint.pt unless --noCheckpoint is given).
 
 --device is required: nothing picks the CPU when a card is missing.
 --recipe takes a name from utils/recipes.py or a settings json (a path
@@ -32,9 +38,9 @@ from smarties_tpu_torch.utils.recipes import RECIPES
 # cartpole_pomdp (velocities hidden, the recurrent recipes' task) is the
 # port's own app name: the JAX launcher has the env but no name for it
 BUILTIN_ENVS = ("cartpole", "cartpole_discrete", "cartpole_pomdp",
-                "pendulum", "acrobot", "mountaincar")
+                "pendulum", "acrobot", "mountaincar", "catch")
 # built-in apps of the JAX launcher that the port does not have yet
-NOT_PORTED_APPS = {"glider": "B10", "predator_prey": "B10", "catch": "B6"}
+NOT_PORTED_APPS = {"glider": "B10", "predator_prey": "B10"}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -52,6 +58,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="learner shards (the port runs one)")
     p.add_argument("--randSeed", type=int, default=0)
     p.add_argument("--maxEpisodeLength", type=int, default=1024)
+    p.add_argument("--noCheckpoint", action="store_true",
+                   help="do not write checkpoint.pt when training ends "
+                        "(it holds the whole replay)")
     p.add_argument("--device", required=True,
                    help='torch device, e.g. "cuda" or "cpu"')
     return p.parse_args(argv)
@@ -66,9 +75,9 @@ def env_module(app: str):
         raise NotImplementedError(
             f"app {app!r}: external app scripts run through the Engine, "
             f"which is not ported yet (ROADMAP B11)")
-    from smarties_tpu_torch.envs import acrobot, cartpole, mountaincar, \
-        pendulum
-    return {"cartpole": cartpole, "cartpole_discrete": cartpole.discrete,
+    from smarties_tpu_torch.envs import acrobot, cartpole, catch, \
+        mountaincar, pendulum
+    return {"catch": catch, "cartpole": cartpole, "cartpole_discrete": cartpole.discrete,
             "cartpole_pomdp": cartpole.pomdp, "pendulum": pendulum,
             "acrobot": acrobot, "mountaincar": mountaincar}[app]
 
@@ -107,20 +116,23 @@ def make_trainer(args: argparse.Namespace):
     if cfg.learner == "CMA":
         raise NotImplementedError(
             "learner 'CMA' is gradient-free and not ported yet (ROADMAP B8)")
+    import torch
     from smarties_tpu_torch.runtime.trainer import Trainer
     run_dir = os.path.join(args.runprefix, args.runname)
     os.makedirs(run_dir, exist_ok=True)
     _write_provenance(run_dir, cfg)
     return Trainer(env, env.MDP, cfg, n_envs=args.nEnvironments,
                    max_len=min(args.maxEpisodeLength, env.MAX_STEPS),
-                   device=args.device, run_dir=run_dir)
+                   device=args.device, run_dir=run_dir,
+                   state_dtype=torch.uint8 if args.app == "catch" else None)
 
 
 def run(args: argparse.Namespace,
         prepare: Optional[Callable] = None):
     """Build the trainer, gather minTotObsNum observations (off-policy
     learners only: an on-policy one fills its own horizon in train()),
-    take nTrainSteps grad steps and save runs/<runname>/checkpoint.pt.
+    take nTrainSteps grad steps and save runs/<runname>/checkpoint.pt
+    (unless args.noCheckpoint).
     prepare(trainer), when given, runs before the warmup (chip_smoke.py
     attaches its launch counters and timers there). Returns the Trainer."""
     tr = make_trainer(args)
@@ -129,7 +141,8 @@ def run(args: argparse.Namespace,
     if not tr.on_policy:
         tr.warmup()
     tr.train(args.nTrainSteps)
-    tr.save(os.path.join(tr.run_dir, "checkpoint.pt"))
+    if not args.noCheckpoint:
+        tr.save(os.path.join(tr.run_dir, "checkpoint.pt"))
     return tr
 
 

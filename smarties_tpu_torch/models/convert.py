@@ -10,7 +10,9 @@ into the port (and parameters back) without the JAX runtime.
   "out": {"W", "b"}, "param"}; a layer is {"W", "b"}, with "R" for an
   RNN, the twelve per-gate leaves of an LSTM or the six of a GRU, see
   models/net.py), every weight as [in, out] in both, so conversion is a
-  leaf-wise copy. The learners nest these: {"net", "tgt"} (DQN, NAF,
+  leaf-wise copy. A conv stack adds "conv": [{"W": [K, K, Cin, O], "b":
+  [O]}, ...], HWIO on both sides, copied the same way (the Adam moments
+  too). The learners nest these: {"net", "tgt"} (DQN, NAF,
   DPG; the target leaves come out without grad) and {"actor", "critic",
   "enc"} (DPG, MixedPG, PPO).
 - optimiser state: Adam's m1/m2 trees plus beta_t_1, beta_t_2 and step;
@@ -20,7 +22,8 @@ into the port (and parameters back) without the JAX runtime.
   (h, c); `carry_from_numpy` / `carry_to_numpy` keep that nesting.
 - replay: built from the JAX ReplayState's FIELD VIEWS (not its packed
   record): `REPLAY_FIELDS` lists the keys, each an array in the JAX
-  orientation ([E, L+1, ...] per step, [E] per slot, scalars).
+  orientation ([E, L+1, ...] per step, [E] per slot, scalars). A uint8
+  `states` array (pixel replays) stays uint8.
   `replay_to_numpy` gives the port's replay under the same keys.
 """
 from __future__ import annotations
@@ -151,8 +154,10 @@ def replay_from_jax(rs_np, device=None) -> rb.ReplayState:
     v_trunc at t == length, so the stored field takes it as is."""
     kw = {}
     for name, dst in _STEP_FIELDS.items():
-        kw[dst] = _copy(np.swapaxes(np.asarray(rs_np[name]), 0, 1),
-                        torch.float32, device).contiguous()
+        x = np.swapaxes(np.asarray(rs_np[name]), 0, 1)
+        dt = (torch.uint8 if name == "states" and x.dtype == np.uint8
+              else torch.float32)
+        kw[dst] = _copy(x, dt, device).contiguous()
     for name, (dst, dt) in _SLOT_FIELDS.items():
         kw[dst] = _copy(rs_np[name], dt, device)
     for name, dt in _SCALAR_FIELDS.items():

@@ -1,6 +1,7 @@
-"""Function approximators: MLP / RNN / LSTM / GRU stacks with a param head.
+"""Function approximators: MLP / RNN / LSTM / GRU stacks with a param head
+and an optional conv preprocessing stack.
 
-Port of the dense path of smarties_tpu/models/net.py (reference:
+Port of smarties_tpu/models/net.py (reference:
 Network/{Network,Builder}.{h,cpp}, Layers/*). The parameters are a plain
 dict of leaf tensors with the JAX package's structure, leaf names and
 [in, out] layouts — {"layers": [layer, ...], "out": {"W", "b"}, "param":
@@ -36,7 +37,18 @@ Init conventions follow the reference exactly:
 - a trainable state-independent param head appends extra outputs (the
   policy stdev, RACER_common.cpp:96-103).
 
-Conv stacks and the bf16 compute type are not ported yet.
+A conv stack (`NetSpec.conv`; addConv2d, Conv2Dfactory.h) sits before the
+dense layers: params["conv"][i] = {"W": [K, K, Cin, O], "b": [O]}, the JAX
+package's HWIO layout, so convert stays a plain copy. The flat input is
+[frame_t; frame_t-1; ...] (appended past observations), i.e. CHW with the
+frames as channels; the convs are VALID with square filters and strides,
+each followed by bias and LRelu, and the output is flattened in (h, w, c)
+order as the JAX package's NHWC conv flattens it, so the first dense
+layer's rows mean the same in both. The conv itself is
+torch.nn.functional.conv2d (cuDNN on the card), run channels_last there.
+The JAX package's space-to-depth rewrite of the first layer is a layout
+transform for another device and computes the same sums: not ported. The
+bf16 compute type is not ported.
 """
 from __future__ import annotations
 
@@ -103,10 +115,30 @@ def join(*xs):
 
 
 @dataclass(frozen=True)
+class Conv2DDesc:
+    """One conv layer (Conv2D_Descriptor, Definitions.h:60-69, set by
+    Communicator::setPreprocessingConv2d). Valid padding, square filters
+    and strides, as in the reference Conv2DLayer."""
+    in_w: int
+    in_h: int
+    in_c: int
+    out_c: int
+    filter: int
+    stride: int
+
+    @property
+    def out_w(self) -> int:
+        return (self.in_w - self.filter) // self.stride + 1
+
+    @property
+    def out_h(self) -> int:
+        return (self.in_h - self.filter) // self.stride + 1
+
+
+@dataclass(frozen=True)
 class NetSpec:
     """Static architecture description (Builder.cpp:27-180); the fields
-    of the JAX package's NetSpec without the conv stack and compute
-    type."""
+    of the JAX package's NetSpec without the compute type."""
     n_in: int
     hidden: Tuple[int, ...] = (128, 128)
     n_out: int = 1
@@ -119,6 +151,9 @@ class NetSpec:
     out_bias_init: Tuple[float, ...] = ()
     # skip connections between equal-width FFNN hidden layers
     residual: bool = False
+    # conv preprocessing stack applied to the (flattened-image) input
+    # before the dense layers (addConv2d, Conv2Dfactory.h)
+    conv: Tuple[Conv2DDesc, ...] = ()
 
     def __post_init__(self):
         if self.kind not in ("FFNN", "RNN", "LSTM", "GRU"):
@@ -154,6 +189,14 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def _mlp_in_dim(spec: NetSpec) -> int:
+    """Dense-stack input size: the conv output if there is a conv stack."""
+    if spec.conv:
+        c = spec.conv[-1]
+        return c.out_w * c.out_h * c.out_c
+    return spec.n_in
+
+
 def init_params(gen: Optional[torch.Generator], spec: NetSpec,
                 device=None) -> Dict:
     """Build the parameter dict; U(-f, f) draws come from `gen` (a CPU
@@ -166,7 +209,7 @@ def init_params(gen: Optional[torch.Generator], spec: NetSpec,
     def zeros(n):
         return torch.zeros((n,), dtype=torch.float32)
 
-    sizes = [spec.n_in] + list(spec.hidden)
+    sizes = [_mlp_in_dim(spec)] + list(spec.hidden)
     params = {"layers": [], "out": {}}
     for nin, nout in zip(sizes[:-1], sizes[1:]):
         if spec.kind in ("FFNN", "RNN"):
@@ -206,6 +249,16 @@ def init_params(gen: Optional[torch.Generator], spec: NetSpec,
             torch.as_tensor(spec.param_init, dtype=torch.float32)
             if spec.param_init else
             torch.zeros((spec.n_param_out,), dtype=torch.float32))
+    if spec.conv:
+        # drawn after the dense leaves, so a dense net's init does not
+        # depend on whether another net has a conv stack
+        params["conv"] = []
+        for c in spec.conv:
+            fac = _INIT_FACTOR["Relu"](c.filter * c.filter * c.in_c,
+                                       c.out_c)
+            params["conv"].append({
+                "W": uniform((c.filter, c.filter, c.in_c, c.out_c), fac),
+                "b": zeros(c.out_c)})
     return tree_map(lambda x: x.to(device).requires_grad_(True), params)
 
 
@@ -224,6 +277,23 @@ def init_carry(spec: NetSpec, batch_shape=(), device=None):
                  for h in spec.hidden)
 
 
+def _conv_stack(layers, conv: Tuple[Conv2DDesc, ...], x):
+    """[..., C*H*W] flat CHW input -> [..., h*w*c] features, flattened in
+    (h, w, c) order."""
+    c0 = conv[0]
+    lead = x.shape[:-1]
+    h = x.reshape((-1, c0.in_c, c0.in_h, c0.in_w))
+    if h.is_cuda:
+        h = h.contiguous(memory_format=torch.channels_last)
+    for layer, c in zip(layers, conv):
+        # leaves are HWIO; conv2d takes OIHW
+        w = layer["W"].permute(3, 2, 0, 1)
+        h = torch.nn.functional.conv2d(h, w, layer["b"], stride=c.stride)
+        h = _ACTS["LRelu"](h)
+    # a view where h is channels_last
+    return h.permute(0, 2, 3, 1).reshape(lead + (-1,))
+
+
 def apply_net(params: Dict, spec: NetSpec, x, carry=()):
     """Forward pass. x: [..., n_in] -> (y [..., total_out], new_carry).
 
@@ -231,6 +301,8 @@ def apply_net(params: Dict, spec: NetSpec, x, carry=()):
     share those axes. Feed-forward nets return ()."""
     act = _ACTS[spec.act]
     h = x
+    if spec.conv:
+        h = _conv_stack(params["conv"], spec.conv, h)
     new_carry = []
     for li, layer in enumerate(params["layers"]):
         if spec.kind == "FFNN":

@@ -41,11 +41,15 @@ class InProgress(NamedTuple):
 
 def init_inprogress(n_envs: int, max_len: int, dim_obs: int,
                     dim_action: int, dim_policy: int,
-                    device=None) -> InProgress:
+                    device=None, state_dtype=F32) -> InProgress:
+    """state_dtype: the replay's state storage type (uint8 for pixels);
+    observations are cast to it as they are written."""
     V, L1 = n_envs, max_len + 1
     z = lambda *s: torch.zeros(s, dtype=F32, device=device)
     return InProgress(
-        states=z(L1, V, dim_obs), actions=z(L1, V, dim_action),
+        states=torch.zeros((L1, V, dim_obs), dtype=state_dtype,
+                           device=device),
+        actions=z(L1, V, dim_action),
         mus=z(L1, V, dim_policy), rewards=z(L1, V), value=z(L1, V),
         advantage=z(L1, V), t=torch.zeros((V,), dtype=I32, device=device),
         cum_reward=z(V))
@@ -55,7 +59,7 @@ def _reset_lanes(ip: InProgress, mask) -> InProgress:
     """Zero the finished lanes (in place for the buffers)."""
     for x in (ip.states, ip.actions, ip.mus, ip.rewards, ip.value,
               ip.advantage):
-        x.masked_fill_(mask.view((1, -1) + (1,) * (x.dim() - 2)), 0.0)
+        x.masked_fill_(mask.view((1, -1) + (1,) * (x.dim() - 2)), 0)
     return ip._replace(t=torch.where(mask, torch.zeros_like(ip.t), ip.t),
                        cum_reward=torch.where(mask,
                                               torch.zeros_like(ip.cum_reward),
@@ -95,7 +99,17 @@ def make_rollout_chunk(env_module, mdp, act_fn: Callable, max_tot_obs: int,
         obs = mdp.observed(env_module.observe(es))
         tcur = ip.t.long()
         ip.states[tcur, lane] = obs.to(ip.states.dtype)
-        obs_std = (obs - rs.state_mean) * rs.state_scale
+        k_app = mdp.n_appended_obs
+        if k_app:
+            # frame stacking from the in-progress buffer, clamped at the
+            # episode start (Episode::standardizedState)
+            offs = torch.arange(k_app + 1, device=tcur.device)
+            tj = torch.clamp(tcur[:, None] - offs[None, :], min=0)
+            frames = (ip.states[tj, lane[:, None]]
+                      - rs.state_mean) * rs.state_scale      # [V, k+1, dimS]
+            obs_std = frames.reshape(V, -1)
+        else:
+            obs_std = (obs - rs.state_mean) * rs.state_scale
         act, mu, val, adv, rnn = act_fn(params, obs_std, gens.act, rnn)
         ip.actions[tcur, lane] = act
         ip.mus[tcur, lane] = mu

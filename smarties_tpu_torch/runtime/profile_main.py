@@ -14,8 +14,9 @@ runs one fused cycle, and then times each part of a cycle alone:
 - under torch.profiler, for a train step and an env sweep: the profiled
   wall time per call, the device's busy time per call (the summed
   durations of its kernels, which run on one stream and do not
-  overlap), the busy share of the profiled wall, and the CUDA kernel
-  launches and device kernels per call;
+  overlap), the busy share of the profiled wall, the CUDA kernel
+  launches and device kernels per call, and the five kernel names with
+  the most device time;
 - the two return sweeps (the ingest's refresh_new_returns, with no
   stale slot and with 1024 of them, and the 1000-step refresh) both
   ways in this one run: through the fused in-place sweep, one K1 launch
@@ -32,6 +33,17 @@ the recurrent recipes on cartpole_pomdp) with the same columns: the
 three times per call, then the profiled wall, device busy time, busy
 share, kernel launches and device kernels per call.
 
+    python3 -m smarties_tpu_torch.runtime.profile_main --path RACER_atari
+
+profiles the grad step of the conv path on a synthetic replay, what the
+JAX package's bench.py::build_atari builds: RACER-discrete with 6
+actions, the Mnih stack 84x84x4 -> 32.8/4, 64.4/2, 64.3/1 -> [512], batch
+128, a uint8 replay of 512 slots x 128 steps of random pixels made from a
+seed, uniform minibatches drawn up front. Same columns, plus the FLOPs of
+one step counted from the shapes (`step_flops`) and the rate they make
+over the events' time; then one env sweep of `catch` at 1024 envs with
+the recipe's learner.
+
 Needs a CUDA card (exits 2 without one). Imports no JAX.
 """
 from __future__ import annotations
@@ -45,7 +57,9 @@ import torch
 
 from smarties_tpu_torch import launch
 from smarties_tpu_torch.algos.base import presample_uniform
-from smarties_tpu_torch.envs import cartpole
+from smarties_tpu_torch.core.mdp import MDPSpec
+from smarties_tpu_torch.envs import cartpole, catch
+from smarties_tpu_torch.models.net import _mlp_in_dim
 from smarties_tpu_torch.ops import retrace_kernel as rk
 from smarties_tpu_torch.replay import buffer as rb
 from smarties_tpu_torch.runtime.trainer import Trainer
@@ -93,11 +107,16 @@ def profile_calls(fn, n: int):
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     launches = sum(1 for e in prof.events()
                    if e.name.startswith("cudaLaunchKernel"))
     return {"wall_ms": wall_ms / n, "busy_ms": busy_ms / n,
             "busy_share": busy_ms / wall_ms, "launches": launches / n,
-            "device_kernels": len(kernels) / n}
+            "device_kernels": len(kernels) / n,
+            "top_kernels": [(k[:60], us / 1e3 / n) for k, us in top]}
 
 
 def composed_sweep_(rs, select, gamma, lam, mode, zero_unselected):
@@ -137,6 +156,7 @@ def report_times(name, fn, n, warm: int = 1):
     print(f"{name}: {ev:.3f} ms/call (events) | host enqueue "
           f"{enq:.3f} ms/call | host total {tot:.3f} ms/call (n={n})",
           flush=True)
+    return ev
 
 
 def report_profile(name, fn, n):
@@ -145,7 +165,96 @@ def report_profile(name, fn, n):
           f"| device busy {p['busy_ms']:.3f} ms/call | busy share "
           f"{p['busy_share']:.4f} | kernel launches/call "
           f"{p['launches']:.1f} | device kernels/call "
-          f"{p['device_kernels']:.1f} (n={n})", flush=True)
+          f"{p['device_kernels']:.1f} (n={n}) | longest device kernels, "
+          f"ms/call: " + "; ".join(f"{k} {ms:.3f}"
+                                   for k, ms in p["top_kernels"]),
+          flush=True)
+
+
+def step_flops(spec, n_forward: int, n_backward: int) -> int:
+    """FLOPs (2 per multiply-add) of one grad step of a feed-forward net
+    with a conv stack, counted from the shapes: the forward over
+    n_forward inputs, and for n_backward of them the weight gradient of
+    every layer and the input gradient of every layer but the first.
+    Activations, biases and the optimiser are left out."""
+    macs = [c.out_h * c.out_w * c.out_c * c.filter * c.filter * c.in_c
+            for c in spec.conv]
+    sizes = [_mlp_in_dim(spec), *spec.hidden, spec.n_out]
+    macs += [a * b for a, b in zip(sizes[:-1], sizes[1:])]
+    return 2 * (n_forward * sum(macs)
+                + n_backward * (2 * sum(macs) - macs[0]))
+
+
+def atari_setup(device, seed: int = 0, n_slots: int = 512,
+                max_len: int = 128):
+    """(learner, params, optimiser state, replay): RACER-discrete, 6
+    actions, the Mnih stack over 4 stacked 84x84 frames, [512], batch 128,
+    on a uint8 replay of n_slots full episodes of random pixels."""
+    from smarties_tpu_torch.algos.vracer import VRacer
+    mdp = MDPSpec(dim_state=84 * 84, dim_action=1, discrete_values=(6,),
+                  n_appended_obs=3, conv_layers=catch.CONV_STACK)
+    cfg = HyperParameters(batchSize=128, nnLayerSizes=[512], gamma=0.99,
+                          minTotObsNum=16384, maxTotObsNum=262144)
+    algo = VRacer(mdp, cfg)     # discrete: the RACER rewrite
+    params, opt = algo.init(torch.Generator().manual_seed(seed), device)
+    rs = rb.init_replay(n_slots, max_len, mdp.dim_state_observed,
+                        mdp.dim_action, mdp.dim_policy, cfg.clipImpWeight,
+                        mu_init=rb.safe_mu(mdp), device=device,
+                        state_dtype=torch.uint8)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    rs.states_tm.random_(0, 256, generator=gen)
+    rs.slot_id.copy_(torch.arange(n_slots, device=device))
+    rs.slot_len.fill_(max_len)
+    rs.rho_tm.fill_(1.0)
+    return algo, params, opt, rb.rebuild_sample_cache(rs)
+
+
+def profile_atari(n: int = 30, warm: int = 10):
+    """The grad step of the conv path (times, profile, FLOPs), then one
+    env sweep of `catch` with the same learner."""
+    algo, params, opt, rs = atari_setup("cuda")
+    cfg = algo.cfg
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    eps, ts = presample_uniform(gen, rs, cfg.batchSize, 2 * (n + warm))
+    state = {"p": params, "o": opt, "rs": rs, "i": 0}
+
+    def train_step():
+        i = state["i"] % eps.shape[0]
+        state["p"], state["o"], state["rs"], _ = algo.train_step(
+            state["p"], state["o"], state["rs"],
+            sample_override=(eps[i], ts[i]))
+        state["i"] += 1
+
+    what = (f"RACER_atari (VRacer, synthetic uint8 replay "
+            f"{rs.n_slots} x {rs.max_len + 1} x 84x84, Mnih conv + "
+            f"{cfg.nnLayerSizes}, 6 actions, batch {cfg.batchSize}) "
+            f"train_step")
+    ev = report_times(what, train_step, n, warm=warm)
+    report_profile(what, train_step, n)
+    # [s_t; s_t1] go forward together; the backward runs over both halves
+    # (the s_t1 rows with a zero cotangent)
+    flops = step_flops(algo.spec, 2 * cfg.batchSize, 2 * cfg.batchSize)
+    print(f"{what}: {flops / 1e9:.3f} GFLOP/step from the shapes "
+          f"({2 * cfg.batchSize} inputs forward and backward) | "
+          f"{flops / ev / 1e9:.3f} TFLOP/s f32 over the events' time | "
+          f"memory peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          f"GiB", flush=True)
+
+    # one env sweep of catch with the recipe's learner: two renders, the
+    # act forward over 1024 stacked images, the commit of uint8 frames.
+    # 2048 slots: a sweep touches the lanes' slots only
+    n_envs = 1024
+    tr = Trainer(catch, catch.MDP, launch.load_recipe("RACER_atari", 0),
+                 n_envs=n_envs, n_slots=2048, max_len=catch.MAX_STEPS,
+                 device="cuda", state_dtype=torch.uint8)
+
+    def roll():
+        tr.carry, _ = tr._rollout(tr.params, tr.carry, 1)
+
+    what = (f"RACER_atari (Racer, catch, {n_envs} envs, uint8 replay 2048 x "
+            f"{catch.MAX_STEPS + 1} x 84x84) env sweep")
+    report_times(what, roll, 10, warm=warm)
+    report_profile(what, roll, 10)
 
 
 def profile_path(name: str):
@@ -190,19 +299,28 @@ def profile_path(name: str):
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="python3 -m smarties_tpu_torch.runtime.profile_main")
-    p.add_argument("--path", nargs="+", choices=sorted(PATHS), default=(),
+    p.add_argument("--path", nargs="+",
+                   choices=sorted(PATHS) + ["RACER_atari"], default=(),
                    help="profile a grad step and an env sweep of these "
-                        "paths instead of the V-RACER main path's report")
+                        "paths (RACER_atari: the conv grad step on a "
+                        "synthetic replay) instead of the V-RACER main "
+                        "path's report")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_main: needs a CUDA card", file=sys.stderr)
         sys.exit(2)
+    # f32 throughout, as the Trainer sets it: no TF32 in matmuls or convs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0], flush=True)
     for name in args.path:
-        profile_path(name)
+        if name == "RACER_atari":
+            profile_atari()
+        else:
+            profile_path(name)
     if args.path:
         return
     tr = main_path_trainer()

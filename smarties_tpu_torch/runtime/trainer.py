@@ -87,9 +87,11 @@ class Trainer:
     def __init__(self, env_module, mdp: MDPSpec, cfg: HyperParameters,
                  n_envs: int = 64, n_slots: Optional[int] = None,
                  max_len: int = 512, *, device, run_dir: Optional[str] = None,
-                 algo_cls=None):
+                 algo_cls=None, state_dtype=None):
         """device: where every tensor lives ("cuda", "cuda:1", "cpu"). It
-        is required: nothing picks the CPU when a card is missing."""
+        is required: nothing picks the CPU when a card is missing.
+        state_dtype: storage type of the raw states in the replay and the
+        in-progress episodes (default f32; torch.uint8 for pixels)."""
         if device is None:
             raise ValueError("Trainer needs an explicit device")
         # the learner first: one the port lacks is reported before any
@@ -133,13 +135,14 @@ class Trainer:
         self.gen_env, self.gen_act, self.gen_batch = (
             dev_gen(s_env), dev_gen(s_act), dev_gen(s_batch))
 
+        sdt = state_dtype or torch.float32
         rs = rb.init_replay(n_slots, max_len, mdp.dim_state_observed,
                             mdp.dim_action, mdp.dim_policy,
                             cfg.clipImpWeight, mu_init=rb.safe_mu(mdp),
-                            device=self.device)
+                            device=self.device, state_dtype=sdt)
         ip = init_inprogress(n_envs, max_len, mdp.dim_state_observed,
                              mdp.dim_action, mdp.dim_policy,
-                             device=self.device)
+                             device=self.device, state_dtype=sdt)
         env_state = env_module.init(self.gen_env, n_envs, self.device)
         self.carry = RolloutCarry(rs, ip, env_state,
                                   RolloutGens(self.gen_act, self.gen_env),
@@ -276,17 +279,27 @@ class Trainer:
                 < self.n_grad_steps * self.cfg.obsPerStep)
 
     # ------------------------------------------------------------------
+    @property
+    def _can_presample(self) -> bool:
+        """Uniform indices can be drawn for a whole chunk up front; the
+        prioritized samplers depend on the TD errors each step writes and
+        draw inside the step."""
+        return self.cfg.dataSamplingAlgo in ("uniform", "default")
+
     def _train_chunk(self, n: int):
-        """n gradient steps on uniform indices drawn up front; metrics
-        stacked [n] per key, on the device."""
+        """n gradient steps, on uniform indices drawn up front or on each
+        step's own prioritized draw; metrics stacked [n] per key, on the
+        device."""
         rs = self.carry.replay
-        eps, ts = presample_uniform(self.gen_batch, rs, self.cfg.batchSize,
-                                    n)
+        if self._can_presample:
+            eps, ts = presample_uniform(self.gen_batch, rs,
+                                        self.cfg.batchSize, n)
         ms = []
         for i in range(n):
             self.params, self.opt_state, rs, m = self.algo.train_step(
-                self.params, self.opt_state, rs,
-                sample_override=(eps[i], ts[i]))
+                self.params, self.opt_state, rs, gen=self.gen_batch,
+                sample_override=((eps[i], ts[i]) if self._can_presample
+                                 else None))
             ms.append(m)
         self.carry = self.carry._replace(replay=rs)
         return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
@@ -307,8 +320,10 @@ class Trainer:
         env sweep (n_envs observations) and runs n_envs/obsPerStep grad
         steps, keeping the obsPerStep invariant exactly. The 1000-step
         refresh runs between cycles at the nearest boundary. An on-policy
-        learner has no such cycle and takes train()'s horizon loop."""
-        if self.on_policy:
+        learner has no such cycle and takes train()'s horizon loop; so does
+        a prioritized sampler, as in the JAX package, whose fused program
+        needs presampled indices."""
+        if self.on_policy or not self._can_presample:
             return self.train(n_grad_steps, log_every, max_wall_s)
         if not self._initialized:
             self.warmup()
@@ -468,11 +483,16 @@ class Trainer:
         done = torch.zeros((n_episodes,), dtype=torch.bool,
                            device=self.device)
         rnn = self._init_rnn(n_episodes)
+        # frame history, newest first, tiled from the first observation
+        k_app = mdp.n_appended_obs
+        hist = mdp.observed(env.observe(es))[:, None, :].repeat(
+            1, k_app + 1, 1)
         for _ in range(max_steps):
             obs = mdp.observed(env.observe(es))
-            a, _, _, _, rnn = act(self.params,
-                                  (obs - rs.state_mean) * rs.state_scale,
-                                  self.gen_act, rnn)
+            hist = torch.cat([obs[:, None, :], hist[:, :k_app]], dim=1)
+            obs_std = ((hist - rs.state_mean) * rs.state_scale
+                       ).reshape(n_episodes, -1)
+            a, _, _, _, rnn = act(self.params, obs_std, self.gen_act, rnn)
             es, r, d, _ = env.step(es, mdp.learner_to_env_action(a))
             rets = rets + r * (~done).to(r.dtype)
             done = done | d

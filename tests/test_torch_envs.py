@@ -1,5 +1,6 @@
 """Port parity: the discrete and the no-velocity (pomdp) cart-pole,
-pendulum, acrobot and mountain-car.
+pendulum, acrobot, mountain-car and the pixel env catch (at the end of
+the file: integer dynamics and pixels in {0, 255}, held exactly).
 
 The same start states and action sequences (from a seed) go through the
 JAX envs and the port's for 200 steps at 32 lanes. Lanes that finish
@@ -167,3 +168,147 @@ def test_reset_masking_and_generator(name):
     to = tn(tmod.observe(tmod.init(gen, big)))
     assert (to.min(0) >= jo.min(0) - 0.05).all()
     assert (to.max(0) <= jo.max(0) + 0.05).all()
+
+
+# ---------------------------------------------------------------------
+# catch: the 84x84 pixel env of the conv path. Integer dynamics and
+# pixels in {0, 255}: everything is exact.
+
+def _catch_mods():
+    from smarties_tpu.envs import catch as jcatch
+    from smarties_tpu_torch.envs import catch as tcatch
+    return jcatch, tcatch
+
+
+def _catch_cols(rng, n, tcatch):
+    return np.stack([rng.randint(0, tcatch.W - tcatch.BALL + 1, n),
+                     rng.randint(0, tcatch.W - tcatch.PADDLE + 1, n)],
+                    -1).astype(np.int32)
+
+
+def _jax_catch_state(jcatch, cols, like=None, mask=None):
+    """A JAX CatchState from pinned spawn columns (reset_where's masking
+    when `like` and `mask` are given)."""
+    z = jnp.zeros((len(cols),), jnp.int32)
+    new = jcatch.CatchState(ball_col=jnp.asarray(cols[:, 0]), ball_row=z,
+                            paddle_col=jnp.asarray(cols[:, 1]), step=z)
+    if like is None:
+        return new
+    m = jnp.asarray(mask)
+    return jcatch.CatchState(*(jnp.where(m, a, b)
+                               for a, b in zip(new, like)))
+
+
+def test_catch_constants_and_mdp():
+    jcatch, tcatch = _catch_mods()
+    for k in ("H", "W", "BALL", "PADDLE", "PADDLE_H", "FALL", "MOVE",
+              "MAX_STEPS", "CONV_STACK"):
+        assert getattr(tcatch, k) == getattr(jcatch, k), k
+    jm_, tm_ = jcatch.MDP, tcatch.MDP
+    for k in ("dim_state", "dim_action", "discrete_values", "n_appended_obs",
+              "conv_layers", "dim_net_input", "dim_policy",
+              "max_action_label", "dim_state_observed"):
+        assert getattr(tm_, k) == getattr(jm_, k), k
+    assert tm_.dim_net_input == 4 * 84 * 84 and tm_.max_action_label == 3
+    # the label codec at discrete_values=(3,)
+    lab = np.arange(3, dtype=np.int32)
+    comps = tm_.label_to_components(tt(lab, torch.int32))
+    np.testing.assert_array_equal(
+        tn(comps), np.asarray(jm_.label_to_components(jnp.asarray(lab))))
+    np.testing.assert_array_equal(tn(tm_.components_to_label(comps)), lab)
+    x = np32(np.random.RandomState(0).rand(2, 84 * 84))
+    np.testing.assert_array_equal(tn(tm_.observed(tt(x))),
+                                  np.asarray(jm_.observed(jnp.asarray(x))))
+
+
+def test_catch_whole_episodes_with_pinned_spawns():
+    """Two and a half episodes at 16 lanes under random actions: pixels,
+    rewards, done and terminal flags and the state fields equal the JAX
+    env's at every step, resets included."""
+    jcatch, tcatch = _catch_mods()
+    rng = np.random.RandomState(0)
+    n = 16
+    cols = _catch_cols(rng, n, tcatch)
+    js = _jax_catch_state(jcatch, cols)
+    ts = tcatch.init(None, n, cols=tt(cols, torch.int32))
+    n_done = 0
+    for _ in range(int(2.5 * tcatch.MAX_STEPS)):
+        jo, to = jcatch.observe(js), tcatch.observe(ts)
+        assert to.dtype == torch.float32 and to.shape == (n, 84 * 84)
+        np.testing.assert_array_equal(tn(to), np.asarray(jo))
+        assert set(np.unique(tn(to))) <= {0.0, 255.0}
+        a = rng.randint(0, 3, (n, 1)).astype(np.float32)
+        js, jr, jd, jt = jcatch.step(js, jnp.asarray(a))
+        ts, tr_, td, tterm = tcatch.step(ts, tt(a))
+        np.testing.assert_array_equal(tn(tr_), np.asarray(jr))
+        np.testing.assert_array_equal(tn(td), np.asarray(jd))
+        np.testing.assert_array_equal(tn(tterm), np.asarray(jt))
+        for f in jcatch.CatchState._fields:
+            np.testing.assert_array_equal(tn(getattr(ts, f)),
+                                          np.asarray(getattr(js, f)), f)
+        n_done += int(tn(td).sum())
+        cols = _catch_cols(rng, n, tcatch)
+        js = _jax_catch_state(jcatch, cols, like=js, mask=np.asarray(jd))
+        ts = tcatch.reset_where(ts, td, cols=tt(cols, torch.int32))
+    assert n_done == 2 * n
+    # episodes last MAX_STEPS steps
+    assert int(tn(ts.step).max()) < tcatch.MAX_STEPS
+
+
+def test_catch_optimal_policy_scores_one():
+    """Moving the paddle towards the ball always catches it
+    (tests/test_new_envs.py::TestCatch)."""
+    _, tcatch = _catch_mods()
+    s = tcatch.init(torch.Generator().manual_seed(1), 8)
+    ret = np.zeros(8)
+    for _ in range(tcatch.MAX_STEPS + 1):
+        d = np.sign((tn(s.ball_col) + tcatch.BALL // 2)
+                    - (tn(s.paddle_col) + tcatch.PADDLE // 2))
+        s, r, done, term = tcatch.step(s, tt((d + 1).reshape(8, 1)))
+        ret += tn(r)
+        if bool(done.all()):
+            break
+    assert (ret == 1.0).all() and bool(term.all())
+
+
+def test_catch_generator_spawns_and_reset_masking():
+    _, tcatch = _catch_mods()
+    g = torch.Generator().manual_seed(0)
+    s = tcatch.init(g, 4096)
+    b, p = tn(s.ball_col), tn(s.paddle_col)
+    assert b.min() == 0 and b.max() == tcatch.W - tcatch.BALL
+    assert p.min() == 0 and p.max() == tcatch.W - tcatch.PADDLE
+    assert s.ball_col.dtype == torch.int32 and not tn(s.ball_row).any()
+    s2, _, _, _ = tcatch.step(s, torch.ones((4096, 1)))
+    mask = torch.arange(4096) % 2 == 0
+    s3 = tcatch.reset_where(s2, mask, g)
+    assert (tn(s3.step)[::2] == 0).all() and (tn(s3.step)[1::2] == 1).all()
+    np.testing.assert_array_equal(tn(s3.ball_col)[1::2], tn(s2.ball_col)[1::2])
+    assert (tn(s3.ball_col)[::2] != tn(s2.ball_col)[::2]).any()
+
+
+def test_catch_small_board():
+    """The 20x20 variant: 7-step episodes, the same rules, its own MDP;
+    the full board's functions are its functions at another size."""
+    _, tcatch = _catch_mods()
+    small = tcatch.small
+    assert small.MAX_STEPS == 7 and small.MDP.dim_state == 400
+    assert small.MDP.dim_net_input == 3 * 400
+    assert small.MDP.conv_layers[0][:3] == (20, 20, 3)
+    s = small.init(torch.Generator().manual_seed(2), 64)
+    assert int(s.ball_col.max()) <= 20 - tcatch.BALL
+    assert int(s.paddle_col.max()) <= 20 - tcatch.PADDLE
+    ret = np.zeros(64)
+    for k in range(small.MAX_STEPS):
+        o = small.observe(s)
+        assert o.shape == (64, 400)
+        # a 4x4 ball and an 8x3 paddle are lit
+        assert (tn(o).sum(1) == 255.0 * (16 + 24)).all()
+        d = np.sign((tn(s.ball_col) + tcatch.BALL // 2)
+                    - (tn(s.paddle_col) + tcatch.PADDLE // 2))
+        s, r, done, term = small.step(s, tt((d + 1).reshape(64, 1)))
+        ret += tn(r)
+        assert bool(done.all()) == (k == small.MAX_STEPS - 1)
+    assert (ret == 1.0).all()
+    s = small.reset_where(s, done, torch.Generator().manual_seed(3))
+    assert not tn(s.step).any() and not tn(s.ball_row).any()

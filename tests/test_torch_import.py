@@ -42,7 +42,7 @@ def test_port_imports_no_jax():
     for sub in ("core.mdp", "ops.returns", "ops.retrace_kernel",
                 "ops.continuous_policy", "ops.discrete_policy",
                 "ops.advantages", "envs.cartpole", "envs.pendulum",
-                "envs.acrobot", "envs.mountaincar", "models.net",
+                "envs.acrobot", "envs.mountaincar", "envs.catch", "models.net",
                 "models.optim", "models.convert", "replay.buffer",
                 "replay.collector", "algos.base", "algos.vracer",
                 "algos.dqn", "algos.naf", "algos.dpg", "algos.mixedpg",

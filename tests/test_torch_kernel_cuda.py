@@ -14,6 +14,12 @@ The time-major pipeline and the in-place sweep keep the plain version's
 operations in its order, so those are held to torch.equal: slot counts
 that are no multiple of 32, lengths 0 and L1-1, a select of all, some
 and no slots.
+
+Two more checks need the card though they hold no kernel of the port's
+own: the conv stack (cuDNN, channels_last) against the CPU, forward and
+gradients at the Mnih shapes with TF32 off (rtol 1e-4 / atol 1e-5: sums
+of up to 3136 f32 products in another order), and the inverse-CDF draw
+on the card against the CPU at 2^21 categories (equal).
 """
 import numpy as np
 import pytest
@@ -164,3 +170,43 @@ def test_sweep_rejects_unsupported_input(cuda):
     with pytest.raises(ValueError):
         _sweep(rk.retrace_sweep_, f, f["qret"], select, "retraceExplore",
                False)
+
+
+@pytest.mark.cuda
+def test_conv_stack_on_the_card_matches_the_cpu(cuda):
+    from smarties_tpu_torch.models import net
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    conv = tuple(net.Conv2DDesc(*c) for c in (
+        (84, 84, 4, 32, 8, 4), (20, 20, 32, 64, 4, 2), (9, 9, 64, 64, 3, 1)))
+    spec = net.NetSpec(n_in=4 * 84 * 84, hidden=(512,), n_out=13, conv=conv)
+    cpu = net.init_params(torch.Generator().manual_seed(0), spec)
+    card = net.tree_map(
+        lambda x: x.detach().to(cuda).requires_grad_(True), cpu)
+    rng = np.random.RandomState(0)
+    x = torch.tensor(((rng.randint(0, 256, (8, spec.n_in)) - 128) / 64.0
+                      ).astype(np.float32))
+    c = torch.tensor(rng.randn(8, 13).astype(np.float32))
+    outs = []
+    for params, dev in ((cpu, "cpu"), (card, cuda)):
+        y, _ = net.apply_net(params, spec, x.to(dev))
+        torch.sum(y * c.to(dev)).backward()
+        outs.append(y.detach().cpu())
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-4, atol=1e-5)
+    for g, w in zip(net.tree_leaves(card), net.tree_leaves(cpu)):
+        torch.testing.assert_close(g.grad.cpu(), w.grad, rtol=1e-4,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_inverse_cdf_draw_on_the_card_matches_the_cpu(cuda):
+    from smarties_tpu_torch.replay import buffer as rb
+    rng = np.random.RandomState(1)
+    p = rng.rand(1 << 21).astype(np.float32)
+    p[rng.rand(1 << 21) < 0.5] = 0.0
+    p = torch.tensor(p / p.sum())
+    u = torch.tensor(rng.rand(4096).astype(np.float32))
+    want = rb.draw_from_probs(p, u)
+    got = rb.draw_from_probs(p.to(cuda), u.to(cuda))
+    assert torch.equal(got.cpu(), want)
+    assert bool((p[want] > 0).all())

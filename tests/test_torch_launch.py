@@ -12,7 +12,10 @@ state — MixedPG's included —, the replay and the acting carry).
 PPO (continuous, discrete and ppoStandard) runs whole horizon cycles
 without a warmup, the recurrent recipes (RACER_RNN, the GRU recipe
 VRACER_expensiveData, and LSTM / GRU / RNN nets under DQN, NAF, DPG and
-PPO) run with a BPTT window of 4. Unsupported apps and learners raise
+PPO) run with a BPTT window of 4. `catch` runs the RACER_atari recipe
+(Mnih conv stack, 4 stacked frames) on a uint8 replay; three learners and
+PPO run under a prioritized sampler, with the farpolfrac / maxkldiv /
+minerror episode filters. Unsupported apps and learners raise
 NotImplementedError naming their ROADMAP item.
 """
 import json
@@ -60,12 +63,23 @@ CASES = [
     ("pendulum", "NAF", dict(RNN_TINY, nnType="GRU"), "NAF"),
     ("pendulum", "DPG", dict(RNN_TINY, nnType="LSTM",
                              encoderLayerSizes=[0]), "DPG"),
+    # the pixel env: Mnih conv stack, 4 stacked frames, uint8 replay
+    ("catch", "RACER_atari", {"maxTotObsNum": 512}, "Racer"),
+    # prioritized samplers and the other episode filters
+    ("cartpole", "VRACER", {"dataSamplingAlgo": "PERrank",
+                            "ERoldSeqFilter": "farpolfrac"}, "VRacer"),
+    ("cartpole_discrete", "DQN", {"dataSamplingAlgo": "PERerr",
+                                  "ERoldSeqFilter": "maxkldiv"}, "DQN"),
+    ("pendulum", "NAF", {"dataSamplingAlgo": "PERseq",
+                         "ERoldSeqFilter": "minerror"}, "NAF"),
+    ("cartpole", "PPO", dict(PPO_TINY, dataSamplingAlgo="PERrank"), "PPO"),
 ]
 
 
 def _case_id(app, recipe, extra, cls):
     tags = (extra.get("nnType"), "std" if extra.get("ppoStandard") else None,
-            recipe if "pomdp" in app else None)
+            recipe if "pomdp" in app else None,
+            extra.get("dataSamplingAlgo"))
     return "-".join([app, cls] + [t for t in tags if t])
 
 
@@ -90,6 +104,8 @@ def test_launch_builtin(tmp_path, app, recipe, extra, cls):
     tr = launch.run(args)
     assert type(tr.algo).__name__ == cls
     assert tr.n_grad_steps >= 40
+    assert tr.replay.states_tm.dtype == (torch.uint8 if app == "catch"
+                                         else torch.float32)
     assert all(torch.isfinite(x).all() for x in tree_leaves(tr.params))
     run = tmp_path / "r0"
     want = JHP.from_json(str(path))
@@ -131,14 +147,14 @@ def test_launch_builtin(tmp_path, app, recipe, extra, cls):
 @pytest.mark.parametrize("app,recipe,extra,item", [
     ("glider", "VRACER", (), "B10"),
     ("predator_prey", "VRACER", (), "B10"),
-    ("catch", "VRACER", (), "B6"),
+    ("catch", "VRACER", ("--nLearners", "2"), "B12"),
     ("apps/cart_pole_py/exec.py", "VRACER", (), "B11"),
     ("cartpole", "VRACER", ("--nLearners", "2"), "B12"),
     ("cartpole", "CMA", (), "B8"),
     ("cartpole", "ACER", (), "B7"),
     ("cartpole", "VRACER_CMA", (), "B8"),
-    ("cartpole", '{"learner": "GAE", "dataSamplingAlgo": "PERrank"}', (),
-     "B9"),
+    ("cartpole", '{"learner": "ACER", "dataSamplingAlgo": "PERrank"}', (),
+     "B7"),
     ("cartpole", '{"nnType": "LSTM", "ESpopSize": 4}', (), "B8"),
 ])
 def test_not_ported_raises(tmp_path, app, recipe, extra, item):
