@@ -71,11 +71,38 @@ Phases, each reported on its own line:
    atol 1e-6).
 9. samplers: the main path's learner (V-RACER, 1024 envs, 4096 x 501
    slots, [128, 128], batch 256) under dataSamplingAlgo PERrank with
-   ERoldSeqFilter farpolfrac: warmup, train_fused(100), which gives way
-   to train(), and train(100), every step drawing from the TD errors the
-   steps before wrote; then PERrank, PERerr and PERseq draws on the card
+   ERoldSeqFilter farpolfrac: warmup, train_fused(1024), one fused cycle
+   with the draw inside every step (the 1000-step refresh at its end),
+   and train(100), every step drawing from the TD errors the steps
+   before wrote; then PERrank, PERerr and PERseq draws on the card
    against the CPU on a copy of the replay for the same injected
    uniforms (equal).
+10. learning: the port learns on the card. V-RACER on cartpole with the
+   settings of tests/test_torch_e2e.py (32 envs, 512 slots, batch 128,
+   learnrate 1e-4, randSeed 1): a deterministic eval of 16 episodes
+   before and after 6000 grad steps must rise by more than 30 and end
+   above 80. Prints both evals and the trailing noisy return.
+11. ACER: recipe ACER on pendulum through the launcher as published
+   (encoder [128] + [128], batch 24, minTotObsNum = maxTotObsNum =
+   131072, windows of S = 200) with 1024 envs: warmup, one fused cycle
+   (train_fused(1024): ACER's own episode draw up front, the 1000-step
+   refresh at its end), evaluate(8, 200). Checks one launch of K1's
+   affine_suffix_scan per grad step (both window recursions as [48, 200]
+   rows) and no other K1 launch; holds the kernel against its plain
+   version on the last step's own coefficients and times both at that
+   shape; then the card against the CPU at a small size (4 steps on
+   distinct episodes with the clipped normals injected).
+12. RACER-ES: recipe VRACER_CMA (a population of 60, [64, 64], batch 60)
+   on cartpole through the launcher with 1024 envs: warmup, one fused
+   cycle (each step draws its own minibatch), evaluate(8, 200); one K1
+   sweep launch per call at ingest, initialize_stats and refresh; then
+   the card against the CPU (the population normals injected; the
+   members' losses within 1e-2, the update ranked by the CPU's).
+13. CMA: recipe CMA (12 members, 384 episodes a generation, [64, 64]) on
+   cartpole through the launcher with 1020 envs for 5 generations:
+   avgR, the best member and ms per generation; the mean stays finite;
+   then one generation (a pendulum rollout and the update) on the card
+   against the CPU with the noise injected.
 Then one JSON line with the kernels' results and, last, the device line.
 
 The script imports no JAX and nothing of the JAX package. Any failed
@@ -130,8 +157,17 @@ RNN_PATHS = (("racer_rnn", "RACER_RNN", 4096, 16384),
 RNN_ENVS, RNN_STEPS = 1024, 200
 # the conv / Atari phase
 ATARI_ENVS, ATARI_STEPS = 1024, 300
-# the samplers phase: steps through train_fused and through train
+# the samplers phase: steps through train()
 PER_STEPS = 100
+# the learning phase: tests/test_torch_e2e.py's settings
+LEARN_CFG = dict(minTotObsNum=2048, maxTotObsNum=16384, batchSize=128,
+                 learnrate=1e-4, obsPerStep=1.0, randSeed=1)
+LEARN_ENVS, LEARN_SLOTS, LEARN_STEPS = 32, 512, 6000
+# ACER and RACER-ES: lanes, and grad steps in one fused cycle
+CYCLE_ENVS = 1024
+# CMA: lanes (the largest multiple of its 12 members up to 1024), and
+# generations
+CMA_ENVS, CMA_GENERATIONS = 1020, 5
 
 
 def phase_device():
@@ -341,12 +377,28 @@ def _leaves(tree, prefix=""):
     return [(prefix.rstrip("."), tree)]
 
 
-def _card_vs_cpu(env, cfg, n_steps, state_dtype=None):
+def _to(tree, device):
+    """A tensor, or a tuple of tensors, on `device`."""
+    if isinstance(tree, tuple):
+        return tuple(x.to(device) for x in tree)
+    return tree.to(device)
+
+
+def _card_vs_cpu(env, cfg, n_steps, state_dtype=None, draws=None,
+                 distinct_episodes=False, held_apart=None):
     """The port on the card against the port on the CPU (whose K1 is the
     plain torch loop) at a small size, from the same state: the CPU
     trainer's warmup, then its params, optimiser state and replay copied
     to the card, n_steps train steps on the same pinned samples and a
-    refresh on both. cuBLAS and the CPU BLAS reduce in another order (TF32
+    refresh on both. `draws(rng, trainer)`, when given, makes a step's
+    other random inputs as CPU tensors (ACER's clipped normals, RACER-ES's
+    population normals), passed to both as keyword arguments.
+    `distinct_episodes`: one sample per episode (ACER's windows of one
+    episode would overlap, and the order of the overlapping writes is
+    not defined). `held_apart` {param path: atol}: leaves held to an
+    absolute bound of their own (ACER's advantage output bias, whose
+    gradient is zero but for rounding, which Adam scales to whole
+    steps). cuBLAS and the CPU BLAS reduce in another order (TF32
     off): rtol 1e-4; values pass through scale_net2v in RACER, which
     cancels two terms near 5100 (one f32 ulp is 4.9e-4): atol 2e-3 on V,
     TD errors and returns. The conv learner (cuDNN on the card) keeps
@@ -372,20 +424,31 @@ def _card_vs_cpu(env, cfg, n_steps, state_dtype=None):
     valid = np.nonzero(convert.replay_to_numpy(cpu.replay)["ep_id"] >= 0)[0]
     for _ in range(n_steps):
         pairs = set()
+        if distinct_episodes:
+            pairs = {(int(e), int(rng.randint(0, lens[e])))
+                     for e in rng.choice(valid, cfg.batchSize,
+                                         replace=False)}
         while len(pairs) < cfg.batchSize:
             e = int(rng.choice(valid))
             pairs.add((e, int(rng.randint(0, lens[e]))))
         ep, t = (torch.tensor(x, dtype=torch.int32) for x in zip(*pairs))
+        kw = {} if draws is None else draws(rng, cpu)
         for tr in (cpu, gpu):
             tr.params, tr.opt_state, _, _ = tr.algo.train_step(
                 tr.params, tr.opt_state, tr.replay,
-                sample_override=(ep.to(tr.device), t.to(tr.device)))
+                sample_override=(ep.to(tr.device), t.to(tr.device)),
+                **{k: _to(v, tr.device) for k, v in kw.items()})
     for tr in (cpu, gpu):
         tr.carry = tr.carry._replace(replay=tr._refresh(tr.replay, 1000.0))
     worst = {"params": 0.0}
     got_p = dict(_leaves(gpu.params))
     for k, p in _leaves(cpu.params):
         g = got_p[k].detach().cpu()
+        if held_apart and k in held_apart:
+            torch.testing.assert_close(g, p.detach(), rtol=0,
+                                       atol=held_apart[k],
+                                       msg=lambda m: f"param {k}: {m}")
+            continue
         torch.testing.assert_close(g, p.detach(), rtol=1e-4, atol=1e-6,
                                    msg=lambda m: f"param {k}: {m}")
         worst["params"] = max(worst["params"],
@@ -941,22 +1004,33 @@ def phase_samplers():
     rk.reset_launches()
     tr.warmup(chunk=16, blind_sweeps=16)
     assert not tr._can_presample
+    hooks = {}
+    cycle = tr._fused_cycle
+
+    def counted_cycle(*a):
+        hooks["cycles"] = hooks.get("cycles", 0) + 1
+        return cycle(*a)
+
+    tr._fused_cycle = counted_cycle
     ms = []
-    for run in (tr.train_fused, tr.train):
+    # one fused cycle (1024 steps, each drawing from the TD errors the
+    # steps before wrote; the 1000-step refresh at its end), then train()
+    for run, n in ((tr.train_fused, tr.n_envs), (tr.train, PER_STEPS)):
         g0 = tr.n_grad_steps
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        run(PER_STEPS, log_every=10 ** 9)
+        run(n, log_every=10 ** 9)
         e1.record()
         e1.synchronize()
-        assert tr.n_grad_steps - g0 == PER_STEPS, (g0, tr.n_grad_steps)
-        ms.append(e0.elapsed_time(e1) / PER_STEPS)
+        assert tr.n_grad_steps - g0 == n, (g0, tr.n_grad_steps)
+        ms.append(e0.elapsed_time(e1) / n)
+    assert hooks["cycles"] == 1, hooks
     counts = dict(rk.launches)
     rets = tr.evaluate(8, max_steps=200)
     _check_finite(name, tr, rets, 8)
-    sites.check_one_launch_per_call(counts, ("ingest", "initialize_stats"),
-                                    name)
+    sites.check_one_launch_per_call(
+        counts, ("ingest", "initialize_stats", "refresh"), name)
     rs = tr.replay
     assert float(rs.delta_tm.abs().max()) > 0      # TD errors were written
     cpu = convert.replay_from_jax(convert.replay_to_numpy(rs), "cpu")
@@ -973,9 +1047,9 @@ def phase_samplers():
         agree[algo] = int(torch.unique(ep_c).numel())
     print(f"samplers: {name} (VRacer, cartpole, [128, 128], batch 256, 1024 "
           f"envs, {MAIN_E} x {MAIN_L1} slots, PERrank + farpolfrac): "
-          f"train_fused({PER_STEPS}) gave way to train(): {ms[0]:.3f} "
-          f"ms/grad step by events with the sweeps that reach the start "
-          f"threshold, train({PER_STEPS}) {ms[1]:.3f} | stored "
+          f"train_fused({tr.n_envs}), one fused cycle with the draws in "
+          f"the steps: {ms[0]:.3f} ms/grad step by events, "
+          f"train({PER_STEPS}) {ms[1]:.3f} | stored "
           f"steps {int(rs.n_stored_steps())} | evaluate(8, 200) mean return "
           f"{float(np.mean(rets)):.2f} | K1 sweep launches by site "
           f"{dict(sites.sites)}, one per call | draws of {cfg.batchSize} on "
@@ -985,7 +1059,425 @@ def phase_samplers():
     torch.cuda.empty_cache()
     return {name: {"sites": dict(sites.sites),
                    "launches": counts["retrace_sweep"],
-                   "ms_per_grad_step": ms[1]}}
+                   "ms_per_grad_step": ms[0]}}
+
+
+def phase_learning():
+    """The port learns on the card: tests/test_torch_e2e.py's run (the
+    twin of tests/test_e2e_cartpole.py::test_vracer_improves), with the
+    same two inequalities on the deterministic eval."""
+    import numpy as np
+    import torch
+    from smarties_tpu_torch.envs import cartpole
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+    from smarties_tpu_torch.runtime.trainer import Trainer
+    from smarties_tpu_torch.utils.config import HyperParameters
+
+    name = "vracer_learning"
+    tr = Trainer(cartpole, cartpole.MDP, HyperParameters(**LEARN_CFG),
+                 n_envs=LEARN_ENVS, n_slots=LEARN_SLOTS,
+                 max_len=cartpole.MAX_STEPS, device="cuda")
+    sites = SiteCounter(tr, rk)
+    rk.reset_launches()
+    t0 = time.perf_counter()
+    tr.warmup(chunk=32)
+    base = float(np.mean(tr.evaluate(16)))
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    tr.train(LEARN_STEPS, log_every=10 ** 9)
+    e1.record()
+    e1.synchronize()
+    trained = float(np.mean(tr.evaluate(16)))
+    trail = float(np.mean(tr._ep_returns[-20:]))
+    run_s = time.perf_counter() - t0
+    counts = dict(rk.launches)
+    _check_finite(name, tr, np.array([base, trained]), 2)
+    assert tr.n_grad_steps == LEARN_STEPS, tr.n_grad_steps
+    sites.check_one_launch_per_call(
+        counts, ("ingest", "initialize_stats", "refresh"), name)
+    ms_step = e0.elapsed_time(e1) / LEARN_STEPS
+    print(f"learning: {name} (VRacer, cartpole, {tr.cfg.nnLayerSizes}, "
+          f"batch {tr.cfg.batchSize}, learnrate {tr.cfg.learnrate}, "
+          f"{LEARN_ENVS} envs, {LEARN_SLOTS} slots, randSeed "
+          f"{tr.cfg.randSeed}): deterministic eval of 16 episodes "
+          f"{base:.3f} before, {trained:.3f} after {LEARN_STEPS} grad "
+          f"steps (needs > base + 30 = {base + 30:.3f} and > 80) | trailing "
+          f"20 noisy returns {trail:.3f} | train({LEARN_STEPS}) "
+          f"{ms_step:.3f} ms/grad step by events | phase {run_s:.2f} s | "
+          f"K1 sweep launches by site {dict(sites.sites)}, one per call",
+          flush=True)
+    assert trained > base + 30, (base, trained, trail)
+    assert trained > 80, (trained, trail)
+    return {name: {"sites": dict(sites.sites),
+                   "launches": counts["retrace_sweep"],
+                   "ms_per_grad_step": ms_step, "eval_before": base,
+                   "eval_after": trained, "trailing_return": trail}}
+
+
+def _timed_fused(tr, hooks):
+    """Replace tr.train (what launch.run calls) by train_fused timed with
+    CUDA events, counting the fused cycles."""
+    import torch
+    fused, cycle = tr.train_fused, tr._fused_cycle
+
+    def counted_cycle(*a):
+        hooks["cycles"] = hooks.get("cycles", 0) + 1
+        return cycle(*a)
+
+    def timed(n, **kw):
+        g0 = tr.n_grad_steps
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        fused(n, log_every=10 ** 9)
+        e1.record()
+        e1.synchronize()
+        hooks.update(train_ms=e0.elapsed_time(e1),
+                     train_wall_s=time.perf_counter() - t0,
+                     steps=tr.n_grad_steps - g0)
+
+    tr.train, tr._fused_cycle = timed, counted_cycle
+
+
+def _acer_draws(rng, tr):
+    """ACER's clipped normals of one step, as CPU tensors."""
+    import numpy as np
+    import torch
+    from smarties_tpu_torch.algos import acer
+    B, nA = tr.cfg.batchSize, tr.mdp.dim_action
+    S = min(acer.SEQ_CUTOFF, tr.replay.max_len)
+
+    def f(*shape):
+        return torch.as_tensor(
+            np.clip(rng.randn(*shape), -3, 3).astype(np.float32))
+
+    return {"noise": (f(B, S + 1, nA), f(acer.N_EXPECTATION, B, S + 1, nA))}
+
+
+def _es_draws(rng, tr):
+    """RACER-ES's population normals of one step, as a CPU tensor."""
+    import numpy as np
+    import torch
+    return {"z": torch.as_tensor(rng.randn(
+        tr.algo.P, tr.algo.unravel.n).astype(np.float32))}
+
+
+def phase_acer():
+    """ACER on pendulum through the launcher at the published settings:
+    warmup, one fused cycle of 1024 grad steps (the 1000-step refresh at
+    its end), evaluate; K1's affine_suffix_scan once per grad step, held
+    against its plain version on the last step's own coefficients and
+    timed at that shape; then the card against the CPU."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from smarties_tpu_torch import launch
+    from smarties_tpu_torch.algos import acer
+    from smarties_tpu_torch.envs import pendulum
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+    from smarties_tpu_torch.ops import returns as ret
+    from smarties_tpu_torch.runtime import bench_retrace as bench
+
+    name = "acer"
+    runs = os.path.join(ROOT, "build", "chip_smoke_runs")
+    args = launch.parse_args([
+        "pendulum", "--recipe", "ACER", "--device", "cuda",
+        "--nEnvironments", str(CYCLE_ENVS), "--nTrainSteps", str(CYCLE_ENVS),
+        "--runprefix", runs, "--runname", name, "--noCheckpoint"])
+    hooks = {"scans": 0}
+    scan = acer.affine_suffix_scan
+
+    def recorded_scan(a, b):
+        hooks["scans"] += 1
+        hooks["ab"] = (a, b)
+        return scan(a, b)
+
+    def prepare(tr):
+        tr.log_flush_threshold = 10 ** 9
+        hooks["sites"] = SiteCounter(tr, rk)
+        _timed_fused(tr, hooks)
+
+    acer.affine_suffix_scan = recorded_scan
+    try:
+        rk.reset_launches()
+        t0 = time.perf_counter()
+        tr = launch.run(args, prepare=prepare)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = dict(rk.launches)
+    finally:
+        acer.affine_suffix_scan = scan
+    sites, calls = dict(hooks["sites"].sites), dict(hooks["sites"].calls)
+    rets = tr.evaluate(8, max_steps=200)
+    _check_finite(name, tr, rets, 8)
+    cfg, B = tr.cfg, tr.cfg.batchSize
+    S = min(acer.SEQ_CUTOFF, tr.replay.max_len)
+    assert (B, S, cfg.encoderLayerSizes, cfg.nnLayerSizes, cfg.minTotObsNum,
+            cfg.maxTotObsNum) == (24, 200, [128], [128], 131072, 131072), cfg
+    assert tr.algo.returns_mode == "none" and tr._can_presample
+    steps = hooks["steps"]
+    assert steps == CYCLE_ENVS and hooks["cycles"] == 1, hooks
+    assert calls.get("refresh") == 1, calls
+    # one launch of the affine scan per grad step; no sweep anywhere
+    assert counts == {"affine_suffix_scan": steps, "batched_retrace": 0,
+                      "retrace_sweep": 0} and hooks["scans"] == steps, \
+        (counts, hooks["scans"], steps)
+    assert sum(sites.values()) == 0, sites
+    a, b = hooks["ab"]
+    assert tuple(a.shape) == (2 * B, S) and a.is_contiguous(), a.shape
+    got, want = rk.affine_suffix_scan(a, b), ret.affine_suffix_scan_plain(a, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    err = float((got - want).abs().max())
+    bit_equal = bool(torch.equal(got, want))
+    timer = bench.ColdTimer(torch.device("cuda"))
+    ms = timer(lambda: rk.affine_suffix_scan(a, b), 50)
+    plain_ms = timer(lambda: ret.affine_suffix_scan_plain(a, b), 10)
+    n_bytes = 3 * a.numel() * a.element_size()
+    bound_ms = n_bytes / bench.HBM_BYTES_PER_S * 1e3
+    cpu_cfg = _small_cfg("ACER")
+    cpu_cfg.batchSize = 8
+    # up to one Adam step of the critics' 10 x learnrate per train step,
+    # from either side's rounding (tests/test_torch_acer.py)
+    bias_tol = 4 * 3 * 10 * cpu_cfg.learnrate
+    worst = _card_vs_cpu(pendulum, cpu_cfg, 4, draws=_acer_draws,
+                         distinct_episodes=True,
+                         held_apart={"net.advtg.out.b": bias_tol})
+    shutil.rmtree(tr.run_dir)
+    ms_step = hooks["train_ms"] / steps
+    print(f"acer: {name} (ACER, pendulum, enc {cfg.encoderLayerSizes} + "
+          f"{cfg.nnLayerSizes}, batch {B} windows of S = {S}, {CYCLE_ENVS} envs, "
+          f"minTotObsNum = maxTotObsNum = {cfg.maxTotObsNum}): "
+          f"train_fused({CYCLE_ENVS}) {hooks['train_ms']:.1f} ms by events "
+          f"({ms_step:.3f} ms/grad step, host wall "
+          f"{hooks['train_wall_s']:.2f} s, {hooks['cycles']} cycle, refresh "
+          f"calls {calls.get('refresh')}) | launch.run {run_s:.2f} s | "
+          f"stored steps {int(tr.replay.n_stored_steps())} | evaluate(8, "
+          f"200) mean return {float(np.mean(rets)):.2f} | K1 launches "
+          f"{counts} for {steps} grad steps (sweeps by site {sites}) | "
+          f"affine_suffix_scan on the last step's [{2 * B}, {S}] "
+          f"coefficients: max|kernel - plain| {err:.3e}"
+          f"{' (bit-equal)' if bit_equal else ' (not bit-equal)'}, kernel "
+          f"{ms:.4f} ms | plain torch version {plain_ms:.4f} ms | "
+          f"{n_bytes} B, bound {bound_ms * 1e3:.4f} us | card vs CPU "
+          f"(batch 8 distinct episodes, S = 64, 4 steps + refresh) max "
+          f"|diff| {_fmt_diffs(worst)}", flush=True)
+    res = {"launches": steps, "ms_per_grad_step": ms_step, "run_s": run_s,
+           "card_vs_cpu": worst,
+           "scan": {"shape": [2 * B, S], "max_abs_err": err,
+                    "bit_equal": bit_equal, "ms": ms, "plain_ms": plain_ms,
+                    "bytes": n_bytes, "bound_ms": bound_ms}}
+    del tr
+    torch.cuda.empty_cache()
+    return {name: res}
+
+
+def _es_card_vs_cpu(env):
+    """RACER-ES on the card against the CPU (`_card_vs_cpu`, 4 steps and a
+    refresh), the card's update ranked by the CPU's losses. At the small
+    size the members' losses (0.01-0.6, spread ~3e-3) tie or differ by
+    1e-7, less than the card and the CPU disagree (V passes through
+    scale_net2v, whose f32 cancellation near 5100 leaves them up to
+    ~5e-4 apart per sample), so the two rankings need not agree, and
+    one swap moves the new mean by (w_i - w_j) * learnrate * |y_i -
+    y_j|, far above the params' tolerance. The losses are held to rtol
+    1e-2 / atol 1e-2 (a gross check; member 0's statistics are held at
+    the replay's tolerances). Returns the worst |diff|, the losses'
+    included."""
+    import torch
+    from smarties_tpu_torch.algos import racer_es
+
+    update = racer_es.cma_update
+    cpu_losses, worst = [], {"losses": 0.0}
+
+    def ranked_as_on_cpu(pop, noise, losses, *a):
+        if losses.device.type == "cpu":
+            cpu_losses.append(losses.clone())
+        else:
+            want = cpu_losses.pop()
+            torch.testing.assert_close(losses.cpu(), want, rtol=1e-2,
+                                       atol=1e-2)
+            worst["losses"] = max(worst["losses"], float(
+                (losses.cpu() - want).abs().max()))
+            losses = want.to(losses.device)
+        return update(pop, noise, losses, *a)
+
+    racer_es.cma_update = ranked_as_on_cpu
+    try:
+        worst.update(_card_vs_cpu(env, _small_cfg("VRACER_CMA"), 4,
+                                  draws=_es_draws))
+    finally:
+        racer_es.cma_update = update
+    return worst
+
+
+def phase_racer_es():
+    """RACER-ES (VRACER_CMA, a population of 60) on cartpole through the
+    launcher: warmup, one fused cycle of 1024 steps, each drawing its own
+    minibatch (the 1000-step refresh at its end), evaluate; K1 per site;
+    then the card against the CPU."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from smarties_tpu_torch import launch
+    from smarties_tpu_torch.envs import cartpole
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+
+    name = "vracer_cma"
+    runs = os.path.join(ROOT, "build", "chip_smoke_runs")
+    args = launch.parse_args([
+        "cartpole", "--recipe", "VRACER_CMA", "--device", "cuda",
+        "--nEnvironments", str(CYCLE_ENVS), "--nTrainSteps", str(CYCLE_ENVS),
+        "--runprefix", runs, "--runname", name, "--noCheckpoint"])
+    hooks = {}
+
+    def prepare(tr):
+        tr.log_flush_threshold = 10 ** 9
+        hooks["sites"] = SiteCounter(tr, rk)
+        _timed_fused(tr, hooks)
+
+    rk.reset_launches()
+    t0 = time.perf_counter()
+    tr = launch.run(args, prepare=prepare)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts, modes = dict(rk.launches), dict(rk.launch_modes)
+    sites, calls = dict(hooks["sites"].sites), dict(hooks["sites"].calls)
+    rets = tr.evaluate(8, max_steps=200)
+    _check_finite(name, tr, rets, 8)
+    cfg, algo = tr.cfg, tr.algo
+    assert type(algo).__name__ == "RacerES" and not tr._can_presample
+    assert (algo.P, cfg.batchSize, cfg.nnLayerSizes) == (60, 60, [64, 64])
+    assert tuple(tr.params["pop"].shape) == (60, algo.unravel.n)
+    steps = hooks["steps"]
+    assert steps == CYCLE_ENVS and hooks["cycles"] == 1, hooks
+    assert int(tr.opt_state.step) == steps and calls.get("refresh") == 1
+    hooks["sites"].check_one_launch_per_call(
+        counts, ("ingest", "initialize_stats", "refresh"), name)
+    assert modes == {"retrace": counts["retrace_sweep"], "GAE": 0}, modes
+    worst = _es_card_vs_cpu(cartpole)
+    shutil.rmtree(tr.run_dir)
+    ms_step = hooks["train_ms"] / steps
+    print(f"racer-es: {name} (RacerES, cartpole, population {algo.P} of "
+          f"{algo.unravel.n} weights, {cfg.nnLayerSizes}, batch "
+          f"{cfg.batchSize}, {CYCLE_ENVS} envs): train_fused({CYCLE_ENVS}) "
+          f"{hooks['train_ms']:.1f} ms by events ({ms_step:.3f} ms/grad "
+          f"step, host wall {hooks['train_wall_s']:.2f} s, "
+          f"{hooks['cycles']} cycle, in-step draws) | launch.run "
+          f"{run_s:.2f} s | stored steps {int(tr.replay.n_stored_steps())} "
+          f"| evaluate(8, 200) mean return {float(np.mean(rets)):.2f} | K1 "
+          f"sweep launches by site {sites} of calls {calls}, by mode "
+          f"{modes} | card vs CPU (population 60, [16, 16], 4 steps + "
+          f"refresh, ranked by the CPU's losses) max |diff| "
+          f"{_fmt_diffs(worst)}", flush=True)
+    res = {"sites": sites, "launches": counts["retrace_sweep"],
+           "modes": modes, "ms_per_grad_step": ms_step, "run_s": run_s,
+           "card_vs_cpu": worst}
+    del tr
+    torch.cuda.empty_cache()
+    return {name: res}
+
+
+def _cma_generation_vs_cpu():
+    """One generation of CMA on the card against the CPU from one state,
+    the acting noise and the population normals injected: a rollout of
+    pendulum lanes (episodes end only at max_len, so no reset draw
+    enters) and the update. Tolerances: returns and observation moments
+    rtol 1e-4 (cuBLAS and the CPU BLAS sum in another order); the update
+    rtol 1e-5 / atol 1e-6 (elementwise, the members ranked alike).
+    Returns the worst |diff| of the returns and of the new mean."""
+    import numpy as np
+    import torch
+    from smarties_tpu_torch import launch
+    from smarties_tpu_torch.algos.cma import CMAES
+    from smarties_tpu_torch.envs import pendulum
+
+    cfg = launch.load_recipe("CMA", 0)
+    cfg.nnLayerSizes = [16, 16]
+    P, T = cfg.ESpopSize, 32
+    cpu, gpu = (CMAES(pendulum, pendulum.MDP, cfg, n_envs=2 * P, max_len=T,
+                      device=d) for d in ("cpu", "cuda"))
+    rng = np.random.RandomState(0)
+    n = cpu.unravel.n
+    z0 = torch.as_tensor(rng.randn(P, n).astype(np.float32))
+    z1 = torch.as_tensor(rng.randn(P, n).astype(np.float32))
+    noise = torch.as_tensor(np.clip(rng.randn(T, 2 * P, 1), -3, 3)
+                            .astype(np.float32))
+    st = cpu.init(z=z0)
+    es = pendulum.init(torch.Generator().manual_seed(0), 2 * P, "cpu")
+    out = {}
+    for tr, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        st_d = type(st)(*(x.to(dev) for x in st))
+        es_d = type(es)(*(x.to(dev) for x in es))
+        _, rsum, rcnt, (ssum, ssq, _) = tr._generation_rollout(
+            st_d, es_d, T, noise=noise.to(dev))
+        losses = -rsum / torch.clamp(rcnt, min=1).to(torch.float32)
+        new = tr._cma_update(st_d, losses, z=z1.to(dev))
+        out[dev] = ({"rsum": rsum, "ssum": ssum, "ssq": ssq},
+                    rcnt, {k: getattr(new, k) for k in
+                           ("mean", "diag_cov", "path_cov", "pop")})
+    (c_roll, c_cnt, c_new), (g_roll, g_cnt, g_new) = out["cpu"], out["cuda"]
+    assert torch.equal(g_cnt.cpu(), c_cnt) and int(c_cnt.sum()) == 2 * P
+    for k in c_roll:
+        torch.testing.assert_close(g_roll[k].cpu(), c_roll[k], rtol=1e-4,
+                                   atol=1e-4, msg=lambda m: f"{k}: {m}")
+    for k in c_new:
+        torch.testing.assert_close(g_new[k].cpu(), c_new[k], rtol=1e-5,
+                                   atol=1e-6, msg=lambda m: f"{k}: {m}")
+    return {"returns": float((g_roll["rsum"].cpu() - c_roll["rsum"])
+                             .abs().max()),
+            "mean": float((g_new["mean"].cpu() - c_new["mean"]).abs().max())}
+
+
+def phase_cma():
+    """CMA-ES (recipe CMA) on cartpole through the launcher, 1020 lanes
+    (85 per member), 5 generations; then one generation against the
+    CPU."""
+    import numpy as np
+    import torch
+    from smarties_tpu_torch import launch
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+
+    name = "cma"
+    runs = os.path.join(ROOT, "build", "chip_smoke_runs")
+    args = launch.parse_args([
+        "cartpole", "--recipe", "CMA", "--device", "cuda", "--nEnvironments",
+        str(CMA_ENVS), "--nTrainSteps", str(CMA_GENERATIONS), "--runprefix",
+        runs, "--runname", name])
+    rk.reset_launches()
+    t0 = time.perf_counter()
+    cma = launch.run(args)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = dict(rk.launches)
+    rets = cma.evaluate(8, max_steps=200)
+    assert type(cma).__name__ == "CMAES", type(cma)
+    assert (cma.P, cma.cfg.batchSize, cma.eps_per_gen) == (12, 32, 384)
+    assert cma.n_generations == CMA_GENERATIONS == int(cma.state.gen)
+    for k in ("mean", "diag_cov", "path_cov", "pop"):
+        assert torch.isfinite(getattr(cma.state, k)).all(), k
+    assert np.isfinite(rets).all() and rets.shape == (8,), rets
+    assert sum(counts.values()) == 0, counts
+    hist = cma.history
+    assert all(np.isfinite([h["avgR"], h["best"]]).all() for h in hist)
+    worst = _cma_generation_vs_cpu()
+    gens = " ".join(f"{i + 1}:{h['avgR']:.2f}/{h['best']:.2f}/"
+                    f"{h['wall_s'] * 1e3:.1f}ms" for i, h in enumerate(hist))
+    print(f"cma: {name} (CMAES, cartpole, {cma.cfg.nnLayerSizes}, population "
+          f"{cma.P} of {cma.unravel.n} weights, {cma.eps_per_gen} episodes "
+          f"a generation, {CMA_ENVS} envs): generation:avgR/best/ms "
+          f"{gens} | {cma.n_env_steps} env steps | launch.run {run_s:.2f} s "
+          f"| evaluate(8, 200) of the mean {float(np.mean(rets)):.2f} | K1 "
+          f"launches {counts} (CMA runs no return sweep) | one generation "
+          f"card vs CPU (pendulum, 24 lanes x 32 steps, noise injected) max "
+          f"|diff| {_fmt_diffs(worst)}", flush=True)
+    return {"ms_per_generation": [h["wall_s"] * 1e3 for h in hist],
+            "avgR": [h["avgR"] for h in hist], "run_s": run_s,
+            "card_vs_cpu": worst}
 
 
 def main():
@@ -999,6 +1491,10 @@ def main():
     learners.update(phase_recurrent())
     learners.update(phase_atari())
     learners.update(phase_samplers())
+    learners.update(phase_learning())
+    learners.update(phase_acer())
+    learners.update(phase_racer_es())
+    cma = phase_cma()
     launches = main_res["launches"]
 
     def row(entry, mode, case):
@@ -1013,6 +1509,13 @@ def main():
                                          "random"),
                   "affine_suffix_scan": row("affine_suffix_scan", "-",
                                             "all steps")}
+    # the paths that launch each entry point, with their launches
+    by_entry = {"retrace_sweep": {"vracer_main": launches["retrace_sweep"]},
+                "batched_retrace": {}, "affine_suffix_scan": {}}
+    for path, v in learners.items():
+        entry = "affine_suffix_scan" if "scan" in v else "retrace_sweep"
+        if v["launches"]:
+            by_entry[entry][path] = v["launches"]
     entry_points = {
         name: {"launches": launches[name],
                "max_abs_err": kern["err"][name], "ms": r["ms"],
@@ -1020,8 +1523,12 @@ def main():
                "bound_ms": r["bound_ms"], "bound_by": "bytes",
                "share_of_bound": r["share_of_bound"],
                "device_loop_ms": r["loop_ms"], "clone_ms": r["clone_ms"],
-               "library_ms": None}
+               "library_ms": None, "paths": by_entry[name]}
         for name, r in entry_rows.items()}
+    acer_scan = learners["acer"]["scan"]
+    entry_points["affine_suffix_scan"]["acer_step"] = dict(
+        acer_scan, bound_by="bytes", library_ms=None,
+        launches=learners["acer"]["launches"])
     sweep = entry_points["retrace_sweep"]
     print(json.dumps({"kernels": [{
         "name": "retrace_suffix_scan",
@@ -1043,12 +1550,15 @@ def main():
         "launch_floor_ms": kern["floor_ms"],
         "build_s": kern["build_s"],
         "sites": {"vracer_main": main_res["sites"],
-                  **{k: v["sites"] for k, v in learners.items()}},
+                  **{k: v["sites"] for k, v in learners.items()
+                     if "sites" in v}},
         "launches_by_path": {"vracer_main": launches["retrace_sweep"],
                              **{k: v["launches"]
                                 for k, v in learners.items()}},
         "modes_by_path": {k: v["modes"] for k, v in learners.items()
                           if "modes" in v},
+        "cma": {"launches": 0,
+                "ms_per_generation": cma["ms_per_generation"]},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -186,8 +186,11 @@ class Learner:
     """What every ported learner shares: the minibatch draw and the
     every-1000-steps and initial return sweeps. Subclasses set cfg and
     returns_mode. An `on_policy` learner (PPO) is driven by the trainer's
-    horizon cycle instead of the obsPerStep pacing."""
+    horizon cycle instead of the obsPerStep pacing. `presample`: the
+    trainer may draw a chunk's uniform minibatch indices up front (every
+    learner of the JAX package but RACER-ES)."""
     on_policy = False
+    presample = True
     # appended past observations in the minibatch gather: set from the MDP
     # by the learners that stack frames (RACER family, DQN)
     n_appended = 0

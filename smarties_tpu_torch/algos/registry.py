@@ -1,10 +1,10 @@
 """Learner factory: settings string -> algorithm instance.
 
 Port of smarties_tpu/algos/registry.py (reference AlgoFactory,
-Learners/AlgoFactory.cpp:60-340) for the learners the port has: the RACER
-family (V-RACER, RACER, RACER-discrete), DQN/NFQ, NAF, DPG/DDPG,
-MixedPG and PPO. The others raise NotImplementedError naming their
-ROADMAP item.
+Learners/AlgoFactory.cpp:60-340): the RACER family (V-RACER, RACER,
+RACER-discrete; RACER-ES when ESpopSize > 1), DQN/NFQ, NAF, DPG/DDPG,
+MixedPG, PPO and ACER. CMA drives its own rollouts and is built as
+algos/cma.CMAES instead.
 """
 from __future__ import annotations
 
@@ -16,9 +16,12 @@ def make_learner(mdp: MDPSpec, cfg: HyperParameters):
     name = cfg.learner
     if name in ("VRACER", "default", "RACER"):
         if cfg.ESpopSize > 1:
-            raise NotImplementedError(
-                f"learner {name!r} with ESpopSize {cfg.ESpopSize} is "
-                f"RACER-ES, not ported yet (ROADMAP B8)")
+            # the derivative-free path (VRACER_CMA)
+            from smarties_tpu_torch.algos.racer_es import RacerES
+            if name == "RACER":
+                return RacerES(mdp, cfg, adv_kind="discrete"
+                               if mdp.is_discrete else "gaussian")
+            return RacerES(mdp, cfg)
         from smarties_tpu_torch.algos.vracer import Racer, VRacer
         # V-RACER on a discrete MDP auto-rewrites to RACER-discrete
         return Racer(mdp, cfg) if name == "RACER" else VRacer(mdp, cfg)
@@ -42,9 +45,11 @@ def make_learner(mdp: MDPSpec, cfg: HyperParameters):
             raise ValueError(
                 "learner 'ACER' supports continuous action spaces only "
                 "(reference parity); use RACER/DQN for discrete MDPs")
-        raise NotImplementedError(
-            "learner 'ACER' is not ported yet (ROADMAP B7)")
+        from smarties_tpu_torch.algos.acer import ACER
+        return ACER(mdp, cfg)
     if name == "CMA":
-        raise NotImplementedError(
-            "learner 'CMA' is gradient-free and not ported yet (ROADMAP B8)")
+        raise ValueError(
+            "CMA is gradient-free and drives its own rollouts: use "
+            "smarties_tpu_torch.algos.cma.CMAES(env, mdp, cfg, device=...) "
+            "directly")
     raise ValueError(f"unknown learner '{name}'")

@@ -13,6 +13,9 @@ trainer (checkpoint.pt).
         --device cuda --nEnvironments 1024
     python -m smarties_tpu_torch.launch catch --recipe RACER_atari \\
         --device cuda --nEnvironments 1024 --noCheckpoint
+    python -m smarties_tpu_torch.launch pendulum --recipe ACER --device cuda
+    python -m smarties_tpu_torch.launch cartpole --recipe CMA --device cuda \\
+        --nEnvironments 1020 --nTrainSteps 5     # 5 generations
 
 `catch` is the pixel env: its replay stores uint8 frames (65,536 slots of
 40 frames of 84x84 at the recipe's maxTotObsNum, 18.5 GB on the card, and
@@ -105,22 +108,30 @@ def _write_provenance(run_dir: str, cfg: HyperParameters):
 
 def make_trainer(args: argparse.Namespace):
     """Check the request, write the run directory's provenance and build
-    the Trainer. Raises NotImplementedError, naming the ROADMAP item, for
-    what the port does not have yet."""
+    the Trainer (the CMAES for learner CMA, whose lanes are split evenly
+    among the population). Raises NotImplementedError, naming the ROADMAP
+    item, for what the port does not have yet."""
     if args.nLearners > 1:
         raise NotImplementedError(
             "--nLearners > 1: multi-device learners are not ported yet "
             "(ROADMAP B12)")
     env = env_module(args.app)
     cfg = load_recipe(args.recipe, args.randSeed)
-    if cfg.learner == "CMA":
-        raise NotImplementedError(
-            "learner 'CMA' is gradient-free and not ported yet (ROADMAP B8)")
+    if cfg.learner == "CMA" and args.nEnvironments % cfg.ESpopSize:
+        raise ValueError(
+            f"learner 'CMA': --nEnvironments {args.nEnvironments} must be a "
+            f"multiple of ESpopSize {cfg.ESpopSize} (each env lane runs one "
+            f"member of the population)")
     import torch
-    from smarties_tpu_torch.runtime.trainer import Trainer
     run_dir = os.path.join(args.runprefix, args.runname)
     os.makedirs(run_dir, exist_ok=True)
     _write_provenance(run_dir, cfg)
+    if cfg.learner == "CMA":
+        # as the JAX launcher builds it: the default max_len of 512
+        from smarties_tpu_torch.algos.cma import CMAES
+        return CMAES(env, env.MDP, cfg, n_envs=args.nEnvironments,
+                     device=args.device)
+    from smarties_tpu_torch.runtime.trainer import Trainer
     return Trainer(env, env.MDP, cfg, n_envs=args.nEnvironments,
                    max_len=min(args.maxEpisodeLength, env.MAX_STEPS),
                    device=args.device, run_dir=run_dir,
@@ -132,12 +143,18 @@ def run(args: argparse.Namespace,
     """Build the trainer, gather minTotObsNum observations (off-policy
     learners only: an on-policy one fills its own horizon in train()),
     take nTrainSteps grad steps and save runs/<runname>/checkpoint.pt
-    (unless args.noCheckpoint).
+    (unless args.noCheckpoint). CMA trains nTrainSteps GENERATIONS and
+    saves no checkpoint, as the JAX launcher does
+    (bin/smarties_tpu_launch.py:100-104).
     prepare(trainer), when given, runs before the warmup (chip_smoke.py
-    attaches its launch counters and timers there). Returns the Trainer."""
+    attaches its launch counters and timers there). Returns the Trainer
+    (the CMAES for CMA)."""
     tr = make_trainer(args)
     if prepare is not None:
         prepare(tr)
+    if tr.cfg.learner == "CMA":
+        tr.train(args.nTrainSteps)
+        return tr
     if not tr.on_policy:
         tr.warmup()
     tr.train(args.nTrainSteps)

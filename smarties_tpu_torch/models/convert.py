@@ -17,7 +17,11 @@ into the port (and parameters back) without the JAX runtime.
   "enc"} (DPG, MixedPG, PPO).
 - optimiser state: Adam's m1/m2 trees plus beta_t_1, beta_t_2 and step;
   MixedPG's adds dpg_factor and err_q_factor around it, PPO's penal_coef
-  and dkl_target.
+  and dkl_target. ACER's params nest {"net": {"actor", "value", "advtg"
+  [, "enc"]}, "tgt_actor"} and its split Adam is one state over "net".
+  RACER-ES's params are {"pop": [P, n]}, flat vectors in ravel_pytree's
+  order (algos/cma.py), with ESOptState; CMA-ES's CMAState crosses the
+  same way (opt_state_from_jax).
 - acting carries: tuples of arrays, an LSTM layer's entry the pair
   (h, c); `carry_from_numpy` / `carry_to_numpy` keep that nesting.
 - replay: built from the JAX ReplayState's FIELD VIEWS (not its packed
@@ -67,12 +71,19 @@ def _copy(x, dtype, device):
     return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
 
+# top-level param keys whose leaves take no gradient: the target weights
+# ("tgt"; ACER's "tgt_actor") and the flat population matrix of RACER-ES
+_NO_GRAD_KEYS = ("tgt", "tgt_actor", "pop")
+
+
 def params_from_jax(params_np, device=None):
     """numpy param tree -> the port's leaf tensors: trained leaves require
-    grad, the target weights under a top-level "tgt" key do not."""
-    if isinstance(params_np, dict) and "tgt" in params_np:
+    grad, those under a top-level "tgt", "tgt_actor" or "pop" key do not
+    (ACER's nested {"net": {...}, "tgt_actor"}; RACER-ES's {"pop": [P,
+    n]}, which no autograd step touches)."""
+    if isinstance(params_np, dict) and set(_NO_GRAD_KEYS) & set(params_np):
         return {k: (tree_map(lambda x: _copy(x, torch.float32, device), v)
-                    if k == "tgt" else params_from_jax(v, device))
+                    if k in _NO_GRAD_KEYS else params_from_jax(v, device))
                 for k, v in params_np.items()}
     return tree_map(lambda x: _copy(x, torch.float32, device
                                     ).requires_grad_(True), params_np)
@@ -106,12 +117,21 @@ def _get(obj, k):
 
 
 def opt_state_from_jax(opt_np, device=None):
-    """numpy optimiser state -> the port's: an AdamState, MixedPG's
-    MixedPGOptState(adam, dpg_factor, err_q_factor) or PPO's
-    PPOOptState(adam, penal_coef, dkl_target) (namedtuples or dicts with
-    those keys)."""
+    """numpy optimiser state -> the port's: an AdamState (ACER's split
+    Adam is one AdamState over its nested net), MixedPG's
+    MixedPGOptState(adam, dpg_factor, err_q_factor), PPO's
+    PPOOptState(adam, penal_coef, dkl_target), RACER-ES's
+    ESOptState(diag_cov, path_cov, noise, step) or CMA-ES's CMAState
+    (namedtuples or dicts with those keys; the flat vectors are in the
+    same order on both sides)."""
     has = (lambda k: k in opt_np) if isinstance(opt_np, dict) \
         else (lambda k: hasattr(opt_np, k))
+    if has("diag_cov"):
+        from smarties_tpu_torch.algos.cma import CMAState
+        from smarties_tpu_torch.algos.racer_es import ESOptState
+        cls = CMAState if has("mean") else ESOptState
+        return cls(**{k: _copy(_get(opt_np, k), torch.int32 if k in (
+            "step", "gen") else torch.float32, device) for k in cls._fields})
     if not has("adam"):
         return adam_state_from_jax(opt_np, device)
     if has("penal_coef"):

@@ -29,9 +29,12 @@ runs one fused cycle, and then times each part of a cycle alone:
 profiles one grad step and one env sweep of each named path of
 chip_smoke.py instead (`PATHS`: the learners through the launcher's
 recipes at their published widths, PPO with 64 envs on a filled horizon,
-the recurrent recipes on cartpole_pomdp) with the same columns: the
-three times per call, then the profiled wall, device busy time, busy
-share, kernel launches and device kernels per call.
+the recurrent recipes on cartpole_pomdp, ACER on pendulum with its
+200-step episode windows and RACER-ES (VRACER_CMA, a population of 60)
+on cartpole) with the same columns: the three times per call, then the
+profiled wall, device busy time, busy share, kernel launches and device
+kernels per call. The step's minibatch is drawn once, as the trainer
+draws it (ACER: its episode and window-start draw).
 
     python3 -m smarties_tpu_torch.runtime.profile_main --path RACER_atari
 
@@ -146,6 +149,8 @@ PATHS = {
     "RACER_RNN": ("cartpole_pomdp", "RACER_RNN", 1024, 4096, 16384),
     "VRACER_expensiveData": ("cartpole_pomdp", "VRACER_expensiveData", 1024,
                              1024, 4096),
+    "ACER": ("pendulum", "ACER", 1024, None, None),
+    "VRACER_CMA": ("cartpole", "VRACER_CMA", 1024, None, None),
 }
 
 
@@ -275,14 +280,15 @@ def profile_path(name: str):
         tr.carry = tr.carry._replace(replay=tr._init_stats(tr.replay))
     else:
         tr.warmup()
-    eps, ts = presample_uniform(tr.gen_batch, tr.replay, cfg.batchSize, 1)
+    draw = getattr(tr.algo, "presample_fn", presample_uniform)
+    eps, ts = draw(tr.gen_batch, tr.replay, cfg.batchSize, 1)
 
     def roll():
         tr.carry, _ = tr._rollout(tr.params, tr.carry, 1)
 
     def train_step():
         tr.params, tr.opt_state, rs, _ = tr.algo.train_step(
-            tr.params, tr.opt_state, tr.replay,
+            tr.params, tr.opt_state, tr.replay, gen=tr.gen_batch,
             sample_override=(eps[0], ts[0]))
         tr.carry = tr.carry._replace(replay=rs)
 

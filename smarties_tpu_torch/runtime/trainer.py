@@ -281,25 +281,31 @@ class Trainer:
     # ------------------------------------------------------------------
     @property
     def _can_presample(self) -> bool:
-        """Uniform indices can be drawn for a whole chunk up front; the
-        prioritized samplers depend on the TD errors each step writes and
-        draw inside the step."""
-        return self.cfg.dataSamplingAlgo in ("uniform", "default")
+        """Indices can be drawn for a whole chunk up front when the sampler
+        is uniform and the learner allows it (a `presample` attribute or a
+        `presample_fn` of its own), as in the JAX package; the prioritized
+        samplers depend on the TD errors each step writes and draw inside
+        the step, as does a learner that opts out (RACER-ES)."""
+        algo = self.algo
+        return ((getattr(algo, "presample", False)
+                 or hasattr(algo, "presample_fn"))
+                and self.cfg.dataSamplingAlgo in ("uniform", "default"))
 
     def _train_chunk(self, n: int):
-        """n gradient steps, on uniform indices drawn up front or on each
-        step's own prioritized draw; metrics stacked [n] per key, on the
-        device."""
+        """n gradient steps, on indices drawn up front (the learner's
+        `presample_fn`, else uniform) or on each step's own draw; metrics
+        stacked [n] per key, on the device."""
         rs = self.carry.replay
+        pre = None
         if self._can_presample:
-            eps, ts = presample_uniform(self.gen_batch, rs,
-                                        self.cfg.batchSize, n)
+            fn = getattr(self.algo, "presample_fn", presample_uniform)
+            pre = fn(self.gen_batch, rs, self.cfg.batchSize, n)
         ms = []
         for i in range(n):
             self.params, self.opt_state, rs, m = self.algo.train_step(
                 self.params, self.opt_state, rs, gen=self.gen_batch,
-                sample_override=((eps[i], ts[i]) if self._can_presample
-                                 else None))
+                sample_override=(None if pre is None
+                                 else (pre[0][i], pre[1][i])))
             ms.append(m)
         self.carry = self.carry._replace(replay=rs)
         return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
@@ -320,10 +326,11 @@ class Trainer:
         env sweep (n_envs observations) and runs n_envs/obsPerStep grad
         steps, keeping the obsPerStep invariant exactly. The 1000-step
         refresh runs between cycles at the nearest boundary. An on-policy
-        learner has no such cycle and takes train()'s horizon loop; so does
-        a prioritized sampler, as in the JAX package, whose fused program
-        needs presampled indices."""
-        if self.on_policy or not self._can_presample:
+        learner has no such cycle and takes train()'s horizon loop, as in
+        the JAX package; every other learner keeps the cycle, with each
+        step drawing its own minibatch where it cannot presample (the
+        prioritized samplers, RACER-ES)."""
+        if self.on_policy:
             return self.train(n_grad_steps, log_every, max_wall_s)
         if not self._initialized:
             self.warmup()

@@ -12,7 +12,7 @@ from smarties_tpu_torch.models.convert import REPLAY_FIELDS
 # The suite runs beside the JAX tests in parallel workers, some of which
 # time forked env processes; at these small sizes torch gains nothing from
 # a thread per core, so keep it from crowding the other workers.
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def np32(x):

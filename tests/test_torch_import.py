@@ -46,7 +46,7 @@ def test_port_imports_no_jax():
                 "models.optim", "models.convert", "replay.buffer",
                 "replay.collector", "algos.base", "algos.vracer",
                 "algos.dqn", "algos.naf", "algos.dpg", "algos.mixedpg",
-                "algos.ppo",
+                "algos.ppo", "algos.acer", "algos.cma", "algos.racer_es",
                 "algos.registry", "runtime.trainer", "runtime.profile_main",
                 "runtime.bench_retrace", "utils.config", "utils.recipes", "launch"):
         assert "smarties_tpu_torch." + sub in res["submodules"], sub

@@ -15,8 +15,14 @@ VRACER_expensiveData, and LSTM / GRU / RNN nets under DQN, NAF, DPG and
 PPO) run with a BPTT window of 4. `catch` runs the RACER_atari recipe
 (Mnih conv stack, 4 stacked frames) on a uint8 replay; three learners and
 PPO run under a prioritized sampler, with the farpolfrac / maxkldiv /
-minerror episode filters. Unsupported apps and learners raise
-NotImplementedError naming their ROADMAP item.
+minerror episode filters. ACER (episode windows, with its split Adam)
+and RACER-ES (VRACER_CMA, a population of 4 here; RACER-ES with the
+Gaussian and the discrete advantage) run and restore the same way; ACER
+under PERrank keeps its own episode draw. CMA trains whole generations
+through the launcher and writes no checkpoint, as the JAX launcher does.
+Every recipe of utils/recipes.py builds, at its published widths, the
+learner the JAX registry builds for it (CMA: the CMAES). Unsupported
+apps and options raise NotImplementedError naming their ROADMAP item.
 """
 import json
 
@@ -24,9 +30,12 @@ import numpy as np
 import pytest
 import torch
 
+from smarties_tpu import envs as jenvs
+from smarties_tpu.algos.registry import make_learner as jmake
 from smarties_tpu.utils.config import HyperParameters as JHP
 from smarties_tpu.utils.recipes import RECIPES as JRECIPES
 from smarties_tpu_torch import launch
+from smarties_tpu_torch.algos.registry import make_learner
 from smarties_tpu_torch.models import convert
 from smarties_tpu_torch.models.net import tree_leaves
 from smarties_tpu_torch.runtime.trainer import _plain
@@ -73,12 +82,19 @@ CASES = [
     ("pendulum", "NAF", {"dataSamplingAlgo": "PERseq",
                          "ERoldSeqFilter": "minerror"}, "NAF"),
     ("cartpole", "PPO", dict(PPO_TINY, dataSamplingAlgo="PERrank"), "PPO"),
+    # ACER's episode windows (S = min(200, 64) here) and RACER-ES
+    ("pendulum", "ACER", dict(encoderLayerSizes=[16]), "ACER"),
+    ("pendulum", "ACER", dict(encoderLayerSizes=[16],
+                              dataSamplingAlgo="PERrank"), "ACER"),
+    ("cartpole", "VRACER_CMA", dict(ESpopSize=4), "RacerES"),
+    ("cartpole", "RACER", dict(ESpopSize=4), "RacerES"),
+    ("cartpole_discrete", "RACER", dict(ESpopSize=4), "RacerES"),
 ]
 
 
 def _case_id(app, recipe, extra, cls):
     tags = (extra.get("nnType"), "std" if extra.get("ppoStandard") else None,
-            recipe if "pomdp" in app else None,
+            recipe if "pomdp" in app or cls == "RacerES" else None,
             extra.get("dataSamplingAlgo"))
     return "-".join([app, cls] + [t for t in tags if t])
 
@@ -150,16 +166,83 @@ def test_launch_builtin(tmp_path, app, recipe, extra, cls):
     ("catch", "VRACER", ("--nLearners", "2"), "B12"),
     ("apps/cart_pole_py/exec.py", "VRACER", (), "B11"),
     ("cartpole", "VRACER", ("--nLearners", "2"), "B12"),
-    ("cartpole", "CMA", (), "B8"),
-    ("cartpole", "ACER", (), "B7"),
-    ("cartpole", "VRACER_CMA", (), "B8"),
-    ("cartpole", '{"learner": "ACER", "dataSamplingAlgo": "PERrank"}', (),
-     "B7"),
-    ("cartpole", '{"nnType": "LSTM", "ESpopSize": 4}', (), "B8"),
 ])
 def test_not_ported_raises(tmp_path, app, recipe, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         launch.run(_args(tmp_path, app, recipe, *extra))
+
+
+def test_launch_cma(tmp_path):
+    """CMA through the launcher: --nTrainSteps counts generations, each
+    of batchSize x ESpopSize episodes; no checkpoint is written."""
+    path = tmp_path / "recipe.json"
+    path.write_text(json.dumps({**RECIPES["CMA"], "ESpopSize": 4,
+                                "batchSize": 2, "nnLayerSizes": [8]}))
+    args = launch.parse_args([
+        "cartpole", "--recipe", str(path), "--device", "cpu", "--runprefix",
+        str(tmp_path), "--runname", "r0", "--nEnvironments", "8",
+        "--nTrainSteps", "2", "--randSeed", "3"])
+    cma = launch.run(args)
+    assert type(cma).__name__ == "CMAES" and cma.n_generations == 2
+    assert int(cma.state.gen) == 2 and cma.max_len == 512
+    assert all(np.isfinite(h["avgR"]) for h in cma.history)
+    assert torch.isfinite(cma.state.mean).all()
+    run = tmp_path / "r0"
+    assert json.loads((run / "settings.json").read_text())["ESpopSize"] == 4
+    assert not (run / "checkpoint.pt").exists()
+    assert np.isfinite(cma.evaluate(2, max_steps=20)).all()
+
+
+@pytest.mark.parametrize("app,recipe,extra,match", [
+    ("cartpole", "CMA", ("--nEnvironments", "64"), "multiple of ESpopSize"),
+    ("cartpole_discrete", "ACER", (), "continuous action spaces only"),
+    ("cartpole", '{"nnType": "LSTM", "ESpopSize": 4}', (),
+     "dense feed-forward net only"),
+])
+def test_refused_settings(tmp_path, app, recipe, extra, match):
+    with pytest.raises(ValueError, match=match):
+        launch.run(_args(tmp_path, app, recipe, *extra))
+
+
+# the app a recipe is built for here (its MDP sets the learner's heads);
+# the others build on cartpole
+RECIPE_APPS = {"RACER_atari": "catch", "DQN": "cartpole_discrete",
+               "RACER_RNN": "cartpole_pomdp",
+               "VRACER_expensiveData": "cartpole_pomdp", "ACER": "pendulum",
+               "NAF": "pendulum", "DPG": "pendulum", "DPG_light": "pendulum",
+               "DPG_orig": "mountaincar"}
+JAX_MDPS = {"cartpole": lambda: jenvs.cartpole.MDP,
+            "cartpole_discrete": lambda: jenvs.cartpole.discrete.MDP,
+            "cartpole_pomdp": lambda: jenvs.cartpole.pomdp.MDP,
+            "pendulum": lambda: jenvs.pendulum.MDP,
+            "mountaincar": lambda: jenvs.mountaincar.MDP,
+            "catch": lambda: jenvs.catch.MDP}
+
+
+@pytest.mark.parametrize("recipe", sorted(RECIPES))
+def test_every_recipe_builds(recipe):
+    """Every recipe's learner, as the JAX registry picks it, built and
+    initialised on the CPU at the recipe's widths; CMA, which the
+    registry refuses, builds its CMAES."""
+    app = RECIPE_APPS.get(recipe, "cartpole")
+    env = launch.env_module(app)
+    cfg = launch.load_recipe(recipe, 0)
+    if cfg.learner == "CMA":
+        from smarties_tpu_torch.algos.cma import CMAES
+        with pytest.raises(ValueError, match="CMAES"):
+            make_learner(env.MDP, cfg)
+        cma = CMAES(env, env.MDP, cfg, n_envs=2 * cfg.ESpopSize,
+                    device="cpu")
+        st = cma.init()
+        assert st.pop.shape == (cfg.ESpopSize, cma.unravel.n)
+        assert torch.isfinite(st.pop).all()
+        return
+    algo = make_learner(env.MDP, cfg)
+    want = jmake(JAX_MDPS[app](), JHP.from_dict(RECIPES[recipe]))
+    assert type(algo).__name__ == type(want).__name__
+    params, opt = algo.init(torch.Generator().manual_seed(0), "cpu")
+    assert all(torch.isfinite(x).all() for x in tree_leaves(params))
+    assert all(torch.isfinite(x).all() for x in tree_leaves(_plain(opt)))
 
 
 def test_device_is_required():

@@ -8,7 +8,7 @@ convert. Both frameworks take 4 train steps on the same pinned (ep, t)
 samples, for {continuous, discrete} x {default, ppoStandard}, and for
 LSTM and GRU encoders (BPTT window 8). Compared: params (rtol 1e-5 / atol
 1e-7), Adam moments (rtol 1e-3; 5e-3 for the recurrent encoders, as in
-test_torch_learners.py), the shared step and beta powers, penal_coef and
+_torch_learner_cases.py), the shared step and beta powers, penal_coef and
 dkl_target (rtol 1e-6), the written-back rho / kl / delta / value /
 advantage (rtol 1e-4 / atol 1e-5), the far counts (exact) and the metrics
 (rtol 1e-4 / atol 1e-6). The act functions are held against the JAX ones
@@ -48,9 +48,9 @@ from smarties_tpu_torch.utils.config import HyperParameters as THP
 
 from _torch_parity import (assert_replay_close, assert_tree_close,
                            jax_replay_views, np32, tn, tt)
-from test_torch_learners import (BASE, MOMENT_TOL, MOMENT_TOL_RNN, PARAM_TOL,
-                                 POLICY_TOL, _jax_noise, _jax_replay, _mdp,
-                                 _pinned)
+from _torch_learner_cases import (BASE, MOMENT_TOL, MOMENT_TOL_RNN,
+                                  PARAM_TOL, POLICY_TOL, _jax_noise,
+                                  _jax_replay, _mdp, _pinned)
 
 PPO_BASE = dict(BASE, learner="PPO", clipImpWeight=0.2,
                 encoderLayerSizes=[16], nnLayerSizes=[16], gamma=0.995,
