@@ -103,6 +103,33 @@ Phases, each reported on its own line:
    avgR, the best member and ms per generation; the mean stays finite;
    then one generation (a pendulum rollout and the update) on the card
    against the CPU with the noise injected.
+14. Engine K1: `batched_retrace` on one row-major slot as the Engine's
+   commit hands it over, [1, 1025] and [1, 257], lengths L1-1, ragged,
+   1 and 0, terminal and truncated, rho the Engine's indicator and a
+   random one: bit-equal to the plain version; times on a cold L2 beside
+   the bound of the bytes and the plain version's.
+15. Engine main: the external-env runtime as a user runs it. V-RACER
+   (recipe VRACER: [128, 128] SoftSign, batch 256, obsPerStep 1) in
+   `smarties_tpu_torch.Engine` serving 16 forked `apps/cart_pole_py`
+   apps, event serving, max_ep_len 1024 (4096 slots x 1025),
+   minTotObsNum cut to 32768 (4096 slots of a fresh policy's ~20-step
+   episodes cannot hold 131072): train to 2000 grad steps (two
+   refreshes) and checkpoint.pt, a second Engine restarts from it for
+   500 more (the counters continued), a third serves 8 eval episodes
+   with no grad step. Prints the env steps/s while the replay fills,
+   the lanes served a round, ms per grad step under the pacing by CUDA
+   events, ms per round's act, the returns from the rewards file.
+   Checks one `batched_retrace` launch per committed episode and one
+   `retrace_sweep_` per initialize_stats and refresh, call by call.
+16. Engine paths: a learner bundle on the card against one on the CPU
+   (3 episodes committed, 8 pinned train steps); RACER_RNN (LSTM [32,
+   32], BPTT 16) over 4 forked apps for 200 grad steps, the acting
+   contexts advanced; `cart_pole_cpp` over `SocketEnvPool`, built with
+   `make -C native BUILD=build/native`, for 200 grad steps, then the
+   distributed-agent C++ team (2 teams of 3); an app that crashes once
+   after CUDA is up, respawned by a fork, training done; CMA's
+   `run_external` over 8 forked `apps/func_maximization` apps for 20
+   generations, avgR rising toward the optimum.
 Then one JSON line with the kernels' results and, last, the device line.
 
 The script imports no JAX and nothing of the JAX package. Any failed
@@ -168,6 +195,21 @@ CYCLE_ENVS = 1024
 # CMA: lanes (the largest multiple of its 12 members up to 1024), and
 # generations
 CMA_ENVS, CMA_GENERATIONS = 1020, 5
+# the Engine: K1's single-slot rows ([1, max_ep_len + 1]) of the main
+# run's max_ep_len 1024 and of a 256-step app
+ENGINE_K1_L1 = (1025, 257)
+# the main run: 16 forked apps, episodes up to 1024 steps (4096 slots x
+# 1025 at the recipe's maxTotObsNum), training from 32768 observations
+# (4096 slots of a fresh policy's ~20-step episodes cannot hold the
+# recipe's 131072), 2000 grad steps, 500 more after the restart, 8 eval
+# episodes
+ENGINE_ENVS, ENGINE_MAX_LEN, ENGINE_MIN_OBS = 16, 1024, 32768
+ENGINE_STEPS, ENGINE_MORE, ENGINE_EVAL = 2000, 500, 8
+# the other Engine paths: LSTM and native grad steps, the team's and the
+# crash run's, their start thresholds, CMA generations
+ENGINE_SIDE_STEPS, ENGINE_TEAM_STEPS = 200, 50
+ENGINE_RNN_MIN_OBS, ENGINE_NATIVE_MIN_OBS = 2048, 4096
+CMA_EXT_GENERATIONS = 20
 
 
 def phase_device():
@@ -1480,6 +1522,544 @@ def phase_cma():
             "card_vs_cpu": worst}
 
 
+# ---------------------------------------------------------------------
+# the external-env runtime: the Engine serving forked and native apps
+
+class EngineProbe:
+    """The prepare(engine) hook of an Engine run: per learner it counts
+    K1's launches at each site (a commit launches `batched_retrace`
+    once; initialize_stats and a refresh launch `retrace_sweep_` once)
+    and checks them call by call, times the train chunks by CUDA events
+    and each round's act by the host clock (the act ends in its one read
+    of the device), and notes when the statistics start."""
+
+    SITES = {"commit": "batched_retrace",
+             "initialize_stats": "retrace_sweep",
+             "refresh": "retrace_sweep"}
+
+    def __init__(self, rk):
+        self.rk = rk
+        self.calls = {k: 0 for k in self.SITES}
+        self.chunks, self.act_s, self.act_lanes = [], [], []
+        self.commit_s = []
+        self.t_start = self.init_at = None
+        self.restored_grad = []
+
+    def __call__(self, engine):
+        self.t_start = time.perf_counter()
+        for b in engine.learners:
+            self.restored_grad.append(b.n_grad)
+            b.commit = self._count(b.commit, "commit")
+            b._init_stats = self._count(b._init_stats, "initialize_stats",
+                                        b)
+            b._refresh = self._count(b._refresh, "refresh")
+            b._train_chunk = self._timed_chunk(b._train_chunk)
+            b.act = self._timed_act(b.act)
+
+    def _count(self, fn, site, bundle=None):
+        entry = self.SITES[site]
+
+        def counted(*a, **kw):
+            before = dict(self.rk.launches)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if site == "commit":
+                self.commit_s.append(time.perf_counter() - t0)
+            made = {k: self.rk.launches[k] - before[k] for k in before}
+            assert made[entry] == 1 == sum(made.values()), \
+                f"{site}: K1 launches {made}, want one {entry}"
+            self.calls[site] += 1
+            if bundle is not None:
+                self.init_at = (time.perf_counter(), bundle.n_env_steps,
+                                len(self.act_lanes), len(self.commit_s))
+            return out
+        return counted
+
+    def _timed_chunk(self, fn):
+        import torch
+
+        def timed(n):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(n)
+            e1.record()
+            self.chunks.append((e0, e1, n))
+            return out
+        return timed
+
+    def _timed_act(self, fn):
+        def timed(obs_rows, ready_rows=None):
+            t0 = time.perf_counter()
+            out = fn(obs_rows, ready_rows)
+            self.act_s.append(time.perf_counter() - t0)
+            self.act_lanes.append(len(obs_rows) if ready_rows is None
+                                  else len(ready_rows))
+            return out
+        return timed
+
+    def grad_steps(self):
+        return sum(n for _, _, n in self.chunks)
+
+    def ms_per_grad_step(self):
+        import torch
+        torch.cuda.synchronize()
+        n = self.grad_steps()
+        return (sum(e0.elapsed_time(e1) for e0, e1, _ in self.chunks) / n
+                if n else float("nan"))
+
+    def act_ms(self):
+        return (statistics.median(self.act_s) * 1e3 if self.act_s
+                else float("nan"))
+
+    def lanes_per_round(self):
+        """Mean count of the lanes an act served (those ready that round)."""
+        return (statistics.mean(self.act_lanes) if self.act_lanes
+                else float("nan"))
+
+    def fill(self):
+        """From the first round to the start of the statistics (the
+        replay filling to minTotObsNum): env steps per second, rounds,
+        mean lanes served a round, and per round the host ms of the acts,
+        of the commits (enqueue: a commit reads nothing back) and of the
+        rest (the poll, the events, the replies)."""
+        t, steps, rounds, commits = self.init_at
+        wall = t - self.t_start
+        act = sum(self.act_s[:rounds])
+        commit = sum(self.commit_s[:commits])
+        return {"env_steps_per_s": steps / wall, "rounds": rounds,
+                "lanes_per_round": statistics.mean(self.act_lanes[:rounds]),
+                "commits": commits,
+                "act_ms_per_round": act / rounds * 1e3,
+                "commit_ms_per_round": commit / rounds * 1e3,
+                "rest_ms_per_round": (wall - act - commit) / rounds * 1e3}
+
+
+def _engine(cfg, n_envs, max_len, steps, run_dir=None):
+    from smarties_tpu_torch.runtime.engine import Engine
+    e = Engine([], device="cuda")
+    e.setSettings(cfg)
+    e.setNEnvironments(n_envs)
+    e.setMaxEpisodeLength(max_len)
+    e.setNTrainSteps(steps)
+    e.run_dir = run_dir
+    return e
+
+
+def _app(name):
+    import runpy
+    return runpy.run_path(os.path.join(ROOT, "apps", name, "exec.py"))
+
+
+def _reward_rows(run_dir):
+    import numpy as np
+    return np.loadtxt(os.path.join(
+        run_dir, "agent_00_rank00_cumulative_rewards.dat"), ndmin=2)
+
+
+def phase_engine_k1():
+    """K1's batched_retrace on one row-major slot, the Engine's commit:
+    [1, 1025] and [1, 257], lengths full, ragged and 0, both terminal
+    kinds, rho the Engine's indicator and a random one: bit-equal to the
+    plain version. Times at a ragged and a full length, cold L2, beside
+    the bound of the bytes."""
+    import numpy as np
+    import torch
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+    from smarties_tpu_torch.ops import returns as ret
+    from smarties_tpu_torch.runtime import bench_retrace as bench
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(5)
+    rows, n_checked = [], 0
+    for L1 in ENGINE_K1_L1:
+        for T in (L1 - 1, int(0.7 * (L1 - 1)), 1, 0):
+            for term in (True, False):
+                for kind in ("indicator", "random"):
+                    row = lambda x: torch.as_tensor(
+                        np.asarray(x, np.float32)[None], device=dev)
+                    rho = (row(np.arange(L1) < T) if kind == "indicator"
+                           else row(np.exp(rng.randn(L1))))
+                    args = (row(rng.randn(L1)), row(rng.randn(L1)),
+                            row(rng.randn(L1)), rho,
+                            torch.tensor([T], dtype=torch.int32, device=dev),
+                            torch.tensor([term], device=dev), 0.995, 0.95,
+                            "retrace")
+                    got = rk.batched_retrace(*args)
+                    want = ret.batched_retrace_plain(*args)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), \
+                        f"batched_retrace [1, {L1}] T={T} terminal={term} " \
+                        f"rho {kind}: not bit-equal, max |diff| " \
+                        f"{float((got - want).abs().max()):.3e}"
+                    n_checked += 1
+        for T in (int(0.7 * (L1 - 1)), L1 - 1):
+            r = bench.measure_row(dev, L1, T, False)
+            rows.append(r)
+            print(f"engine K1: batched_retrace retrace [1, {L1}] T={T} "
+                  f"truncated: kernel {r['ms']:.4f} ms | plain torch "
+                  f"version {r['plain_ms']:.4f} ms | {r['bytes']} B, bound "
+                  f"{r['bound_ms'] * 1e6:.2f} ns, share of bound "
+                  f"{r['share_of_bound']:.2e}", flush=True)
+    print(f"engine K1: batched_retrace bit-equal to its plain version in "
+          f"{n_checked} cases at [1, L1] for L1 in {ENGINE_K1_L1}: T in "
+          f"(L1-1, 0.7 (L1-1), 1, 0), terminal and truncated, rho the "
+          f"Engine's indicator and random", flush=True)
+    return {"rows": rows, "max_abs_err": 0.0}
+
+
+def phase_engine_main():
+    """V-RACER at full width over 16 forked apps/cart_pole_py apps, event
+    serving: train to 2000 grad steps (checkpoint.pt), restart for 500
+    more, serve 8 eval episodes with no grad step. K1 per site."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from smarties_tpu_torch import launch
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_runs", "engine")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    app = _app("cart_pole_py")["app_main"]
+    cfg = launch.load_recipe("VRACER", 0)
+    cfg.minTotObsNum = ENGINE_MIN_OBS
+    assert (cfg.nnLayerSizes, cfg.nnFunc, cfg.batchSize, cfg.obsPerStep) \
+        == ([128, 128], "SoftSign", 256, 1.0), cfg
+    out = {}
+    counts = {}
+    for stage, steps in (("train", ENGINE_STEPS),
+                         ("restart", ENGINE_STEPS + ENGINE_MORE),
+                         ("eval", None)):
+        c = cfg
+        if stage == "eval":
+            c = launch.load_recipe("VRACER", 0)
+            c.minTotObsNum, c.bTrain = ENGINE_MIN_OBS, False
+        e = _engine(c, ENGINE_ENVS, ENGINE_MAX_LEN,
+                    steps or 10 ** 9, run_dir)
+        if stage != "train":
+            e.setRestartFolderPath(os.path.join(run_dir, "checkpoint.pt"))
+        if stage == "eval":
+            e.setNumEvaluationEpisodes(ENGINE_EVAL)
+            n_rows = len(_reward_rows(run_dir))
+        probe = EngineProbe(rk)
+        rk.reset_launches()
+        t0 = time.perf_counter()
+        e.run(app, prepare=probe)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[stage] = dict(rk.launches)
+        b = e.learners[0]
+        assert (b.rs.n_slots, b.rs.max_len) == (MAIN_E, ENGINE_MAX_LEN), \
+            (b.rs.n_slots, b.rs.max_len)
+        for k, p in _leaves(b.params):
+            assert torch.isfinite(p).all(), f"engine {stage}: param {k}"
+        assert counts[stage] == {
+            "batched_retrace": probe.calls["commit"],
+            "retrace_sweep": probe.calls["initialize_stats"]
+            + probe.calls["refresh"], "affine_suffix_scan": 0}, \
+            (stage, counts[stage], probe.calls)
+        assert probe.calls["commit"] > 0, stage
+        res = {"wall_s": wall, "calls": dict(probe.calls),
+               "launches": counts[stage], "grad_steps": probe.grad_steps(),
+               "act_ms_median": probe.act_ms(), "rounds": len(probe.act_s),
+               "lanes_per_round": probe.lanes_per_round()}
+        if stage == "train":
+            assert e.n_grad_steps == ENGINE_STEPS, e.n_grad_steps
+            assert probe.calls["initialize_stats"] == 1
+            assert probe.calls["refresh"] == ENGINE_STEPS // 1000
+            assert os.path.exists(os.path.join(run_dir, "checkpoint.pt"))
+            res["fill"] = probe.fill()
+            res["fill_env_steps"] = probe.init_at[1]
+        elif stage == "restart":
+            assert probe.restored_grad == [ENGINE_STEPS], probe.restored_grad
+            assert e.n_grad_steps == ENGINE_STEPS + ENGINE_MORE
+            assert probe.calls["initialize_stats"] == 0
+            # the JAX Engine's restore leaves last_refresh at 0: one refresh
+            # at the first chunk after the restart
+            assert probe.calls["refresh"] == 1, probe.calls
+        else:
+            assert probe.grad_steps() == 0 and probe.chunks == []
+            assert e.n_grad_steps == ENGINE_STEPS + ENGINE_MORE
+            assert probe.calls["refresh"] == probe.calls[
+                "initialize_stats"] == 0
+            assert len(_reward_rows(run_dir)) - n_rows >= ENGINE_EVAL
+        if stage != "eval":
+            res["ms_per_grad_step"] = probe.ms_per_grad_step()
+        out[stage] = res
+    rows = _reward_rows(run_dir)
+    assert np.isfinite(rows).all()
+    train_rows = rows[:len(rows) - out["eval"]["calls"]["commit"]]
+    eval_rows = rows[len(train_rows):]
+    out["trailing_return_train"] = float(np.mean(train_rows[-20:, 4]))
+    out["eval_returns"] = eval_rows[:, 4].tolist()
+    tr, rs = out["train"], out["restart"]
+    print(f"engine main: V-RACER [128, 128] SoftSign, batch 256, obsPerStep "
+          f"1, minTotObsNum {ENGINE_MIN_OBS}, {ENGINE_ENVS} forked "
+          f"apps/cart_pole_py apps, event serving, max_ep_len "
+          f"{ENGINE_MAX_LEN} ({MAIN_E} x {ENGINE_MAX_LEN + 1} slots) | "
+          f"fill {tr['fill_env_steps']} env steps at "
+          f"{tr['fill']['env_steps_per_s']:.1f} env steps/s in "
+          f"{tr['fill']['rounds']} rounds of "
+          f"{tr['fill']['lanes_per_round']:.2f} lanes and "
+          f"{tr['fill']['commits']} commits; host ms a round: act "
+          f"{tr['fill']['act_ms_per_round']:.3f}, commits "
+          f"{tr['fill']['commit_ms_per_round']:.3f}, the rest "
+          f"{tr['fill']['rest_ms_per_round']:.3f} | train to "
+          f"{ENGINE_STEPS}: {tr['ms_per_grad_step']:.3f} ms/grad step by "
+          f"events, act {tr['act_ms_median']:.3f} ms/round (median of "
+          f"{tr['rounds']} rounds, {tr['lanes_per_round']:.2f} lanes served "
+          f"a round), run {tr['wall_s']:.2f} s, K1 {tr['launches']} "
+          f"for calls {tr['calls']} | restart to {ENGINE_STEPS + ENGINE_MORE}"
+          f": {rs['ms_per_grad_step']:.3f} ms/grad step, act "
+          f"{rs['act_ms_median']:.3f} ms/round, run {rs['wall_s']:.2f} s, "
+          f"K1 {rs['launches']} for calls {rs['calls']} | eval "
+          f"{len(out['eval_returns'])} episodes, no grad step, returns "
+          f"{[round(x, 1) for x in out['eval_returns']]}, act "
+          f"{out['eval']['act_ms_median']:.3f} ms/round | trailing-20 "
+          f"training return {out['trailing_return_train']:.2f}", flush=True)
+    return out
+
+
+def _bundle_card_vs_cpu():
+    """The same three episodes committed into a bundle on each device
+    (from one snapshot), the statistics started, 8 train steps on the
+    same pinned samples: the worst |diff| of params and replay fields.
+    Tolerances as _card_vs_cpu's."""
+    import numpy as np
+    import torch
+    from smarties_tpu_torch.runtime import engine as eng
+    from smarties_tpu_torch.runtime.communicator import spec_to_mdp
+    from smarties_tpu_torch.models import convert
+    from smarties_tpu_torch.utils.config import HyperParameters
+
+    spec = {"dim_state": 6, "dim_action": 1, "bounded": (True,),
+            "upper": (10.0,), "lower": (-10.0,), "discrete_values": (),
+            "observable": (True, True, False, True, True, True),
+            "n_agents": 1, "n_appended_obs": 0, "agent_overrides": {},
+            "different_mdps": False}
+    cfg = HyperParameters(minTotObsNum=64, maxTotObsNum=4096, batchSize=32,
+                          nnLayerSizes=[128, 128], randSeed=0)
+    max_len = 256
+    cpu, gpu = (eng._LearnerBundle(0, spec_to_mdp(spec), cfg, [0], max_len,
+                                   device=d) for d in ("cpu", "cuda"))
+    gpu.restore(cpu.snapshot())
+    rng = np.random.RandomState(0)
+    eps = []
+    for T, term in ((200, True), (37, False), (max_len, False)):
+        asm = eng._EpisodeAssembler()
+        asm.add_state(rng.randn(5).astype(np.float32), 0.0)
+        for _ in range(T):
+            asm.add_action(rng.randn(1).astype(np.float32),
+                           np.asarray([rng.randn(), 0.3 + rng.rand()],
+                                      np.float32),
+                           float(rng.randn()), float(rng.randn()))
+            asm.add_state(rng.randn(5).astype(np.float32),
+                          float(rng.randn()))
+        eps.append(asm.finalize(term, max_len))
+    for b in (cpu, gpu):
+        for *arrs, T, term, _ in eps:
+            b.commit(arrs, T, term)
+            b.n_env_steps += T
+    commit_q = [convert.replay_to_numpy(b.rs)["qret"] for b in (cpu, gpu)]
+    lens = convert.replay_to_numpy(cpu.rs)["length"]
+    valid = np.nonzero(convert.replay_to_numpy(cpu.rs)["ep_id"] >= 0)[0]
+    pre = []
+    for _ in range(8):
+        pairs = set()
+        while len(pairs) < cfg.batchSize:
+            e = int(rng.choice(valid))
+            pairs.add((e, int(rng.randint(0, lens[e]))))
+        pre.append(list(zip(*sorted(pairs))))
+    ep, t = (torch.tensor(np.asarray(x), dtype=torch.int32)
+             for x in zip(*pre))
+    for b in (cpu, gpu):
+        b.maybe_init_stats()
+        assert b.initialized
+        b.start_env_steps = b.n_env_steps - 8
+        b.sample_indices = lambda n, b=b: (ep[:n].to(b.device),
+                                           t[:n].to(b.device))
+        b.train_to_pace(10 ** 9)
+        assert b.n_grad == 8
+    worst = {"commit_qret": float(np.abs(commit_q[1] - commit_q[0]).max()),
+             "params": 0.0}
+    got_p = dict(_leaves(gpu.params))
+    for k, p in _leaves(cpu.params):
+        g = got_p[k].detach().cpu()
+        torch.testing.assert_close(g, p.detach(), rtol=1e-4, atol=1e-6,
+                                   msg=lambda m: f"param {k}: {m}")
+        worst["params"] = max(worst["params"],
+                              float((g - p.detach()).abs().max()))
+    want = convert.replay_to_numpy(cpu.rs)
+    got = convert.replay_to_numpy(gpu.rs)
+    for k in convert.REPLAY_FIELDS:
+        atol = 2e-3 if k in ("qret", "delta", "value", "v_trunc",
+                             "max_abs_error") else 1e-5
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=atol,
+                                   err_msg=f"replay field {k}")
+        if k in ("qret", "rho", "value", "states"):
+            worst[k] = float(np.abs(got[k] - want[k]).max())
+    assert worst["commit_qret"] == 0.0, worst
+    return worst
+
+
+def phase_engine_paths():
+    """The bundle on the card against the CPU; LSTM serving over forked
+    apps; the native C++ client over sockets and its distributed-agent
+    team; a crash after CUDA is up, respawned; CMA over external apps."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from smarties_tpu_torch import launch
+    from smarties_tpu_torch.algos.cma import CMAES
+    from smarties_tpu_torch.models.net import tree_leaves
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+    from smarties_tpu_torch.runtime.env_pool import EnvPool
+    from smarties_tpu_torch.runtime.socket_pool import SocketEnvPool
+    from smarties_tpu_torch.utils.config import HyperParameters
+
+    out = {"card_vs_cpu": _bundle_card_vs_cpu()}
+    print(f"engine card vs CPU: one bundle per device from one snapshot, 3 "
+          f"episodes committed (K1 at [1, 257]), the statistics started, 8 "
+          f"pinned train steps ([128, 128], batch 32): max |diff| "
+          f"{_fmt_diffs(out['card_vs_cpu'])}", flush=True)
+
+    def run(name, e, app=None, pool=None, check=None):
+        probe = EngineProbe(rk)
+        rk.reset_launches()
+        t0 = time.perf_counter()
+        e.run(app, pool=pool, prepare=probe)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(rk.launches)
+        assert counts["batched_retrace"] == probe.calls["commit"] > 0, \
+            (name, counts, probe.calls)
+        assert counts["retrace_sweep"] == probe.calls["initialize_stats"] \
+            + probe.calls["refresh"] >= 1, (name, counts, probe.calls)
+        for b in e.learners:
+            for k, p in _leaves(b.params):
+                assert torch.isfinite(p).all(), f"{name}: param {k}"
+        res = {"wall_s": wall, "launches": counts,
+               "calls": dict(probe.calls),
+               "ms_per_grad_step": probe.ms_per_grad_step(),
+               "act_ms_median": probe.act_ms(),
+               "n_grad_steps": e.n_grad_steps,
+               "stored_steps": int(e.replay.n_stored_steps())}
+        if check:
+            check(e, res)
+        out[name] = res
+        print(f"engine {name}: {e.n_grad_steps} grad steps at "
+              f"{res['ms_per_grad_step']:.3f} ms/step by events, act "
+              f"{res['act_ms_median']:.3f} ms/round, stored steps "
+              f"{res['stored_steps']}, run {wall:.2f} s | K1 {counts} for "
+              f"calls {probe.calls}", flush=True)
+
+    # LSTM serving: RACER_RNN over 4 forked apps; the contexts advance
+    cfg = launch.load_recipe("RACER_RNN", 0)
+    cfg.minTotObsNum = ENGINE_RNN_MIN_OBS
+
+    def lstm_check(e, res):
+        b = e.learners[0]
+        assert b.algo.spec.kind == "LSTM" and len(b.rnn) == 2
+        assert any(float(x.abs().sum()) > 0 for x in tree_leaves(b.rnn))
+        assert e.n_grad_steps == ENGINE_SIDE_STEPS
+    run("lstm", _engine(cfg, 4, 500, ENGINE_SIDE_STEPS),
+        _app("cart_pole_py")["app_main"], check=lstm_check)
+
+    # native: cart_pole_cpp over sockets, then the distributed-agent team
+    build = os.path.join(ROOT, "build", "native")
+    subprocess.run(["make", "-C", os.path.join(ROOT, "native"),
+                    f"BUILD={build}"], check=True, capture_output=True,
+                   timeout=300)
+    cfg = launch.load_recipe("VRACER", 0)
+    cfg.minTotObsNum = ENGINE_NATIVE_MIN_OBS
+    pool = SocketEnvPool([os.path.join(build, "cart_pole_cpp")], n_envs=4)
+
+    def native_check(e, res):
+        assert e.n_grad_steps == ENGINE_SIDE_STEPS, e.n_grad_steps
+    run("native", _engine(cfg, 4, 1024, ENGINE_SIDE_STEPS), pool=pool,
+        check=native_check)
+    team = SocketEnvPool([os.path.join(build, "cart_pole_distribAgent_cpp")],
+                         n_envs=2, workers_per_env=3)
+
+    def team_check(e, res):
+        assert team.dist_agents and team.n_channels == 2 == team.n_lanes
+        assert e.n_grad_steps == ENGINE_TEAM_STEPS
+    run("native_team", _engine(cfg, 2, 1024, ENGINE_TEAM_STEPS), pool=team,
+        check=team_check)
+
+    # a crash after CUDA is up: the app dies once, is respawned by a fork
+    crash_dir = os.path.join(ROOT, "build", "chip_smoke_runs", "crash")
+    shutil.rmtree(crash_dir, ignore_errors=True)
+    os.makedirs(crash_dir)
+    sentinel = os.path.join(crash_dir, "crashed")
+    crash = EnvPool(_crashing_app(sentinel), 2, seed=0)
+    cfg = HyperParameters(minTotObsNum=256, maxTotObsNum=4096,
+                          batchSize=32, nnLayerSizes=[128, 128])
+
+    def crash_check(e, res):
+        assert os.path.exists(sentinel) and crash._respawns[0] == 1, \
+            crash._respawns
+        assert e.n_grad_steps == ENGINE_TEAM_STEPS
+        res["respawns"] = list(crash._respawns)
+    run("crash", _engine(cfg, 2, 64, ENGINE_TEAM_STEPS), pool=crash,
+        check=crash_check)
+
+    # CMA over 8 forked apps/func_maximization apps
+    app = _app("func_maximization")
+    cfg = HyperParameters(learner="CMA", ESpopSize=8, batchSize=4,
+                          explNoise=0.0, nnLayerSizes=[8], learnrate=0.05)
+    pool = EnvPool(app["app_main"], n_envs=8)
+    rk.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        cma = CMAES(None, pool.probe_spec(), cfg, n_envs=8, max_len=4,
+                    device="cuda")
+        cma.run_external(pool, CMA_EXT_GENERATIONS, log_every=10 ** 9)
+    finally:
+        pool.kill()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    avg = [h["avgR"] for h in cma.history]
+    assert cma.n_generations == CMA_EXT_GENERATIONS == int(cma.state.gen)
+    assert torch.isfinite(cma.state.mean).all() and np.isfinite(avg).all()
+    assert np.mean(avg[-3:]) > np.mean(avg[:3]) + 0.1, avg
+    assert sum(rk.launches.values()) == 0, rk.launches
+    out["cma_external"] = {"avgR": avg, "wall_s": wall,
+                           "ms_per_generation": [h["wall_s"] * 1e3
+                                                 for h in cma.history]}
+    print(f"engine cma_external: CMA (population 8, [8]) over 8 forked "
+          f"apps/func_maximization apps, {CMA_EXT_GENERATIONS} generations "
+          f"in {wall:.2f} s: avgR {avg[0]:.3f} -> {avg[-1]:.3f} (optimum 0)"
+          f" | K1 launches 0", flush=True)
+    shutil.rmtree(crash_dir)
+    return out
+
+
+def _crashing_app(sentinel):
+    import numpy as np
+
+    def app(comm):
+        """Dies mid-episode once (the sentinel file marks the crash)."""
+        comm.setStateActionDims(1, 1)
+        comm.setActionScales([1.0], [-1.0], True)
+        rng = np.random.RandomState(os.getpid())
+        while True:
+            x = rng.uniform(-1, 1)
+            comm.sendInitState(np.array([x]))
+            for t in range(10):
+                a = comm.recvAction()
+                x += 0.1 * float(a[0])
+                if (comm.env_id == 0 and t == 3
+                        and not os.path.exists(sentinel)):
+                    open(sentinel, "w").close()
+                    os._exit(1)
+                (comm.sendLastState if t == 9 else comm.sendState)(
+                    np.array([x]), -abs(x))
+    return app
+
+
 def main():
     phase_device()
     import torch
@@ -1495,6 +2075,9 @@ def main():
     learners.update(phase_acer())
     learners.update(phase_racer_es())
     cma = phase_cma()
+    eng_k1 = phase_engine_k1()
+    eng = phase_engine_main()
+    eng.update(phase_engine_paths())
     launches = main_res["launches"]
 
     def row(entry, mode, case):
@@ -1516,6 +2099,18 @@ def main():
         entry = "affine_suffix_scan" if "scan" in v else "retrace_sweep"
         if v["launches"]:
             by_entry[entry][path] = v["launches"]
+    # the Engine's paths: one batched_retrace launch per committed episode
+    k1_entries = ("batched_retrace", "retrace_sweep")
+    engine_paths = {"engine_main": {
+        k: sum(eng[s]["launches"][k] for s in ("train", "restart", "eval"))
+        for k in k1_entries}}
+    for path in ("lstm", "native", "native_team", "crash"):
+        engine_paths[path] = {k: eng[path]["launches"][k]
+                              for k in k1_entries}
+    for path, c in engine_paths.items():
+        for entry in k1_entries:
+            if c[entry]:
+                by_entry[entry][path] = c[entry]
     entry_points = {
         name: {"launches": launches[name],
                "max_abs_err": kern["err"][name], "ms": r["ms"],
@@ -1526,6 +2121,8 @@ def main():
                "library_ms": None, "paths": by_entry[name]}
         for name, r in entry_rows.items()}
     acer_scan = learners["acer"]["scan"]
+    entry_points["batched_retrace"]["engine_rows"] = [
+        dict(r, bound_by="bytes", library_ms=None) for r in eng_k1["rows"]]
     entry_points["affine_suffix_scan"]["acer_step"] = dict(
         acer_scan, bound_by="bytes", library_ms=None,
         launches=learners["acer"]["launches"])
@@ -1554,7 +2151,10 @@ def main():
                      if "sites" in v}},
         "launches_by_path": {"vracer_main": launches["retrace_sweep"],
                              **{k: v["launches"]
-                                for k, v in learners.items()}},
+                                for k, v in learners.items()},
+                             **{k: sum(c.values())
+                                for k, c in engine_paths.items()}},
+        "engine_launches_by_path": engine_paths,
         "modes_by_path": {k: v["modes"] for k, v in learners.items()
                           if "modes" in v},
         "cma": {"launches": 0,

@@ -21,6 +21,10 @@ lanes are laid out [P, V/P] and every layer is one batched product
 against the [P, in, out] weights that `Unravel` views out of the
 population matrix without a copy.
 
+`run_external` serves user applications through an env pool, as the
+JAX package's does: members assigned round-robin at episode start, a
+generation every batchSize * ESpopSize episodes.
+
 The rollout loop keeps the JAX package's accounting: episode returns and
 step counts start from zero in every rollout chunk (its scan carry), and
 the episode count is read back once per chunk.
@@ -230,12 +234,16 @@ class CMAES:
     def _actions(self, pop_tree, obs_std, noise=None):
         """Every lane's action under its member: obs_std [V, in] laid out
         [P, V/P, in] (lane k P + p under member p), one batched forward.
-        noise: the lanes' clipped normals [V, nA] (continuous) or
-        uniforms [V] (discrete), drawn from gen_act when None."""
+        noise: as in `_sample`."""
         V, P = obs_std.shape[0], self.P
         x = obs_std.reshape(V // P, P, -1).transpose(0, 1)
         out, _ = apply_net(pop_tree, self.spec, x)         # [P, V/P, out]
-        out = out.transpose(0, 1).reshape(V, -1)
+        return self._sample(out.transpose(0, 1).reshape(V, -1), noise)
+
+    def _sample(self, out, noise=None):
+        """Actions from the lanes' net outputs [V, out]. noise: the lanes'
+        clipped normals [V, nA] (continuous) or uniforms [V] (discrete),
+        drawn from gen_act when None."""
         train = self.cfg.explNoise > 0
         if self.discrete:
             _, _, probs = dpol.probs_of(out)
@@ -335,12 +343,79 @@ class CMAES:
         self.state = st
         return st
 
-    def run_external(self, pool, n_generations: int, **kw):
-        """CMA over external (Communicator-API) envs: needs the external
-        env runtime, which the port does not have yet."""
-        raise NotImplementedError(
-            "CMAES.run_external drives external env pools: the external-env "
-            "runtime is not ported yet (ROADMAP B11)")
+    @torch.no_grad()
+    def run_external(self, pool, n_generations: int, log_every: int = 1,
+                     max_wall_s: float = float("inf"), z=None) -> CMAState:
+        """Drive EXTERNAL (Communicator-API) envs with CMA.
+
+        The reference's primary CMA use: user applications (e.g. CFD
+        solvers) evaluated under population members
+        (CMALearner::assignWeightID round-robin at episode start,
+        CMALearner.cpp:29-52; generation barrier == batchSize * ESpopSize
+        episodes, :154-165). `pool` is an EnvPool/SocketEnvPool whose
+        spec must already be probed (pool.probe_spec()); it is served in
+        lockstep rounds, each lane acting under its member's weights in
+        one batched forward. z: the [P, n] population normals of each
+        generation's update, in order (drawn from gen_pop when None)."""
+        from smarties_tpu_torch.runtime.communicator import INIT, LAST, TERM
+        if not hasattr(self, "state"):
+            self.state = self.init()
+        st = self.state
+        mdp = pool.mdp
+        n_lanes = pool.n_lanes
+        lane_member = np.zeros(n_lanes, np.int64)
+        work_counter = 0
+        rsum = np.zeros(self.P)
+        rcnt = np.zeros(self.P, np.int64)
+        lane_ret = np.zeros(n_lanes)
+        gen_done = 0
+        t0 = t_gen = time.time()
+        obs_idx = np.nonzero(mdp.observable_mask)[0]
+        while gen_done < n_generations and time.time() - t0 < max_wall_s:
+            events, states, rewards, statuses = pool.gather_states()
+            for lane, status, state, reward in events:
+                if status == INIT:
+                    lane_member[lane] = work_counter % self.P
+                    work_counter += 1
+                    lane_ret[lane] = 0.0
+                else:
+                    lane_ret[lane] += reward
+                if status in (TERM, LAST):
+                    m = lane_member[lane]
+                    rsum[m] += lane_ret[lane]
+                    rcnt[m] += 1
+            obs = torch.as_tensor(states[:, obs_idx], dtype=F32,
+                                  device=self.device)
+            obs_std = (obs - st.state_mean) * st.state_scale
+            lanes_w = st.pop[torch.as_tensor(lane_member,
+                                             device=self.device)]
+            out, _ = apply_net(self.unravel(lanes_w, members=True),
+                               self.spec, obs_std[:, None, :])
+            a = self._sample(out[:, 0])
+            pool.send_actions(np.asarray(
+                mdp.learner_to_env_action(a).cpu(), np.float64))
+            self.n_env_steps += n_lanes
+            if int(rcnt.sum()) >= self.eps_per_gen:
+                losses = torch.as_tensor(-rsum / np.maximum(rcnt, 1),
+                                         dtype=F32, device=self.device)
+                st = self._cma_update(st, losses,
+                                      None if z is None else z[gen_done])
+                self.n_generations += 1
+                gen_done += 1
+                avg_ret = float(rsum.sum() / max(rcnt.sum(), 1))
+                best = -float(torch.min(losses))
+                self._ep_returns.append(avg_ret)
+                self.history.append({"avgR": avg_ret, "best": best,
+                                     "wall_s": time.time() - t_gen,
+                                     "env_steps": self.n_env_steps})
+                t_gen = time.time()
+                if gen_done % log_every == 0:
+                    print(f"gen {self.n_generations:4d} | avgR "
+                          f"{avg_ret:9.3f} | best {best:9.3f}", flush=True)
+                rsum[:] = 0
+                rcnt[:] = 0
+        self.state = st
+        return st
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -25,10 +25,9 @@ class MDPSpec:
       [lower, upper] (StateAction.h:284-295);
     - discrete multi-component actions are flattened to one label with
       mixed-radix shifts (StateAction.h:305-341);
-    - only dims with ``observable[i]`` are fed to the network.
-
-    The user state box (setStateScales) arrives with the external-env
-    runtime.
+    - only dims with ``observable[i]`` are fed to the network;
+    - an optional user state box (setStateScales, Communicator.cpp:98-122)
+      seeds the state standardization until the online estimates warm up.
     """
 
     dim_state: int
@@ -42,6 +41,8 @@ class MDPSpec:
     conv_layers: Tuple[Tuple[int, int, int, int, int, int], ...] = ()
     n_agents_per_env: int = 1
     shared_noise: bool = False
+    state_upper: Tuple[float, ...] = ()
+    state_lower: Tuple[float, ...] = ()
 
     def __post_init__(self):
         object.__setattr__(self, "_consts", {})
@@ -115,6 +116,22 @@ class MDPSpec:
     @property
     def observable_mask(self) -> np.ndarray:
         return np.asarray(self.observable, dtype=bool)
+
+    @property
+    def state_stats_init(self):
+        """(mean, std) as numpy f32 over the OBSERVED dims from the user
+        state box, or None if setStateScales was never called: mean =
+        (u + l) / 2, std = |u - l| (floored at 1e-7), as the reference
+        seeds its statistics (Communicator.cpp:98-122,
+        StateAction.h:181-203)."""
+        if not self.state_upper or not self.state_lower:
+            return None
+        u = np.asarray(self.state_upper, np.float32)
+        l = np.asarray(self.state_lower, np.float32)
+        mask = self.observable_mask
+        mean = ((u + l) / 2.0)[mask]
+        std = np.maximum(np.abs(u - l), 1e-7)[mask]
+        return mean, std
 
     # ---------------- device-side mappings ----------------
     def consts(self, like: torch.Tensor):

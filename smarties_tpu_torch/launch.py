@@ -1,10 +1,11 @@
-"""Run-directory launcher for the port's built-in environments.
+"""Run-directory launcher: built-in environments and user app scripts.
 
-Port of the built-in-env path of bin/smarties_tpu_launch.py: creates
-runs/<runname>/, snapshots the resolved hyperparameters (settings.json)
-and git provenance (gitlog.log, gitdiff.log), trains a built-in vectorized
-env with the recipe's learner on the given device and checkpoints the
-trainer (checkpoint.pt).
+Port of bin/smarties_tpu_launch.py: creates runs/<runname>/, snapshots
+the resolved hyperparameters (settings.json) and git provenance
+(gitlog.log, gitdiff.log), then either trains a built-in vectorized env
+with the recipe's learner and checkpoints the trainer (checkpoint.pt),
+or runs a user app script (a path to a file that defines app_main(comm))
+through the Engine, which serves it in forked worker processes.
 
     python -m smarties_tpu_torch.launch cartpole --recipe VRACER \\
         --device cuda --runname r0 --nEnvironments 64 --nTrainSteps 100000
@@ -16,21 +17,25 @@ trainer (checkpoint.pt).
     python -m smarties_tpu_torch.launch pendulum --recipe ACER --device cuda
     python -m smarties_tpu_torch.launch cartpole --recipe CMA --device cuda \\
         --nEnvironments 1020 --nTrainSteps 5     # 5 generations
+    python -m smarties_tpu_torch.launch apps/cart_pole_py/exec.py \\
+        --nEnvironments 8 --nTrainSteps 20000    # on the card
 
 `catch` is the pixel env: its replay stores uint8 frames (65,536 slots of
 40 frames of 84x84 at the recipe's maxTotObsNum, 18.5 GB on the card, and
 as much in checkpoint.pt unless --noCheckpoint is given).
 
---device is required: nothing picks the CPU when a card is missing.
---recipe takes a name from utils/recipes.py or a settings json (a path
-or the json text itself). `run(args)` does the work and returns the
-Trainer.
+--device defaults to "cuda" and raises where there is no card: nothing
+picks the CPU unless the caller asks for it (--device cpu). --recipe
+takes a name from utils/recipes.py or a settings json (a path or the
+json text itself). `run(args)` does the work and returns the Trainer
+(the Engine for an app script).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import runpy
 import shutil
 import subprocess
 from typing import Callable, Optional
@@ -50,7 +55,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         prog="python -m smarties_tpu_torch.launch",
         description="Train a built-in env with a recipe's learner.")
-    p.add_argument("app", help="built-in env name: " + ", ".join(BUILTIN_ENVS))
+    p.add_argument("app", help="built-in env name (" + ", ".join(BUILTIN_ENVS)
+                   + ") or path to an app script defining app_main(comm)")
     p.add_argument("--recipe", default="VRACER",
                    help="recipe name (utils/recipes.py) or settings json")
     p.add_argument("--runname", default="run00")
@@ -64,8 +70,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--noCheckpoint", action="store_true",
                    help="do not write checkpoint.pt when training ends "
                         "(it holds the whole replay)")
-    p.add_argument("--device", required=True,
-                   help='torch device, e.g. "cuda" or "cpu"')
+    p.add_argument("--appSettings", default="",
+                   help="comma-separated staged app arg-files "
+                        "(reference --appSettings)")
+    p.add_argument("--nStepPappSett", default="",
+                   help="comma-separated step budget per arg-file stage")
+    p.add_argument("--setupFolder", default="",
+                   help="folder copied into each per-sim run dir")
+    p.add_argument("--simDirs", action="store_true",
+                   help="run each env app launch in its own "
+                        "simulation_%%03u_%%05u directory")
+    p.add_argument("--device", default="cuda",
+                   help='torch device, "cuda" (default) or "cpu"')
     return p.parse_args(argv)
 
 
@@ -75,9 +91,8 @@ def env_module(app: str):
         raise NotImplementedError(
             f"app {app!r} is not ported yet (ROADMAP {NOT_PORTED_APPS[app]})")
     if app not in BUILTIN_ENVS:
-        raise NotImplementedError(
-            f"app {app!r}: external app scripts run through the Engine, "
-            f"which is not ported yet (ROADMAP B11)")
+        raise ValueError(f"app {app!r} is not a built-in env: an app "
+                         f"script runs through run(), on the Engine")
     from smarties_tpu_torch.envs import acrobot, cartpole, catch, \
         mountaincar, pendulum
     return {"catch": catch, "cartpole": cartpole, "cartpole_discrete": cartpole.discrete,
@@ -106,15 +121,54 @@ def _write_provenance(run_dir: str, cfg: HyperParameters):
             f.write(out)
 
 
+def _check_learners(args: argparse.Namespace):
+    if args.nLearners > 1:
+        raise NotImplementedError(
+            "--nLearners > 1: multi-device learners are not ported yet "
+            "(ROADMAP B12)")
+
+
+def _run_dir(args: argparse.Namespace, cfg: HyperParameters) -> str:
+    run_dir = os.path.join(args.runprefix, args.runname)
+    os.makedirs(run_dir, exist_ok=True)
+    _write_provenance(run_dir, cfg)
+    return run_dir
+
+
+def run_app(args: argparse.Namespace):
+    """An app script through the Engine (bin/smarties_tpu_launch.py:
+    114-130): the script is run with runpy (its `__main__` block does not
+    run), its app_main(comm) is served in nEnvironments forked workers
+    and trained with the recipe on args.device. Returns the Engine."""
+    _check_learners(args)
+    from smarties_tpu_torch.runtime.engine import Engine
+    from smarties_tpu_torch.runtime.trainer import checked_device
+    checked_device(args.device)
+    app_main = runpy.run_path(args.app)["app_main"]
+    cfg = load_recipe(args.recipe, args.randSeed)
+    e = Engine([], device=args.device)
+    e.setSettings(cfg)
+    e.setNEnvironments(args.nEnvironments)
+    e.setNTrainSteps(args.nTrainSteps)
+    e.setMaxEpisodeLength(args.maxEpisodeLength)
+    e.run_dir = _run_dir(args, cfg)
+    if args.appSettings:
+        e.setSimulationArgumentsFilePath(args.appSettings,
+                                         args.nStepPappSett)
+    if args.setupFolder:
+        e.setSimulationSetupFolderPath(args.setupFolder)
+    if args.simDirs:
+        e.setUseSimulationDirectories(True)
+    e.run(app_main)
+    return e
+
+
 def make_trainer(args: argparse.Namespace):
     """Check the request, write the run directory's provenance and build
     the Trainer (the CMAES for learner CMA, whose lanes are split evenly
     among the population). Raises NotImplementedError, naming the ROADMAP
     item, for what the port does not have yet."""
-    if args.nLearners > 1:
-        raise NotImplementedError(
-            "--nLearners > 1: multi-device learners are not ported yet "
-            "(ROADMAP B12)")
+    _check_learners(args)
     env = env_module(args.app)
     cfg = load_recipe(args.recipe, args.randSeed)
     if cfg.learner == "CMA" and args.nEnvironments % cfg.ESpopSize:
@@ -123,15 +177,14 @@ def make_trainer(args: argparse.Namespace):
             f"multiple of ESpopSize {cfg.ESpopSize} (each env lane runs one "
             f"member of the population)")
     import torch
-    run_dir = os.path.join(args.runprefix, args.runname)
-    os.makedirs(run_dir, exist_ok=True)
-    _write_provenance(run_dir, cfg)
+    from smarties_tpu_torch.runtime.trainer import Trainer, checked_device
+    checked_device(args.device)
+    run_dir = _run_dir(args, cfg)
     if cfg.learner == "CMA":
         # as the JAX launcher builds it: the default max_len of 512
         from smarties_tpu_torch.algos.cma import CMAES
         return CMAES(env, env.MDP, cfg, n_envs=args.nEnvironments,
                      device=args.device)
-    from smarties_tpu_torch.runtime.trainer import Trainer
     return Trainer(env, env.MDP, cfg, n_envs=args.nEnvironments,
                    max_len=min(args.maxEpisodeLength, env.MAX_STEPS),
                    device=args.device, run_dir=run_dir,
@@ -148,7 +201,10 @@ def run(args: argparse.Namespace,
     (bin/smarties_tpu_launch.py:100-104).
     prepare(trainer), when given, runs before the warmup (chip_smoke.py
     attaches its launch counters and timers there). Returns the Trainer
-    (the CMAES for CMA)."""
+    (the CMAES for CMA). An app that is not a built-in env name is an app
+    script: `run_app`, which returns the Engine."""
+    if args.app not in BUILTIN_ENVS and args.app not in NOT_PORTED_APPS:
+        return run_app(args)
     tr = make_trainer(args)
     if prepare is not None:
         prepare(tr)

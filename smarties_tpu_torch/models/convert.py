@@ -29,6 +29,9 @@ into the port (and parameters back) without the JAX runtime.
   orientation ([E, L+1, ...] per step, [E] per slot, scalars). A uint8
   `states` array (pixel replays) stays uint8.
   `replay_to_numpy` gives the port's replay under the same keys.
+- an Engine learner's snapshot (`engine_snapshot_from_jax`): what the
+  JAX package's `_LearnerBundle.snapshot()` holds, as numpy, in the
+  form of the port's `_LearnerBundle.snapshot()`, for checkpoint.pt.
 """
 from __future__ import annotations
 
@@ -192,3 +195,27 @@ def replay_to_numpy(rs: rb.ReplayState) -> dict:
     """The port's replay as numpy copies of its field views, under
     REPLAY_FIELDS."""
     return {k: _to_numpy(getattr(rs, k)) for k in REPLAY_FIELDS}
+
+
+def engine_snapshot_from_jax(snap_np) -> dict:
+    """A JAX Engine learner's snapshot as numpy -> the port's snapshot
+    (runtime/engine.py:_LearnerBundle.snapshot: CPU tensors, named tuples
+    as plain dicts), which `_LearnerBundle.restore` and checkpoint.pt take.
+
+    snap_np: {"params": numpy tree, "opt_state": numpy optimiser state,
+    "replay": the JAX replay's field views under REPLAY_FIELDS, and the
+    counters "n_grad_steps", "n_env_steps", "initialized",
+    "start_env_steps"} (the JAX snapshot with its replay given as views,
+    since the JAX ReplayState computes them with jax)."""
+    from smarties_tpu_torch.runtime.trainer import _plain
+    rs = replay_from_jax(snap_np["replay"], "cpu")
+    out = {"params": tree_map(lambda x: x.detach(),
+                              params_from_jax(snap_np["params"], "cpu")),
+           "opt_state": _plain(opt_state_from_jax(snap_np["opt_state"],
+                                                  "cpu")),
+           "replay": {f: getattr(rs, f) for f in rs.__dataclass_fields__}}
+    for k, cast in (("n_grad_steps", int), ("n_env_steps", int),
+                    ("initialized", bool), ("start_env_steps", int)):
+        if k in snap_np:
+            out[k] = cast(snap_np[k])
+    return out

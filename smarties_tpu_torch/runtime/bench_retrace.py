@@ -218,6 +218,34 @@ def measure_sweep_at(device, E: int, L1: int, mode: str, n: int = 30):
                               max(3, n // 6))}
 
 
+def measure_row(device, L1: int, T: int, terminal: bool,
+                mode: str = "retrace", n: int = 30):
+    """`batched_retrace` on ONE row-major [1, L1] slot of length T, as the
+    Engine's commit hands it over (rho 1 for t < T, 0 beyond): the
+    kernel's ms on a cold L2, the plain torch version's, the bytes the
+    function must move and the bound they set."""
+    timer = ColdTimer(device)
+    rng = np.random.RandomState(T)
+
+    def row(x):
+        return torch.as_tensor(np.asarray(x, np.float32)[None],
+                               device=device)
+
+    r, v, adv = (row(rng.randn(L1)) for _ in range(3))
+    rho = row(np.arange(L1) < T)
+    lens = torch.tensor([T], dtype=torch.int32, device=device)
+    term = torch.tensor([terminal], device=device)
+    args = (r, v, adv, rho, lens, term, GAMMA, LAM, mode)
+    nbytes = moved_bytes("batched_retrace", mode, L1, lens)
+    ms = timer(lambda: rk.batched_retrace(*args), n)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"entry": "batched_retrace", "mode": mode, "shape": [1, L1],
+            "length": T, "terminal": terminal, "ms": ms, "bytes": nbytes,
+            "bound_ms": bound_ms, "share_of_bound": bound_ms / ms,
+            "plain_ms": timer(lambda: ret.batched_retrace_plain(*args),
+                              max(3, n // 6))}
+
+
 def launch_floor_ms(device, n: int = 50) -> float:
     """Median ms of a sweep launch that selects no slot, so every block
     leaves at once: what the timer reads for a kernel that does no work

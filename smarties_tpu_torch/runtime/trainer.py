@@ -83,6 +83,53 @@ def _restructure(template, plain):
     return plain
 
 
+def checked_device(device) -> torch.device:
+    """The torch.device of `device`, which is required; asking for a card
+    where CUDA is not available raises (nothing falls back to the CPU)."""
+    if device is None:
+        raise ValueError("an explicit device is required")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} was asked for, but CUDA is not "
+            f"available here; pass the CPU explicitly (device \"cpu\", "
+            f"--device cpu) to run there")
+    return dev
+
+
+def can_presample(algo, cfg: HyperParameters) -> bool:
+    """Indices can be drawn for a whole chunk up front when the sampler
+    is uniform and the learner allows it (a `presample` attribute or a
+    `presample_fn` of its own), as in the JAX package; the prioritized
+    samplers depend on the TD errors each step writes and draw inside
+    the step, as does a learner that opts out (RACER-ES)."""
+    return ((getattr(algo, "presample", False)
+             or hasattr(algo, "presample_fn"))
+            and cfg.dataSamplingAlgo in ("uniform", "default"))
+
+
+def train_chunk(algo, cfg: HyperParameters, params, opt_state,
+                rs: rb.ReplayState, gen: torch.Generator, n: int,
+                pre=None):
+    """n gradient steps -> (params, opt_state, rs, metrics stacked [n]
+    per key, on the device). The indices are drawn up front (the
+    learner's `presample_fn`, else uniform) when the learner can
+    presample, else by each step itself. pre: the chunk's (ep [n, B],
+    t [n, B]) indices, given instead of drawn (a test's pinned
+    samples). The Trainer and the Engine's learners share this chunk."""
+    if pre is None and can_presample(algo, cfg):
+        fn = getattr(algo, "presample_fn", presample_uniform)
+        pre = fn(gen, rs, cfg.batchSize, n)
+    ms = []
+    for i in range(n):
+        params, opt_state, rs, m = algo.train_step(
+            params, opt_state, rs, gen=gen,
+            sample_override=None if pre is None else (pre[0][i], pre[1][i]))
+        ms.append(m)
+    return params, opt_state, rs, {k: torch.stack([m[k] for m in ms])
+                                   for k in ms[0]}
+
+
 class Trainer:
     def __init__(self, env_module, mdp: MDPSpec, cfg: HyperParameters,
                  n_envs: int = 64, n_slots: Optional[int] = None,
@@ -92,8 +139,6 @@ class Trainer:
         is required: nothing picks the CPU when a card is missing.
         state_dtype: storage type of the raw states in the replay and the
         in-progress episodes (default f32; torch.uint8 for pixels)."""
-        if device is None:
-            raise ValueError("Trainer needs an explicit device")
         # the learner first: one the port lacks is reported before any
         # settings check
         if algo_cls is None:
@@ -107,7 +152,7 @@ class Trainer:
         # f32 throughout: no TF32 in matmuls or convolutions
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.device = torch.device(device)
+        self.device = checked_device(device)
         self.env = env_module
         self.mdp = mdp
         self.cfg = cfg
@@ -281,34 +326,16 @@ class Trainer:
     # ------------------------------------------------------------------
     @property
     def _can_presample(self) -> bool:
-        """Indices can be drawn for a whole chunk up front when the sampler
-        is uniform and the learner allows it (a `presample` attribute or a
-        `presample_fn` of its own), as in the JAX package; the prioritized
-        samplers depend on the TD errors each step writes and draw inside
-        the step, as does a learner that opts out (RACER-ES)."""
-        algo = self.algo
-        return ((getattr(algo, "presample", False)
-                 or hasattr(algo, "presample_fn"))
-                and self.cfg.dataSamplingAlgo in ("uniform", "default"))
+        return can_presample(self.algo, self.cfg)
 
     def _train_chunk(self, n: int):
-        """n gradient steps, on indices drawn up front (the learner's
-        `presample_fn`, else uniform) or on each step's own draw; metrics
+        """n gradient steps (`train_chunk`) on the carried replay; metrics
         stacked [n] per key, on the device."""
-        rs = self.carry.replay
-        pre = None
-        if self._can_presample:
-            fn = getattr(self.algo, "presample_fn", presample_uniform)
-            pre = fn(self.gen_batch, rs, self.cfg.batchSize, n)
-        ms = []
-        for i in range(n):
-            self.params, self.opt_state, rs, m = self.algo.train_step(
-                self.params, self.opt_state, rs, gen=self.gen_batch,
-                sample_override=(None if pre is None
-                                 else (pre[0][i], pre[1][i])))
-            ms.append(m)
+        self.params, self.opt_state, rs, metrics = train_chunk(
+            self.algo, self.cfg, self.params, self.opt_state,
+            self.carry.replay, self.gen_batch, n)
         self.carry = self.carry._replace(replay=rs)
-        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+        return metrics
 
     def _fused_cycle(self, n_roll: int, n_train: int):
         """[n_roll env sweeps + at-ingest returns + n_train grad steps]:

@@ -184,8 +184,6 @@ def test_cma():
     assert cma.n_generations == 2 and len(cma.history) == 2
     assert int(cma.state.gen) == 2
     assert np.isfinite(cma.evaluate(2, max_steps=50)).all()
-    with pytest.raises(NotImplementedError, match="B11"):
-        cma.run_external(None, 1)
 
 
 def test_lanes_must_divide():

@@ -19,8 +19,12 @@ names = sorted(m.name for m in pkgutil.walk_packages(
 for n in names:
     __import__(n)
 from smarties_tpu_torch.ops import retrace_kernel
+import smarties_tpu_torch as pkg
+lazy = sorted(n for n in ("Engine", "Communicator", "HyperParameters",
+                          "MDPSpec") if getattr(pkg, n).__name__ == n)
 print(json.dumps({
     "submodules": names,
+    "lazy": lazy,
     "jax": sorted(m for m in sys.modules
                   if m == "jax" or m.startswith(("jax.", "jaxlib"))),
     "reference": sorted(m for m in sys.modules
@@ -48,5 +52,33 @@ def test_port_imports_no_jax():
                 "algos.dqn", "algos.naf", "algos.dpg", "algos.mixedpg",
                 "algos.ppo", "algos.acer", "algos.cma", "algos.racer_es",
                 "algos.registry", "runtime.trainer", "runtime.profile_main",
-                "runtime.bench_retrace", "utils.config", "utils.recipes", "launch"):
+                "runtime.bench_retrace", "runtime.engine",
+                "runtime.env_pool", "runtime.socket_pool",
+                "runtime.communicator", "runtime.team", "utils.config",
+                "utils.recipes", "launch"):
         assert "smarties_tpu_torch." + sub in res["submodules"], sub
+    assert res["lazy"] == ["Communicator", "Engine", "HyperParameters",
+                           "MDPSpec"]
+
+
+_BARE = r"""
+import json, sys
+import smarties_tpu_torch
+before = sorted(m for m in sys.modules if m.startswith("smarties_tpu_torch."))
+engine = smarties_tpu_torch.Engine
+print(json.dumps({"before": before, "engine": engine.__module__,
+                  "jax": any(m == "jax" or m.startswith("smarties_tpu.")
+                             for m in sys.modules)}))
+"""
+
+
+def test_package_import_is_bare_and_engine_lazy():
+    """`import smarties_tpu_torch` loads no submodule; the Engine export
+    loads the runtime on first access, and still no jax."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _BARE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"before": [], "engine": "smarties_tpu_torch.runtime.engine",
+                   "jax": False}

@@ -15,6 +15,11 @@ operations in its order, so those are held to torch.equal: slot counts
 that are no multiple of 32, lengths 0 and L1-1, a select of all, some
 and no slots.
 
+`batched_retrace` on one row-major [1, L1] slot, as the Engine's commit
+hands each finished episode over (rho 1 before the length, 0 after):
+bit-equal at the Engine's [1, 1025] and [1, 257], lengths L1-1, ragged
+and 0, terminal and truncated.
+
 Two more checks need the card though they hold no kernel of the port's
 own: the conv stack (cuDNN, channels_last) against the CPU, forward and
 gradients at the Mnih shapes with TF32 off (rtol 1e-4 / atol 1e-5: sums
@@ -69,6 +74,24 @@ def test_kernel_matches_plain(cuda, shape, time_major):
     torch.testing.assert_close(rk.affine_suffix_scan(args[0], b),
                                tret.affine_suffix_scan_plain(args[0], b),
                                **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("terminal", [True, False])
+@pytest.mark.parametrize("L1,T", [(1025, 1024), (1025, 716), (1025, 0),
+                                  (257, 256), (257, 179)])
+def test_engine_row_matches_plain(cuda, L1, T, terminal):
+    rng = np.random.RandomState(T)
+    row = lambda x: torch.tensor(np.asarray(x, np.float32)[None],
+                                 device=cuda)
+    args = (row(rng.randn(L1)), row(rng.randn(L1)), row(rng.randn(L1)),
+            row(np.arange(L1) < T),
+            torch.tensor([T], dtype=torch.int32, device=cuda),
+            torch.tensor([terminal], device=cuda), 0.995, 0.95, "retrace")
+    got = rk.batched_retrace(*args)
+    want = tret.batched_retrace_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -164,7 +164,7 @@ def test_launch_builtin(tmp_path, app, recipe, extra, cls):
     ("glider", "VRACER", (), "B10"),
     ("predator_prey", "VRACER", (), "B10"),
     ("catch", "VRACER", ("--nLearners", "2"), "B12"),
-    ("apps/cart_pole_py/exec.py", "VRACER", (), "B11"),
+    ("apps/cart_pole_py/exec.py", "VRACER", ("--nLearners", "2"), "B12"),
     ("cartpole", "VRACER", ("--nLearners", "2"), "B12"),
 ])
 def test_not_ported_raises(tmp_path, app, recipe, extra, item):
@@ -246,5 +246,12 @@ def test_every_recipe_builds(recipe):
 
 
 def test_device_is_required():
-    with pytest.raises(SystemExit):
-        launch.parse_args(["cartpole"])
+    """--device defaults to the card, and a card that is missing raises:
+    nothing falls back to the CPU."""
+    args = launch.parse_args(["cartpole"])
+    assert args.device == "cuda"
+    if not torch.cuda.is_available():
+        for app in ("cartpole", "apps/cart_pole_py/exec.py"):
+            args = launch.parse_args([app, "--runprefix", "unused"])
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                launch.run(args)
