@@ -20,7 +20,10 @@ Phases, each reported on its own line:
    lengths, the ingest's 1024 of 4096 slots) beside the bound its bytes
    set at 3.35 TB/s, a clone of as many bytes and the plain version;
    the sweep also at the PPO path's [256, 501] in GAE mode, the GRU
-   path's [1024, 501] and the Atari path's [65536, 40].
+   path's [1024, 501], the Atari path's [65536, 40], the glider's
+   [16912, 501] and predator-prey's [20971, 201] (the Trainer's and each
+   MultiTrainer learner's), where the kernel is also held against its
+   plain version.
 3. reference: the port on the card against the port on the CPU at a
    small size, from one state (8 train steps and a refresh, so K1 runs
    inside the pipeline against its plain version).
@@ -130,6 +133,38 @@ Phases, each reported on its own line:
    after CUDA is up, respawned by a fork, training done; CMA's
    `run_external` over 8 forked `apps/func_maximization` apps for 20
    generations, avgR rising toward the optimum.
+17. glider: one env step (100 rk46_nl substeps) on the card against the
+   CPU from 1024 states (start draws, lanes just above the ground that
+   freeze part-way through the step, lanes over from the start): done
+   and terminal equal, states within 1e-4; the step's ms by CUDA events,
+   host enqueue, kernel launches and device busy time. Then app `glider`
+   with recipe RACER_glider through the launcher ([128, 128, 128], gamma
+   1, clipImpWeight 1, maxTotObsNum 524288, so 16912 slots x 501 steps;
+   minTotObsNum cut to 65536) with 1024 envs: warmup, one fused cycle of
+   1024 grad steps, evaluate(8, 4); one K1 sweep launch per call of each
+   site.
+18. predator-prey through the Trainer: app `predator_prey` with recipe
+   VRACER ([128, 128]) and 1024 lanes (512 envs x 2 agents, one shared
+   learner, 20971 slots x 201 steps): warmup, one fused cycle,
+   evaluate(8, 200) (zero-sum returns); one K1 launch per site call.
+19. MultiTrainer: two V-RACER learners (recipe VRACER) on predator-prey
+   with tests/test_competing.py's per-agent MDPs, 512 envs: one roll to
+   the truncation at step 200 on the card against the CPU (8 envs,
+   deterministic acting, the same params), then warmup, train(1024)
+   with train_mask [True, False] and then [False, True] (the frozen
+   learner's params bit-unchanged), evaluate(8, 200); K1's launches per
+   learner and site equal the code's prediction (one ingest sweep per
+   roll, one initialize_stats, one refresh per 1000 steps).
+20. logs: cart-pole through the launcher with --logAllSamples (VRACER
+   [128, 128], 64 envs, 300 grad steps), log_status and
+   log_status(full=True): agent_00_rank00_obs.raw, grads_rank00.raw, the
+   stats row, the histogram and the profiler's table written and
+   parsed; then two fused cycles in torch's sync debug mode (none
+   flagged) and two under torch.profiler (no synchronising CUDA call
+   but the profiler's own), while the profiler's CUDA events wait
+   unread until its table.
+`--only NAME ...` runs the device phase and the named phases of 17-20
+alone (glider, predator_prey, multitrainer, logs).
 Then one JSON line with the kernels' results and, last, the device line.
 
 The script imports no JAX and nothing of the JAX package. Any failed
@@ -157,11 +192,19 @@ ATARI_E, ATARI_L1 = 65536, 40
 # the replay shapes K1 meets on the other paths: PPO's 256 slots (GAE), the
 # GRU recipe's 1024 and the Atari path's (Retrace); the learners and
 # RACER_RNN use MAIN_E
+# the glider's replay at RACER_glider's maxTotObsNum (2 * 524288 // 62
+# slots of 500 steps) and predator-prey's at VRACER's (2 * 262144 // 25
+# slots of 200 steps; the Trainer's, and each MultiTrainer learner's)
+GLIDER_E, GLIDER_L1 = 16912, 501
+PP_E, PP_L1 = 20971, 201
 PATH_SWEEPS = (("ppo", 256, MAIN_L1, "GAE"),
                ("vracer_gru", 1024, MAIN_L1, "retrace"),
-               ("racer_atari", ATARI_E, ATARI_L1, "retrace"))
+               ("racer_atari", ATARI_E, ATARI_L1, "retrace"),
+               ("glider", GLIDER_E, GLIDER_L1, "retrace"),
+               ("predator_prey / multitrainer", PP_E, PP_L1, "retrace"))
 KERNEL_SHAPES = ((200, 37), (33, 22), (256, MAIN_L1), (1024, MAIN_L1),
-                 (MAIN_E, MAIN_L1), (ATARI_E, ATARI_L1))
+                 (MAIN_E, MAIN_L1), (ATARI_E, ATARI_L1),
+                 (GLIDER_E, GLIDER_L1), (PP_E, PP_L1))
 # the learners phase: (name, app, recipe as the launcher takes it)
 LEARNER_PATHS = (
     ("racer", "cartpole", "RACER"),
@@ -210,6 +253,17 @@ ENGINE_STEPS, ENGINE_MORE, ENGINE_EVAL = 2000, 500, 8
 ENGINE_SIDE_STEPS, ENGINE_TEAM_STEPS = 200, 50
 ENGINE_RNN_MIN_OBS, ENGINE_NATIVE_MIN_OBS = 2048, 4096
 CMA_EXT_GENERATIONS = 20
+# the glider: envs, steps of the deterministic eval (each env step is 600
+# derivative evaluations of eager elementwise ops, ~0.8 s at 1024 lanes),
+# and the start threshold: the recipe's settings but minTotObsNum cut to
+# 65536, which the first wave of episodes (100-125 steps) fills; the
+# recipe's 131072 takes a second wave (221 sweeps, 136 s)
+GLIDER_ENVS, GLIDER_EVAL_STEPS, GLIDER_MIN_OBS = 1024, 4, 65536
+# predator-prey: the Trainer's lanes (512 envs x 2 agents); the
+# MultiTrainer's envs and grad steps per learner
+PP_LANES, MT_ENVS, MT_STEPS = 1024, 512, 1024
+# the logs phase: a short cart-pole run
+LOGS_ENVS, LOGS_STEPS = 64, 300
 
 
 def phase_device():
@@ -2060,9 +2114,540 @@ def _crashing_app(sentinel):
     return app
 
 
-def main():
+# ---------------------------------------------------------------------
+# the glider, predator-prey, the competing-agents MultiTrainer and the
+# trainer's logs
+
+def _glider_states(rng, n):
+    """[n, 6] glider states as numpy: the env's start draw, with a
+    quarter of the lanes placed just above the ground and falling (most
+    touch down inside the step, so their integration freezes after some
+    of its 100 substeps) and an eighth already over (under the ground,
+    or past x = 200: frozen from the first substep)."""
+    import numpy as np
+    q = np.zeros((n, 6), np.float32)
+    q[:, 0:2] = rng.uniform(-0.1, 0.1, (n, 2))
+    q[:, 3] = rng.uniform(-10.0, 10.0, n)
+    q[:, 5] = rng.uniform(-np.pi, np.pi, n)
+    near = np.arange(n) % 8 < 2
+    k = int(near.sum())
+    q[near, 0] = rng.uniform(0.0, 0.6, k)
+    q[near, 1] = -np.sign(np.cos(q[near, 5])) * rng.uniform(0.6, 1.2, k)
+    q[near, 2] = rng.uniform(-0.5, 0.5, k)
+    q[near, 4] = rng.uniform(-49.95, -49.7, k)
+    over = np.flatnonzero(np.arange(n) % 8 == 2)
+    q[over[0::2], 4] = -50.5
+    q[over[1::2], 3] = 201.0
+    return q
+
+
+def _glider_step_card_vs_cpu(n):
+    """One glider env step from the same states on the card and on the
+    CPU: done and terminal equal, states and rewards within 1e-4 of
+    their scale (sin / cos / sqrt of the card and of the CPU differ in
+    the last ulp over 600 derivative evaluations). Returns the counts of
+    lanes that froze mid-step and from the start, and the worst
+    differences."""
+    import numpy as np
+    import torch
+    from smarties_tpu_torch.envs import glider
+
+    rng = np.random.RandomState(17)
+    q = _glider_states(rng, n)
+    act = rng.uniform(-1.0, 1.0, (n, 1)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = glider.GliderState(q=torch.as_tensor(q, device=dev),
+                                step=torch.zeros(n, dtype=torch.int32,
+                                                 device=dev))
+        st2, r, d, term = glider.step(st, torch.as_tensor(act, device=dev))
+        out[dev] = [x.cpu() for x in (st2.q, r, d, term)]
+    (qc, rc, dc, tc), (qg, rg, dg, tg) = out["cpu"], out["cuda"]
+    assert torch.equal(dg, dc) and torch.equal(tg, tc), \
+        "glider step: done / terminal differ between the card and the CPU"
+    torch.testing.assert_close(qg, qc, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(rg, rc, rtol=1e-4, atol=1e-4)
+    start_over = glider._is_over_space(torch.as_tensor(q))
+    return {"froze_mid_step": int((dc & ~start_over).sum()),
+            "frozen_at_start": int(start_over.sum()),
+            "max_abs_diff_q": float((qg - qc).abs().max()),
+            "max_abs_diff_reward": float((rg - rc).abs().max())}
+
+
+def _launcher_path(name, app, recipe, n_envs, n_steps, extra=()):
+    """`launch.run` of a built-in app on the card with K1 counted per site,
+    the warmup timed by the host clock (it reads the stored-step count
+    back once per chunk) and the train call replaced by one timed fused
+    cycle (train_fused, CUDA events). Returns (trainer, hooks, K1
+    launches, wall s of the run)."""
+    import torch
+    from smarties_tpu_torch import launch
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+
+    runs = os.path.join(ROOT, "build", "chip_smoke_runs")
+    args = launch.parse_args([
+        app, "--recipe", recipe, "--device", "cuda", "--nEnvironments",
+        str(n_envs), "--nTrainSteps", str(n_steps), "--runprefix", runs,
+        "--runname", name, "--noCheckpoint", *extra])
+    hooks = {}
+
+    def prepare(tr):
+        tr.log_flush_threshold = 10 ** 9
+        hooks["sites"] = SiteCounter(tr, rk)
+        _timed_fused(tr, hooks)
+        warmup = tr.warmup
+
+        def timed_warmup(*a, **kw):
+            t0 = time.perf_counter()
+            warmup(*a, **kw)
+            torch.cuda.synchronize()
+            hooks["warmup_s"] = time.perf_counter() - t0
+            hooks["warmup_env_steps"] = tr.n_env_steps
+        tr.warmup = timed_warmup
+
+    rk.reset_launches()
+    t0 = time.perf_counter()
+    tr = launch.run(args, prepare=prepare)
+    torch.cuda.synchronize()
+    return tr, hooks, dict(rk.launches), time.perf_counter() - t0
+
+
+def phase_glider():
+    """The glider through the launcher at the published RACER_glider
+    settings with 1024 envs: warmup, one fused cycle of 1024 grad steps,
+    evaluate(8, GLIDER_EVAL_STEPS); one K1 sweep launch per call of each
+    site. Before it, one env step card against CPU from common,
+    near-ground and over states, and the env step's launches and ms."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from smarties_tpu_torch.envs import glider
+    from smarties_tpu_torch.runtime import profile_main as pm
+
+    name = "glider"
+    ref = _glider_step_card_vs_cpu(GLIDER_ENVS)
+    # the env step alone at 1024 lanes: events, host enqueue, launches
+    st = glider.init(torch.Generator(device="cuda").manual_seed(0),
+                     GLIDER_ENVS, "cuda")
+    act = torch.zeros((GLIDER_ENVS, 1), device="cuda")
+    step = lambda: glider.step(st, act)
+    step()
+    ev_ms, enq_ms, _ = pm.time_calls(step, 3)
+    prof = pm.profile_calls(step, 1)
+
+    print(f"glider: env step card vs CPU at {GLIDER_ENVS} lanes: done and "
+          f"terminal equal ({ref['froze_mid_step']} lanes froze mid-step, "
+          f"{ref['frozen_at_start']} from the start), max |diff| q "
+          f"{ref['max_abs_diff_q']:.3e}, reward "
+          f"{ref['max_abs_diff_reward']:.3e} | env step at {GLIDER_ENVS} "
+          f"lanes: {ev_ms:.1f} ms by events, host enqueue {enq_ms:.1f} ms, "
+          f"{prof['launches']:.0f} kernel launches, device busy "
+          f"{prof['busy_ms']:.2f} ms (profiled wall {prof['wall_ms']:.1f} "
+          f"ms)", flush=True)
+    from smarties_tpu_torch.utils.recipes import RECIPES
+    recipe = json.dumps(dict(RECIPES["RACER_glider"],
+                             minTotObsNum=GLIDER_MIN_OBS))
+    tr, hooks, counts, run_s = _launcher_path(
+        name, "glider", recipe, GLIDER_ENVS, GLIDER_ENVS)
+    sites, calls = dict(hooks["sites"].sites), dict(hooks["sites"].calls)
+    t0 = time.perf_counter()
+    rets = tr.evaluate(8, max_steps=GLIDER_EVAL_STEPS)
+    eval_s = time.perf_counter() - t0
+    _check_finite(name, tr, rets, 8)
+    cfg = tr.cfg
+    assert (cfg.nnLayerSizes, cfg.gamma, cfg.clipImpWeight, cfg.maxTotObsNum,
+            cfg.minTotObsNum, tr.replay.n_slots, tr.replay.max_len + 1) == (
+        [128, 128, 128], 1.0, 1.0, 524288, GLIDER_MIN_OBS, GLIDER_E,
+        GLIDER_L1), cfg
+    assert hooks["steps"] == GLIDER_ENVS and hooks["cycles"] == 1, hooks
+    hooks["sites"].check_one_launch_per_call(
+        counts, ("ingest", "initialize_stats", "refresh"), name)
+    shutil.rmtree(tr.run_dir)
+    ms_step = hooks["train_ms"] / hooks["steps"]
+    print(f"glider: {name} (Racer, RACER_glider {cfg.nnLayerSizes}, batch "
+          f"{cfg.batchSize}, gamma {cfg.gamma}, clipImpWeight "
+          f"{cfg.clipImpWeight}, minTotObsNum {cfg.minTotObsNum}, "
+          f"{GLIDER_ENVS} envs, {GLIDER_E} x {GLIDER_L1} slots): warmup {hooks['warmup_s']:.1f} s "
+          f"({hooks['warmup_env_steps'] // GLIDER_ENVS} env sweeps, "
+          f"{hooks['warmup_s'] * 1e3 / (hooks['warmup_env_steps'] // GLIDER_ENVS):.1f}"
+          f" ms per sweep) | train_fused({GLIDER_ENVS}) "
+          f"{hooks['train_ms']:.1f} ms by events ({ms_step:.3f} ms/grad "
+          f"step) | launch.run {run_s:.2f} s | evaluate(8, "
+          f"{GLIDER_EVAL_STEPS}) {eval_s:.2f} s, mean return "
+          f"{float(np.mean(rets)):.2f} | stored steps "
+          f"{int(tr.replay.n_stored_steps())} | K1 sweep launches by site "
+          f"{sites} for calls {calls}, one per call", flush=True)
+    res = {"sites": sites, "launches": counts["retrace_sweep"],
+           "ms_per_grad_step": ms_step, "run_s": run_s,
+           "env_step": {"lanes": GLIDER_ENVS, "ms": ev_ms,
+                        "enqueue_ms": enq_ms, "launches": prof["launches"],
+                        "busy_ms": prof["busy_ms"]},
+           "warmup_s": hooks["warmup_s"], "card_vs_cpu": ref}
+    del tr
+    torch.cuda.empty_cache()
+    return {name: res}
+
+
+def phase_predator_prey():
+    """Predator-prey through the launcher's Trainer: recipe VRACER, 1024
+    lanes (512 envs x 2 agents sharing one learner): warmup, one fused
+    cycle of 1024 grad steps, evaluate(8, 200); one K1 sweep launch per
+    call of each site."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from smarties_tpu_torch.envs import predator_prey as pp
+
+    name = "predator_prey"
+    tr, hooks, counts, run_s = _launcher_path(
+        name, "predator_prey", "VRACER", PP_LANES, PP_LANES)
+    sites, calls = dict(hooks["sites"].sites), dict(hooks["sites"].calls)
+    rets = tr.evaluate(8, max_steps=pp.MAX_STEPS)
+    _check_finite(name, tr, rets, 8)
+    # zero-sum: each env's predator and prey returns cancel
+    np.testing.assert_allclose(rets.reshape(-1, 2).sum(1), 0.0, atol=1e-3)
+    assert (tr.replay.n_slots, tr.replay.max_len + 1) == (PP_E, PP_L1)
+    assert hooks["steps"] == PP_LANES and hooks["cycles"] == 1, hooks
+    hooks["sites"].check_one_launch_per_call(
+        counts, ("ingest", "initialize_stats", "refresh"), name)
+    shutil.rmtree(tr.run_dir)
+    ms_step = hooks["train_ms"] / hooks["steps"]
+    print(f"predator_prey: {name} (VRacer, VRACER {tr.cfg.nnLayerSizes}, "
+          f"batch {tr.cfg.batchSize}, {PP_LANES} lanes = {PP_LANES // 2} "
+          f"envs x 2 agents, {PP_E} x {PP_L1} slots): warmup "
+          f"{hooks['warmup_s']:.2f} s | train_fused({PP_LANES}) "
+          f"{hooks['train_ms']:.1f} ms by events ({ms_step:.3f} ms/grad "
+          f"step) | launch.run {run_s:.2f} s | evaluate(8, 200) returns "
+          f"{np.round(rets, 2).tolist()} | K1 sweep launches by site "
+          f"{sites} for calls {calls}, one per call", flush=True)
+    res = {"sites": sites, "launches": counts["retrace_sweep"],
+           "ms_per_grad_step": ms_step, "run_s": run_s,
+           "warmup_s": hooks["warmup_s"]}
+    del tr
+    torch.cuda.empty_cache()
+    return {name: res}
+
+
+def _pp_mdps():
+    """tests/test_competing.py's per-agent MDPs (the prey's descriptor
+    lists its observable dims)."""
+    from smarties_tpu_torch.core.mdp import MDPSpec
+    kw = dict(dim_state=4, dim_action=2, bounded=(True, True),
+              upper_action=(1.0, 1.0), lower_action=(-1.0, -1.0),
+              n_agents_per_env=2)
+    return (MDPSpec(**kw), MDPSpec(**kw, observable=(True,) * 4))
+
+
+def _multitrainer_roll_card_vs_cpu():
+    """A MultiTrainer on the card against one on the CPU, deterministic
+    acting, the same params and pinned starts, 8 envs: 201 sweeps (every
+    lane truncates at step 200 and commits), then K1's at-ingest sweep
+    per learner (the kernel on the card, its plain version on the CPU);
+    both replays field by field (the tolerances of `_card_vs_cpu`).
+    Returns the worst |diff| of states, qret and value."""
+    import numpy as np
+    import torch
+    from smarties_tpu_torch.envs import predator_prey as pp
+    from smarties_tpu_torch.models import convert
+    from smarties_tpu_torch.runtime.multitrainer import MultiTrainer
+    from smarties_tpu_torch.utils.config import HyperParameters
+
+    def cfg():
+        return HyperParameters(minTotObsNum=256, maxTotObsNum=4096,
+                               batchSize=32, nnLayerSizes=[16, 16],
+                               bTrain=False, randSeed=0)
+
+    u0 = torch.as_tensor(np.random.RandomState(3).rand(8, 4)
+                         .astype(np.float32))
+    mts = []
+    for dev in ("cpu", "cuda"):
+        mt = MultiTrainer(pp, _pp_mdps(), [cfg(), cfg()], n_envs=8,
+                          n_slots=64, max_len=pp.MAX_STEPS, device=dev)
+        mt.carry = mt.carry._replace(env_state=pp.init(None, 16,
+                                                       u_new=u0.to(dev)))
+        if mts:
+            mt.load(mts[0].state())
+        mts.append(mt)
+    for mt in mts:
+        mt._roll(pp.MAX_STEPS + 1)
+    worst = {}
+    for a in range(2):
+        want = convert.replay_to_numpy(mts[0].carry.replays[a])
+        got = convert.replay_to_numpy(mts[1].carry.replays[a])
+        assert want["length"].max() == pp.MAX_STEPS \
+            and (want["ep_id"] >= 0).sum() == 8, want["length"]
+        for k in convert.REPLAY_FIELDS:
+            atol = 2e-3 if k in ("qret", "delta", "value", "v_trunc",
+                                 "max_abs_error") else 1e-5
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4,
+                                       atol=atol,
+                                       err_msg=f"learner {a} field {k}")
+            if k in ("states", "qret", "value"):
+                worst[k] = max(worst.get(k, 0.0),
+                               float(np.abs(got[k] - want[k]).max()))
+    return worst
+
+
+def phase_multitrainer():
+    """Two V-RACER learners (recipe VRACER, [128, 128], batch 256) on
+    predator-prey with the per-agent MDPs of tests/test_competing.py,
+    512 envs (1024 lanes): warmup, train(1024) with only the predator
+    learning, then only the prey, evaluate(8, 200). K1 launches counted
+    per learner and site and held to what the code predicts: one
+    ingest sweep per learner per roll, one initialize_stats each at the
+    end of warmup, one refresh per learner per 1000 of its steps; the
+    frozen learner's params bit-unchanged in each half. Before it, one
+    roll card against CPU."""
+    import numpy as np
+    import torch
+    from smarties_tpu_torch import launch
+    from smarties_tpu_torch.envs import predator_prey as pp
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+    from smarties_tpu_torch.runtime.multitrainer import MultiTrainer
+
+    name = "multitrainer"
+    worst = _multitrainer_roll_card_vs_cpu()
+    cfgs = [launch.load_recipe("VRACER", a) for a in range(2)]
+    t0 = time.perf_counter()
+    mt = MultiTrainer(pp, _pp_mdps(), cfgs, n_envs=MT_ENVS,
+                      max_len=pp.MAX_STEPS, device="cuda")
+    assert (mt.n_slots, mt.carry.replays[0].max_len + 1) == (PP_E, PP_L1)
+    sites = [{} for _ in range(2)]
+    calls = {"roll": 0}
+
+    def counted(fn, a, site):
+        def f(*args):
+            n0 = sum(rk.launches.values())
+            out = fn(*args)
+            sites[a][site] = (sites[a].get(site, 0)
+                              + sum(rk.launches.values()) - n0)
+            calls[(a, site)] = calls.get((a, site), 0) + 1
+            return out
+        return f
+
+    for a in range(2):
+        mt._fix_returns[a] = counted(mt._fix_returns[a], a, "ingest")
+        mt._init_stats[a] = counted(mt._init_stats[a], a,
+                                    "initialize_stats")
+        mt._refresh[a] = counted(mt._refresh[a], a, "refresh")
+    roll = mt._roll
+
+    def counted_roll(n):
+        calls["roll"] += 1
+        return roll(n)
+
+    mt._roll = counted_roll
+    rk.reset_launches()
+    mt.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    rolls_warmup = calls["roll"]
+    ms = []
+    for mask in ([True, False], [False, True]):
+        frozen = [k for k, m in enumerate(mask) if not m][0]
+        before = [p.detach().clone() for _, p in _leaves(mt.params[frozen])]
+        mt.train_mask = mask
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        mt.train(MT_STEPS)
+        e1.record()
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1) / MT_STEPS)
+        after = [p for _, p in _leaves(mt.params[frozen])]
+        assert all(torch.equal(x, y) for x, y in zip(before, after)), \
+            f"learner {frozen} was frozen, but its params changed"
+    counts = dict(rk.launches)
+    t0 = time.perf_counter()
+    rets = mt.evaluate(8, max_steps=pp.MAX_STEPS)
+    eval_s = time.perf_counter() - t0
+    assert rets.shape == (8, 2) and np.isfinite(rets).all(), rets
+    np.testing.assert_allclose(rets.sum(1), 0.0, atol=1e-3)
+    for a in range(2):
+        for k, p in _leaves(mt.params[a]):
+            assert torch.isfinite(p).all(), f"{name}: learner {a} param {k}"
+    assert mt.n_grad_steps == [MT_STEPS, MT_STEPS], mt.n_grad_steps
+    # what the code predicts, per learner: the calls of each site, and
+    # one launch per call
+    for a in range(2):
+        want = {"ingest": calls["roll"], "initialize_stats": 1,
+                "refresh": mt.n_grad_steps[a] // 1000}
+        made = {k: calls.get((a, k), 0) for k in want}
+        assert made == want == sites[a], (a, made, want, sites[a])
+    assert counts["retrace_sweep"] == sum(counts.values()) \
+        == sum(sum(s.values()) for s in sites), (counts, sites)
+    with_rows = [len(mt._ep_returns[a]) for a in range(2)]
+    print(f"multitrainer: card vs CPU, one roll to the truncation at step "
+          f"200 (8 envs, [16, 16], deterministic acting, same params) and "
+          f"K1's ingest sweep per learner: max |diff| "
+          f"{_fmt_diffs(worst)}", flush=True)
+    print(f"multitrainer: {name} (2 x VRacer, VRACER [128, 128], batch "
+          f"{cfgs[0].batchSize}, {MT_ENVS} envs x 2 agents, {PP_E} x "
+          f"{PP_L1} slots per learner): warmup {warmup_s:.2f} s "
+          f"({rolls_warmup} rolls of 16 sweeps) | train({MT_STEPS}) "
+          f"predator only {ms[0]:.3f} ms/grad step, prey only "
+          f"{ms[1]:.3f} by events; the frozen learner's params "
+          f"bit-unchanged in each | rolls {calls['roll']} | evaluate(8, "
+          f"200) {eval_s:.2f} s, mean returns "
+          f"{np.round(rets.mean(0), 3).tolist()} | episodes logged "
+          f"{with_rows} | K1 sweep launches per learner by site "
+          f"{sites}, as predicted (ingest = rolls, initialize_stats 1, "
+          f"refresh = grad steps // 1000)", flush=True)
+    res = {"sites": {f"learner{a}": sites[a] for a in range(2)},
+           "launches": counts["retrace_sweep"], "rolls": calls["roll"],
+           "ms_per_grad_step": ms, "warmup_s": warmup_s,
+           "card_vs_cpu": worst}
+    del mt
+    torch.cuda.empty_cache()
+    return {name: res}
+
+
+def phase_logs():
+    """The trainer's logs on the card: a short cart-pole run through the
+    launcher with --logAllSamples, then log_status(full=True); the obs
+    stream, the gradient rows, the stats and profiler tables written
+    and parsed. Then two fused cycles under torch's sync debug mode: no
+    synchronising call, while the profiler's events wait unread until
+    its table is asked for."""
+    import contextlib
+    import io
+    import shutil
+    import warnings
+
+    import numpy as np
+    import torch
+    from smarties_tpu_torch import launch
+    from smarties_tpu_torch.envs import cartpole
+
+    name = "logs"
+    runs = os.path.join(ROOT, "build", "chip_smoke_runs")
+    recipe = json.dumps({"learner": "VRACER", "nnLayerSizes": [128, 128],
+                         "minTotObsNum": 4096, "maxTotObsNum": 65536})
+    args = launch.parse_args([
+        "cartpole", "--recipe", recipe, "--device", "cuda",
+        "--nEnvironments", str(LOGS_ENVS), "--nTrainSteps",
+        str(LOGS_STEPS), "--runprefix", runs, "--runname", name,
+        "--noCheckpoint", "--logAllSamples"])
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        tr = launch.run(args)
+        tr.log_status()
+        tr.log_status(full=True)
+    tr._obs_file.flush()
+    run_s = time.perf_counter() - t0
+    text = out.getvalue()
+    assert tr.obs_log and tr.n_grad_steps == LOGS_STEPS
+    for want in ("|  nEp |   nObs", "OFF-POLICY IMP WEIGHTS HISTOGRAM",
+                 "profiler:", "ROLL", "TRAIN", "HOST"):
+        assert want in text, f"{name}: {want!r} not printed:\n{text}"
+    stats_line = text.splitlines()[text.splitlines().index(
+        next(l for l in text.splitlines() if l.startswith("|  nEp"))) + 1]
+    assert len(stats_line.split()) == 14, stats_line
+    prof_lines = text.split("profiler:\n", 1)[1].strip().splitlines()
+    dim_s = cartpole.MDP.dim_state_observed
+    rows = np.fromfile(os.path.join(tr.run_dir, "agent_00_rank00_obs.raw"),
+                       np.float32)
+    assert rows.size % (dim_s + 3) == 0 and rows.size > 0, rows.size
+    rows = rows.reshape(-1, dim_s + 3)
+    status = rows[:, 1].astype(int)
+    n_end = int(((status == 2) | (status == 3)).sum())
+    assert (status == 0).sum() >= LOGS_ENVS and n_end > 0
+    assert len(rows) == (status < 2).sum() + n_end
+    assert np.isfinite(rows).all()
+    assert set(np.unique(rows[:, 0]).astype(int)) == set(range(LOGS_ENVS))
+    grads = np.fromfile(os.path.join(tr.run_dir, "grads_rank00.raw"),
+                        np.float32).reshape(-1, 3)
+    # one row per log_status
+    np.testing.assert_array_equal(grads[:, 0], [LOGS_STEPS] * 2)
+    assert np.isfinite(grads).all() and (grads[:, 1] > 0).all()
+
+    # the cycle makes no host read: two fused cycles in torch's sync
+    # debug mode (it flags the synchronising calls it knows of), the
+    # CUDA runtime's synchronising calls counted in a profiler trace of
+    # two more
+    n_events0 = len(tr.profiler._events)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tr.train_fused(2 * LOGS_ENVS, log_every=10 ** 9, flush=False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.train_fused(2 * LOGS_ENVS, log_every=10 ** 9, flush=False)
+    runtime = {}
+    for e in prof.events():
+        if e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                      "cudaEventSynchronize", "cudaMemcpy",
+                      "cudaMemcpyAsync"):
+            runtime[e.name] = runtime.get(e.name, 0) + 1
+    n_events = len(tr.profiler._events)
+    assert not syncs, f"{name}: {len(syncs)} synchronising calls in the " \
+        f"fused cycles: {syncs[:3]}"
+    # the one device synchronize allowed is torch.profiler's own, which
+    # its exit makes while it still records
+    waits = (runtime.get("cudaStreamSynchronize", 0)
+             + runtime.get("cudaEventSynchronize", 0)
+             + runtime.get("cudaMemcpy", 0)
+             + runtime.get("cudaDeviceSynchronize", 0) - 1)
+    assert waits == 0, f"{name}: synchronising CUDA calls {runtime}"
+    assert n_events == n_events0 + 8, (n_events0, n_events)
+    table = tr.profiler.table()
+    assert not tr.profiler._events and "TRAIN" in table
+    n_rows_obs = len(rows)
+    shutil.rmtree(tr.run_dir)
+    print(f"logs: cartpole (VRACER [128, 128], {LOGS_ENVS} envs, "
+          f"--logAllSamples, {LOGS_STEPS} grad steps) in {run_s:.2f} s: "
+          f"agent_00_rank00_obs.raw {n_rows_obs} rows of {dim_s + 3} f32 "
+          f"({int((status == 0).sum())} episode starts, {n_end} ends), "
+          f"grads_rank00.raw rows {grads.tolist()}, stats row "
+          f"'{stats_line.strip()}', profiler table "
+          f"{[l.strip() for l in prof_lines]} | two fused cycles in sync "
+          f"debug mode: 0 synchronising calls flagged; two more under "
+          f"torch.profiler: CUDA runtime calls {runtime} (the one device "
+          f"synchronize is the profiler's exit); "
+          f"{n_events - n_events0} profiler event pairs left unread until "
+          f"the table", flush=True)
+    res = {"obs_rows": n_rows_obs, "grads_rows": grads.tolist(),
+           "syncs_in_cycle": 0, "runtime_calls_in_2_cycles": runtime,
+           "run_s": run_s}
+    del tr
+    torch.cuda.empty_cache()
+    return {name: res}
+
+
+# phases 17-20, by the names `--only` takes
+NEW_PHASES = {"glider": phase_glider, "predator_prey": phase_predator_prey,
+              "multitrainer": phase_multitrainer, "logs": phase_logs}
+
+
+def main(argv=None):
+    import argparse
+    p = argparse.ArgumentParser(prog="python3 chip_smoke.py")
+    p.add_argument("--only", nargs="+", choices=sorted(NEW_PHASES),
+                   help="run the device phase and these phases only, and "
+                        "print their results instead of the kernels' "
+                        "line (for work on one path; the check is the "
+                        "run with no arguments)")
+    args = p.parse_args(argv)
     phase_device()
     import torch
+    if args.only:
+        res = {}
+        for name in args.only:
+            res.update(NEW_PHASES[name]())
+        print(json.dumps({"phases": res}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     kern = phase_kernels()
     phase_reference()
     main_res = phase_main_path()
@@ -2078,6 +2663,9 @@ def main():
     eng_k1 = phase_engine_k1()
     eng = phase_engine_main()
     eng.update(phase_engine_paths())
+    for name in ("glider", "predator_prey", "multitrainer"):
+        learners.update(NEW_PHASES[name]())
+    logs = phase_logs()["logs"]
     launches = main_res["launches"]
 
     def row(entry, mode, case):
@@ -2159,6 +2747,9 @@ def main():
                           if "modes" in v},
         "cma": {"launches": 0,
                 "ms_per_generation": cma["ms_per_generation"]},
+        "glider_env_step": learners["glider"]["env_step"],
+        "multitrainer_rolls": learners["multitrainer"]["rolls"],
+        "logs": logs,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

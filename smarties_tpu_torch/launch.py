@@ -15,6 +15,10 @@ through the Engine, which serves it in forked worker processes.
     python -m smarties_tpu_torch.launch catch --recipe RACER_atari \\
         --device cuda --nEnvironments 1024 --noCheckpoint
     python -m smarties_tpu_torch.launch pendulum --recipe ACER --device cuda
+    python -m smarties_tpu_torch.launch glider --recipe RACER_glider \\
+        --device cuda --nEnvironments 1024
+    python -m smarties_tpu_torch.launch predator_prey --device cuda \\
+        --nEnvironments 1024 --logAllSamples   # 512 envs x 2 agents
     python -m smarties_tpu_torch.launch cartpole --recipe CMA --device cuda \\
         --nEnvironments 1020 --nTrainSteps 5     # 5 generations
     python -m smarties_tpu_torch.launch apps/cart_pole_py/exec.py \\
@@ -46,9 +50,8 @@ from smarties_tpu_torch.utils.recipes import RECIPES
 # cartpole_pomdp (velocities hidden, the recurrent recipes' task) is the
 # port's own app name: the JAX launcher has the env but no name for it
 BUILTIN_ENVS = ("cartpole", "cartpole_discrete", "cartpole_pomdp",
-                "pendulum", "acrobot", "mountaincar", "catch")
-# built-in apps of the JAX launcher that the port does not have yet
-NOT_PORTED_APPS = {"glider": "B10", "predator_prey": "B10"}
+                "pendulum", "acrobot", "mountaincar", "catch", "glider",
+                "predator_prey")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -67,6 +70,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="learner shards (the port runs one)")
     p.add_argument("--randSeed", type=int, default=0)
     p.add_argument("--maxEpisodeLength", type=int, default=1024)
+    p.add_argument("--logAllSamples", action="store_true",
+                   help="write the agent_00_rank00_obs.raw stream of raw "
+                        "observations (reference --logAllSamples)")
     p.add_argument("--noCheckpoint", action="store_true",
                    help="do not write checkpoint.pt when training ends "
                         "(it holds the whole replay)")
@@ -87,17 +93,16 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def env_module(app: str):
     """The env module (or class) of a built-in app name."""
-    if app in NOT_PORTED_APPS:
-        raise NotImplementedError(
-            f"app {app!r} is not ported yet (ROADMAP {NOT_PORTED_APPS[app]})")
     if app not in BUILTIN_ENVS:
         raise ValueError(f"app {app!r} is not a built-in env: an app "
                          f"script runs through run(), on the Engine")
-    from smarties_tpu_torch.envs import acrobot, cartpole, catch, \
-        mountaincar, pendulum
-    return {"catch": catch, "cartpole": cartpole, "cartpole_discrete": cartpole.discrete,
+    from smarties_tpu_torch.envs import acrobot, cartpole, catch, glider, \
+        mountaincar, pendulum, predator_prey
+    return {"catch": catch, "cartpole": cartpole,
+            "cartpole_discrete": cartpole.discrete,
             "cartpole_pomdp": cartpole.pomdp, "pendulum": pendulum,
-            "acrobot": acrobot, "mountaincar": mountaincar}[app]
+            "acrobot": acrobot, "mountaincar": mountaincar,
+            "glider": glider, "predator_prey": predator_prey}[app]
 
 
 def load_recipe(recipe: str, seed: int) -> HyperParameters:
@@ -188,7 +193,8 @@ def make_trainer(args: argparse.Namespace):
     return Trainer(env, env.MDP, cfg, n_envs=args.nEnvironments,
                    max_len=min(args.maxEpisodeLength, env.MAX_STEPS),
                    device=args.device, run_dir=run_dir,
-                   state_dtype=torch.uint8 if args.app == "catch" else None)
+                   state_dtype=torch.uint8 if args.app == "catch" else None,
+                   obs_log=args.logAllSamples)
 
 
 def run(args: argparse.Namespace,
@@ -203,7 +209,7 @@ def run(args: argparse.Namespace,
     attaches its launch counters and timers there). Returns the Trainer
     (the CMAES for CMA). An app that is not a built-in env name is an app
     script: `run_app`, which returns the Engine."""
-    if args.app not in BUILTIN_ENVS and args.app not in NOT_PORTED_APPS:
+    if args.app not in BUILTIN_ENVS:
         return run_app(args)
     tr = make_trainer(args)
     if prepare is not None:

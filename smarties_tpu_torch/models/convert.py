@@ -32,6 +32,10 @@ into the port (and parameters back) without the JAX runtime.
 - an Engine learner's snapshot (`engine_snapshot_from_jax`): what the
   JAX package's `_LearnerBundle.snapshot()` holds, as numpy, in the
   form of the port's `_LearnerBundle.snapshot()`, for checkpoint.pt.
+- a MultiTrainer's state (`multitrainer_from_jax`): per learner the
+  params, optimiser state and replay views of the JAX MultiTrainer (the
+  fields its save() pickles), in the form of the port's
+  `MultiTrainer.state()`, which `MultiTrainer.load` takes.
 """
 from __future__ import annotations
 
@@ -218,4 +222,28 @@ def engine_snapshot_from_jax(snap_np) -> dict:
                     ("initialized", bool), ("start_env_steps", int)):
         if k in snap_np:
             out[k] = cast(snap_np[k])
+    return out
+
+
+def multitrainer_from_jax(snap_np) -> dict:
+    """A JAX MultiTrainer's state as numpy -> the port's
+    `MultiTrainer.state()` form (CPU tensors, named tuples as dicts).
+
+    snap_np: {"learners": [{"params", "opt_state", "replay" (the JAX
+    replay's field views under REPLAY_FIELDS), "n_grad_steps"}, ...],
+    "n_env_steps", "initialized"[, "start_env_steps"]}."""
+    from smarties_tpu_torch.runtime.trainer import _plain
+    learners = []
+    for ls in snap_np["learners"]:
+        rs = replay_from_jax(ls["replay"], "cpu")
+        learners.append({
+            "params": tree_map(lambda x: x.detach(),
+                               params_from_jax(ls["params"], "cpu")),
+            "opt_state": _plain(opt_state_from_jax(ls["opt_state"], "cpu")),
+            "replay": {f: getattr(rs, f) for f in rs.__dataclass_fields__},
+            "n_grad_steps": int(ls["n_grad_steps"])})
+    out = {"learners": learners, "n_env_steps": int(snap_np["n_env_steps"]),
+           "initialized": [bool(x) for x in snap_np["initialized"]]}
+    if "start_env_steps" in snap_np:
+        out["start_env_steps"] = int(snap_np["start_env_steps"])
     return out

@@ -82,13 +82,20 @@ class RolloutCarry(NamedTuple):
 
 
 def make_rollout_chunk(env_module, mdp, act_fn: Callable, max_tot_obs: int,
-                       filter_algo: str = "oldest"):
+                       filter_algo: str = "oldest", record_obs: bool = False):
     """Build `rollout_chunk(params, carry, n_steps) -> (carry, logs)`.
 
     act_fn(params, obs_std, gen, rnn) -> (learner_action [V, dimA],
     mu [V, dimPol], value [V], adv [V], rnn) is the learner's acting head.
     logs: (done [k, V], length [k, V], ret [k, V]) for the host-side
-    cumulative_rewards.dat writer (MemoryBuffer.cpp:491-513)."""
+    cumulative_rewards.dat writer (MemoryBuffer.cpp:491-513).
+
+    record_obs: the logs also carry the raw observations of the
+    agent_*_obs.raw stream (Agent::writeData, Agent.h:259-299):
+    (obs [k, V, dimS], rew_in [k, V], status [k, V], obs_fin [k, V, dimS],
+    rew_fin [k, V], status_fin [k, V]); a *_fin entry is valid only for a
+    lane that finished at that step (status_fin 2 terminal, 3 truncated,
+    else 0)."""
 
     def one_step(params, carry: RolloutCarry):
         rs, ip, es, gens, rnn = carry
@@ -142,6 +149,16 @@ def make_rollout_chunk(env_module, mdp, act_fn: Callable, max_tot_obs: int,
             terminal, done, max_tot_obs, filter_algo)
 
         log = (done, ip.t, ip.cum_reward)
+        if record_obs:
+            # the row of the state served this step (the reward carried
+            # into it; rewards[0] == 0) and, for lanes that finished, a
+            # row of the final state
+            rew_in = ip.rewards[tcur, lane]
+            status = (tcur > 0).to(F32)
+            status_fin = torch.where(done, torch.where(terminal, 2.0, 3.0),
+                                     0.0)
+            log = log + (obs.to(F32), rew_in, status, obs2.to(F32),
+                         reward.to(F32), status_fin)
         ip = _reset_lanes(ip, done)
         es2 = env_module.reset_where(es2, done, gens.reset)
         rnn = tree_map(lambda h: torch.where(

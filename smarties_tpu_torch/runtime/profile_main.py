@@ -30,8 +30,9 @@ profiles one grad step and one env sweep of each named path of
 chip_smoke.py instead (`PATHS`: the learners through the launcher's
 recipes at their published widths, PPO with 64 envs on a filled horizon,
 the recurrent recipes on cartpole_pomdp, ACER on pendulum with its
-200-step episode windows and RACER-ES (VRACER_CMA, a population of 60)
-on cartpole) with the same columns: the three times per call, then the
+200-step episode windows, RACER-ES (VRACER_CMA, a population of 60)
+on cartpole, RACER_glider on the glider and VRACER on predator-prey's
+1024 lanes) with the same columns: the three times per call, then the
 profiled wall, device busy time, busy share, kernel launches and device
 kernels per call. The step's minibatch is drawn once, as the trainer
 draws it (ACER: its episode and window-start draw).
@@ -151,6 +152,8 @@ PATHS = {
                              1024, 4096),
     "ACER": ("pendulum", "ACER", 1024, None, None),
     "VRACER_CMA": ("cartpole", "VRACER_CMA", 1024, None, None),
+    "RACER_glider": ("glider", "RACER_glider", 1024, None, None),
+    "VRACER_predator_prey": ("predator_prey", "VRACER", 1024, None, None),
 }
 
 

@@ -25,11 +25,17 @@ minibatch draws; parameters are initialised from a CPU generator so
 that they do not depend on the device. All three derive from
 cfg.randSeed.
 
-Left out of the JAX trainer: the device mesh, the TPU-worker crash
-retry of train_fused, SMT_PACK_STATES, the phase profiler, and the raw
-observation and gradient-moment dumps. On a CUDA device a host timer
-around a phase measures only its enqueue; time with CUDA events or
-torch.profiler instead.
+Logs as the JAX trainer writes them into a run directory:
+agent_00_rank00_cumulative_rewards.dat, with obs_log the raw observation
+stream agent_00_rank00_obs.raw (f32 rows [lane, status, state...,
+reward]), and at each log_status the gradient moments grads_rank00.raw
+(f32 rows [grad_step, grad_norm, grad_max]). log_status(full=True) adds
+the replay's stats table, the importance-weight histogram and the phase
+profiler's table (utils/profiler.py: ROLL, TRAIN, REFRESH and HOST timed
+by CUDA events on the card, read only there).
+
+Left out of the JAX trainer: the device mesh (ROADMAP B12), the
+TPU-worker crash retry of train_fused and SMT_PACK_STATES.
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ from smarties_tpu_torch.replay.collector import (InProgress, RolloutCarry,
                                                  init_inprogress,
                                                  make_rollout_chunk)
 from smarties_tpu_torch.utils.config import HyperParameters
+from smarties_tpu_torch.utils.profiler import Profiler
 
 
 def _seeds(seed: int, n: int):
@@ -134,11 +141,13 @@ class Trainer:
     def __init__(self, env_module, mdp: MDPSpec, cfg: HyperParameters,
                  n_envs: int = 64, n_slots: Optional[int] = None,
                  max_len: int = 512, *, device, run_dir: Optional[str] = None,
-                 algo_cls=None, state_dtype=None):
+                 algo_cls=None, state_dtype=None, obs_log: bool = False):
         """device: where every tensor lives ("cuda", "cuda:1", "cpu"). It
         is required: nothing picks the CPU when a card is missing.
         state_dtype: storage type of the raw states in the replay and the
-        in-progress episodes (default f32; torch.uint8 for pixels)."""
+        in-progress episodes (default f32; torch.uint8 for pixels).
+        obs_log: write the raw observation stream into run_dir (the
+        launcher's --logAllSamples)."""
         # the learner first: one the port lacks is reported before any
         # settings check
         if algo_cls is None:
@@ -164,11 +173,20 @@ class Trainer:
         if n_envs > n_slots:
             raise ValueError(f"n_envs {n_envs} > n_slots {n_slots}")
         self.run_dir = run_dir
-        self._rew_file = None
+        self._rew_file = self._obs_file = self._grads_file = None
+        self.obs_log = obs_log and run_dir is not None
         if run_dir:
             os.makedirs(run_dir, exist_ok=True)
             self._rew_file = open(os.path.join(
                 run_dir, "agent_00_rank00_cumulative_rewards.dat"), "a")
+            # the raw observation stream and the gradient-moment dump, in
+            # the formats of the Engine and the plot scripts (Agent::
+            # writeData, StatsTracker's grads_*.raw)
+            if self.obs_log:
+                self._obs_file = open(os.path.join(
+                    run_dir, "agent_00_rank00_obs.raw"), "ab")
+            self._grads_file = open(os.path.join(
+                run_dir, "grads_rank00.raw"), "ab")
 
         s_init, s_env, s_act, s_batch = _seeds(cfg.randSeed, 4)
         self.params, self.opt_state = self.algo.init(
@@ -199,13 +217,16 @@ class Trainer:
         self.on_policy = self.algo.on_policy
         commit_cap = cfg.maxTotObsNum * (4 if self.on_policy else 1)
         self._rollout = make_rollout_chunk(
-            env_module, mdp, act_fn, commit_cap, cfg.ERoldSeqFilter)
+            env_module, mdp, act_fn, commit_cap, cfg.ERoldSeqFilter,
+            record_obs=self.obs_log)
         mode = self.algo.returns_mode
         # the three return-sweep callables (K1 runs inside each)
         self._fix_returns = lambda r: rb.refresh_new_returns(
             r, cfg.gamma, cfg.lambda_, mode)
         self._refresh = self.algo.refresh
         self._init_stats = self.algo.initialize_stats
+        # phase profiler (Utils/Profiler; ROLL / TRAIN / REFRESH / HOST)
+        self.profiler = Profiler(self.device)
 
         self.n_env_steps = 0          # nSeenTransitions_loc
         self.n_grad_steps = 0
@@ -241,10 +262,12 @@ class Trainer:
         return ()
 
     def _roll(self, n_steps: int):
-        self.carry, logs = self._rollout(self.params, self.carry, n_steps)
-        # at-ingest Retrace for the episodes committed in the chunk
-        self.carry = self.carry._replace(
-            replay=self._fix_returns(self.carry.replay))
+        with self.profiler("ROLL"):
+            self.carry, logs = self._rollout(self.params, self.carry,
+                                             n_steps)
+            # at-ingest Retrace for the episodes committed in the chunk
+            self.carry = self.carry._replace(
+                replay=self._fix_returns(self.carry.replay))
         self.n_env_steps += n_steps * self.n_envs
         # deferred transfer; counters captured now so the rows keep the
         # grad/env-step columns of their episodes (MemoryBuffer.cpp:491)
@@ -255,13 +278,18 @@ class Trainer:
 
     def _flush_logs(self):
         pending, self._pending_logs = self._pending_logs, []
-        for logs, g, e in pending:
-            self._log_episodes(logs, g, e)
+        if not pending:
+            return
+        with self.profiler("HOST"):
+            for logs, g, e in pending:
+                self._log_episodes(logs, g, e)
 
     def _log_episodes(self, logs, g=None, e=None):
         g = self.n_grad_steps if g is None else g
         e = self.n_env_steps if e is None else e
         done, length, ret = (x.cpu().numpy() for x in logs[:3])
+        if self._obs_file is not None and len(logs) > 3:
+            self._write_obs_rows(logs[3:])
         if not done.any():
             return
         agent = np.nonzero(done)[1]
@@ -273,6 +301,28 @@ class Trainer:
                 self._rew_file.write(f"{g} {e} {a} {l} {r}\n")
         if len(self._ep_returns) > 1000:
             self._ep_returns = self._ep_returns[-1000:]
+
+    def _write_obs_rows(self, rec):
+        """Append f32 rows [lane, status, state..., reward] in env-step
+        order, each step's final rows after its served rows: the
+        agent_*_obs.raw format of the Engine (Agent.h:259-299)."""
+        obs, rew_in, status, obs_f, rew_f, status_f = (
+            np.asarray(x.cpu().numpy(), np.float32) for x in rec)
+        k, V = status.shape
+        lane = np.broadcast_to(np.arange(V, dtype=np.float32), (k, V))
+        row = np.concatenate(  # [k, V, 2 + dimS + 1]
+            [lane[..., None], status[..., None], obs, rew_in[..., None]],
+            axis=-1)
+        row_f = np.concatenate(
+            [lane[..., None], status_f[..., None], obs_f,
+             rew_f[..., None]], axis=-1)
+        out = []
+        for i in range(k):
+            out.append(row[i])
+            fin = status_f[i] > 0
+            if fin.any():
+                out.append(row_f[i][fin])
+        self._obs_file.write(np.concatenate(out).tobytes())
 
     # ------------------------------------------------------------------
     def warmup(self, chunk: int = 64, adaptive: bool = True,
@@ -342,10 +392,13 @@ class Trainer:
         the JAX package's fused program as one host call. The ingest
         sweep runs K1 here too (the JAX package could not co-compile its
         kernel with lax.scan and used an associative scan instead)."""
-        self.carry, logs = self._rollout(self.params, self.carry, n_roll)
-        self.carry = self.carry._replace(
-            replay=self._fix_returns(self.carry.replay))
-        return self._train_chunk(n_train), logs
+        with self.profiler("ROLL"):
+            self.carry, logs = self._rollout(self.params, self.carry,
+                                             n_roll)
+            self.carry = self.carry._replace(
+                replay=self._fix_returns(self.carry.replay))
+        with self.profiler("TRAIN"):
+            return self._train_chunk(n_train), logs
 
     def train_fused(self, n_grad_steps: int, log_every: int = 1000,
                     max_wall_s: float = float("inf"), flush: bool = True):
@@ -377,9 +430,10 @@ class Trainer:
                 self._check_nan()
             if self.n_grad_steps // 1000 > self._last_refresh // 1000:
                 self._last_refresh = self.n_grad_steps
-                self.carry = self.carry._replace(
-                    replay=self._refresh(self.carry.replay,
-                                         float(self.n_grad_steps)))
+                with self.profiler("REFRESH"):
+                    self.carry = self.carry._replace(
+                        replay=self._refresh(self.carry.replay,
+                                             float(self.n_grad_steps)))
             if (self.n_grad_steps - self._last_log) >= log_every:
                 self._last_log = self.n_grad_steps
                 self.log_status()
@@ -407,15 +461,17 @@ class Trainer:
             allowed = min(allowed, target - self.n_grad_steps)
             n_tr = Q if allowed >= Q else max(0, allowed)
             if n_tr > 0:
-                self._last_metrics = self._train_chunk(n_tr)
+                with self.profiler("TRAIN"):
+                    self._last_metrics = self._train_chunk(n_tr)
                 self.n_grad_steps += n_tr
                 if self.cfg.debugNaN:
                     self._check_nan()
             if self.n_grad_steps // 1000 > self._last_refresh // 1000:
                 self._last_refresh = self.n_grad_steps
-                self.carry = self.carry._replace(
-                    replay=self._refresh(self.carry.replay,
-                                         float(self.n_grad_steps)))
+                with self.profiler("REFRESH"):
+                    self.carry = self.carry._replace(
+                        replay=self._refresh(self.carry.replay,
+                                             float(self.n_grad_steps)))
             if not self.block_data():
                 roll_n = max(1, min(64, int(np.ceil(
                     Q * self.cfg.obsPerStep / self.n_envs))))
@@ -485,7 +541,10 @@ class Trainer:
                     f"non-finite training metric '{k}' at grad step "
                     f"{self.n_grad_steps} — training diverged")
 
-    def log_status(self):
+    def log_status(self, full: bool = False):
+        """The status line; the gradient moments into grads_rank00.raw;
+        with `full` the stats table, the importance-weight histogram and
+        the profiler's table. Reads the device: a log-time call only."""
         self._flush_logs()
         self._check_nan()
         rs = self.replay
@@ -498,6 +557,20 @@ class Trainer:
               f" | dkl {get('avg_dkl'):.4f} | rmse {get('rmse'):.3f}"
               f" | nEp {int(rs.n_stored_eps())}"
               f" | nObs {int(rs.n_stored_steps())}", flush=True)
+        if self._grads_file is not None and "grad_norm" in m:
+            # f32 rows [grad_step, grad_norm, grad_max]
+            self._grads_file.write(np.asarray(
+                [self.n_grad_steps, get("grad_norm"), get("grad_max")],
+                np.float32).tobytes())
+            self._grads_file.flush()
+        if full:
+            from smarties_tpu_torch.utils.stats import (iw_histogram,
+                                                        stats_header,
+                                                        stats_row)
+            print(stats_header())
+            print(stats_row(rs, self.n_grad_steps))
+            print(iw_histogram(rs))
+            print("profiler:\n" + self.profiler.table(), flush=True)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -547,8 +620,9 @@ class Trainer:
         flush cumulative_rewards.dat. Loadable with weights_only=True:
         named tuples are stored as plain dicts and lists."""
         self._flush_logs()
-        if self._rew_file:
-            self._rew_file.flush()
+        for f in (self._rew_file, self._obs_file, self._grads_file):
+            if f is not None:
+                f.flush()
         ip = self.carry.inprog
         state = {
             "params": tree_map(lambda x: x.detach(), self.params),

@@ -46,16 +46,19 @@ def test_port_imports_no_jax():
     for sub in ("core.mdp", "ops.returns", "ops.retrace_kernel",
                 "ops.continuous_policy", "ops.discrete_policy",
                 "ops.advantages", "envs.cartpole", "envs.pendulum",
-                "envs.acrobot", "envs.mountaincar", "envs.catch", "models.net",
+                "envs.acrobot", "envs.mountaincar", "envs.catch",
+                "envs.glider", "envs.predator_prey", "models.net",
                 "models.optim", "models.convert", "replay.buffer",
-                "replay.collector", "algos.base", "algos.vracer",
+                "replay.collector", "replay.multi_collector", "algos.base",
+                "algos.vracer",
                 "algos.dqn", "algos.naf", "algos.dpg", "algos.mixedpg",
                 "algos.ppo", "algos.acer", "algos.cma", "algos.racer_es",
-                "algos.registry", "runtime.trainer", "runtime.profile_main",
+                "algos.registry", "runtime.trainer", "runtime.multitrainer",
+                "runtime.profile_main",
                 "runtime.bench_retrace", "runtime.engine",
                 "runtime.env_pool", "runtime.socket_pool",
                 "runtime.communicator", "runtime.team", "utils.config",
-                "utils.recipes", "launch"):
+                "utils.recipes", "utils.stats", "utils.profiler", "launch"):
         assert "smarties_tpu_torch." + sub in res["submodules"], sub
     assert res["lazy"] == ["Communicator", "Engine", "HyperParameters",
                            "MDPSpec"]

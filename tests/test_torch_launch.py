@@ -23,6 +23,8 @@ through the launcher and writes no checkpoint, as the JAX launcher does.
 Every recipe of utils/recipes.py builds, at its published widths, the
 learner the JAX registry builds for it (CMA: the CMAES). Unsupported
 apps and options raise NotImplementedError naming their ROADMAP item.
+The glider (RACER_glider) and predator-prey (VRACER, both agents' lanes
+feeding one learner) run through the launcher as the other apps do.
 """
 import json
 
@@ -89,12 +91,17 @@ CASES = [
     ("cartpole", "VRACER_CMA", dict(ESpopSize=4), "RacerES"),
     ("cartpole", "RACER", dict(ESpopSize=4), "RacerES"),
     ("cartpole_discrete", "RACER", dict(ESpopSize=4), "RacerES"),
+    # the glider (64-step episodes here: the launcher's cap) and
+    # predator-prey's 8 lanes of 4 envs x 2 agents, one shared learner
+    ("glider", "RACER_glider", {}, "Racer"),
+    ("predator_prey", "VRACER", {}, "VRacer"),
 ]
 
 
 def _case_id(app, recipe, extra, cls):
     tags = (extra.get("nnType"), "std" if extra.get("ppoStandard") else None,
-            recipe if "pomdp" in app or cls == "RacerES" else None,
+            recipe if "pomdp" in app or cls == "RacerES" or app == "glider"
+            else None,
             extra.get("dataSamplingAlgo"))
     return "-".join([app, cls] + [t for t in tags if t])
 
@@ -161,8 +168,6 @@ def test_launch_builtin(tmp_path, app, recipe, extra, cls):
 
 
 @pytest.mark.parametrize("app,recipe,extra,item", [
-    ("glider", "VRACER", (), "B10"),
-    ("predator_prey", "VRACER", (), "B10"),
     ("catch", "VRACER", ("--nLearners", "2"), "B12"),
     ("apps/cart_pole_py/exec.py", "VRACER", ("--nLearners", "2"), "B12"),
     ("cartpole", "VRACER", ("--nLearners", "2"), "B12"),
