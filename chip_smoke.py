@@ -163,8 +163,22 @@ Phases, each reported on its own line:
    flagged) and two under torch.profiler (no synchronising CUDA call
    but the profiler's own), while the profiler's CUDA events wait
    unread until its table.
-`--only NAME ...` runs the device phase and the named phases of 17-20
-alone (glider, predator_prey, multitrainer, logs).
+21. multichip: the learner mesh (parallel/mesh.py). K1's sweep at a
+   rank's [2048, 501] against its plain version (bit-equal) and timed
+   on a cold L2 beside its bytes' bound; the launcher refuses more NCCL
+   ranks than cards; then 2 learner ranks spawned on cuda:0 with gloo
+   (the host has one card): the main path's V-RACER trainer split in two
+   (1024 envs and 4096 x 501 slots in total), warmup and train(1000),
+   one refresh with its rebalance. Checks each rank's K1 launches, one
+   per call of each site; parameters, Adam state, beta, alpha and the
+   statistics torch.equal across ranks on the card; one pinned step of
+   the mesh against one single-process step on the card with the same
+   global batch (rtol 2e-5 / atol 2e-6). Prints ms per grad step by
+   CUDA events beside the single-rank step's, the collectives per step
+   (each a gloo host round trip) and one all-reduce's cost. NCCL is not
+   measured: one card.
+`--only NAME ...` runs the device phase and the named phases of 17-21
+alone (glider, predator_prey, multitrainer, logs, multichip).
 Then one JSON line with the kernels' results and, last, the device line.
 
 The script imports no JAX and nothing of the JAX package. Any failed
@@ -264,6 +278,12 @@ GLIDER_ENVS, GLIDER_EVAL_STEPS, GLIDER_MIN_OBS = 1024, 4, 65536
 PP_LANES, MT_ENVS, MT_STEPS = 1024, 512, 1024
 # the logs phase: a short cart-pole run
 LOGS_ENVS, LOGS_STEPS = 64, 300
+# the multichip phase: learner ranks on the one card, the main path's
+# lanes and slots in total, grad steps (one refresh), a collective's
+# timeout, the pinned step's tolerance (tests/test_multichip.py's 1 vs 4
+# devices) and the single-rank steps timed beside it
+MC_RANKS, MC_ENVS, MC_SLOTS, MC_STEPS = 2, 1024, 4096, 1000
+MC_TIMEOUT_S, MC_RTOL, MC_ATOL, MC_SINGLE_STEPS = 300.0, 2e-5, 2e-6, 50
 
 
 def phase_device():
@@ -2623,9 +2643,327 @@ def phase_logs():
     return {name: res}
 
 
-# phases 17-20, by the names `--only` takes
+def _mc_config():
+    """The main path's settings (recipe VRACER at its published widths:
+    [128, 128] SoftSign, batch 256, obsPerStep 1; minTotObsNum 16384)."""
+    from smarties_tpu_torch.utils.config import HyperParameters
+    return HyperParameters(minTotObsNum=16384, maxTotObsNum=262144,
+                           batchSize=256, obsPerStep=1.0,
+                           nnLayerSizes=[128, 128], randSeed=0)
+
+
+def _mc_replicated(tr):
+    """One flat f32 vector of what every rank must hold the same: the
+    parameters, the Adam state, beta, alpha and the state and reward
+    statistics."""
+    import torch
+    from smarties_tpu_torch.runtime.trainer import _plain
+    rs = tr.replay
+    parts = [x for _, x in _leaves(tr.params)]
+    parts += [x for _, x in _leaves(_plain(tr.opt_state))]
+    parts += [rs.beta, rs.alpha, rs.state_mean, rs.state_std, rs.rew_mean,
+              rs.rew_std]
+    return torch.cat([x.detach().float().reshape(-1) for x in parts])
+
+
+def _mc_rank(rank, store, out_dir):
+    """One learner rank of the multichip phase (a spawned process): the
+    sharded Trainer on the card through gloo, warmup and train(MC_STEPS)
+    with K1 counted per site and the grad steps timed, the replicated
+    state compared across ranks on the card, then one pinned step whose
+    inputs and result go to out_dir for the parent's single-process
+    step."""
+    import torch
+    import torch.distributed as dist
+    from smarties_tpu_torch.algos.base import presample_uniform
+    from smarties_tpu_torch.envs import cartpole
+    from smarties_tpu_torch.models.net import tree_map
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+    from smarties_tpu_torch.parallel import mesh as pm
+    from smarties_tpu_torch.parallel.multihost import init_multihost
+    from smarties_tpu_torch.runtime.trainer import Trainer, _plain
+
+    init_multihost(store, MC_RANKS, rank, backend="gloo",
+                   timeout_s=MC_TIMEOUT_S)
+    try:
+        mesh = pm.make_mesh("cuda:0")
+        cfg = _mc_config()
+        tr = Trainer(cartpole, cartpole.MDP, cfg, n_envs=MC_ENVS,
+                     n_slots=MC_SLOTS, max_len=cartpole.MAX_STEPS,
+                     device=mesh.device, mesh=mesh)
+        tr.log_flush_threshold = 10 ** 9
+        assert tr.replay.rewards.shape == (MC_SLOTS // MC_RANKS, MAIN_L1)
+        sites = SiteCounter(tr, rk)
+        hooks = {"ms": 0.0, "steps": 0, "collectives": 0}
+        chunk = tr._train_chunk
+
+        def timed_chunk(n):
+            c0 = sum(mesh.counts.values())
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = chunk(n)
+            e1.record()
+            e1.synchronize()
+            hooks["ms"] += e0.elapsed_time(e1)
+            hooks["steps"] += n
+            hooks["collectives"] += sum(mesh.counts.values()) - c0
+            return out
+        tr._train_chunk = timed_chunk
+
+        # the counts start at 0 here: warmup and train(MC_STEPS) are the
+        # path's run
+        rk.reset_launches()
+        mesh.counts.clear()
+        t0 = time.perf_counter()
+        tr.warmup()
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tr.train(MC_STEPS, log_every=10 ** 9)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts, by_kind = dict(rk.launches), dict(mesh.counts)
+        sites.check_one_launch_per_call(
+            counts, ("ingest", "initialize_stats", "refresh"),
+            f"multichip rank {rank}")
+        assert sites.calls["initialize_stats"] == 1, sites.calls
+        assert sites.calls["refresh"] == MC_STEPS // 1000, sites.calls
+        stored, n_eps = tr._global_counts(tr.replay.n_stored_steps(),
+                                          tr.replay.n_stored_eps())
+        mine = _mc_replicated(tr)
+        others = pm.all_gather(mesh, mine)
+        assert all(torch.equal(x, mine) for x in others), \
+            f"rank {rank}: the replicated state differs across ranks"
+        assert torch.isfinite(mine).all(), f"rank {rank}: non-finite state"
+
+        # one pinned step: its inputs for the parent's single-process step
+        ep, t = presample_uniform(tr.gen_batch, tr.replay,
+                                  cfg.batchSize // MC_RANKS, 1)
+        rs = tr.replay
+        cpu = lambda tree: tree_map(lambda x: x.detach().cpu(), _plain(tree))
+        before = {"params": cpu(tr.params), "opt": cpu(tr.opt_state),
+                  "replay": {f: getattr(rs, f).cpu()
+                             for f in rs.__dataclass_fields__},
+                  "ep": ep[0].cpu(), "t": t[0].cpu()}
+        c0 = dict(mesh.counts)
+        tr.params, tr.opt_state, _, _ = tr.algo.train_step(
+            tr.params, tr.opt_state, rs, sample_override=(ep[0], t[0]),
+            mesh=mesh)
+        step_coll = {k: n - c0.get(k, 0) for k, n in mesh.counts.items()
+                     if n > c0.get(k, 0)}
+        mine = _mc_replicated(tr)
+        assert all(torch.equal(x, mine) for x in pm.all_gather(mesh, mine)), \
+            f"rank {rank}: the pinned step diverged across ranks"
+
+        # what one gloo collective costs on CUDA tensors (each copies
+        # through the host and synchronises): the gradient's flat buffer
+        # and a 2-element count
+        n_par = sum(p.numel() for _, p in _leaves(tr.params))
+        cost = {}
+        for what, n in (("grad_buffer", n_par), ("counts", 2)):
+            x = torch.zeros(n, device=mesh.device)
+            pm.psum_(mesh, x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                pm.psum_(mesh, x)
+            torch.cuda.synchronize()
+            cost[what] = (time.perf_counter() - t0) / 50 * 1e3
+        torch.save({"rank": rank, "before": before,
+                    "after": {"params": cpu(tr.params),
+                              "opt": cpu(tr.opt_state)},
+                    "launches": counts, "sites": dict(sites.sites),
+                    "calls": dict(sites.calls),
+                    "collectives_by_kind": by_kind,
+                    "step_collectives": sum(step_coll.values()),
+                    "step_collectives_by_kind": step_coll,
+                    "chunk_ms": hooks["ms"], "chunk_steps": hooks["steps"],
+                    "chunk_collectives": hooks["collectives"],
+                    "warmup_s": warmup_s, "train_s": train_s,
+                    "grad_steps": tr.n_grad_steps,
+                    "env_steps": tr.n_env_steps, "global_stored": stored,
+                    "global_eps": n_eps, "n_params": n_par,
+                    "collective_ms": cost},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_multichip():
+    """The learner mesh on the card: MC_RANKS gloo ranks on cuda:0
+    (the host has one card, and NCCL takes one rank per card), spawned
+    with torch.multiprocessing and joined through a file store under
+    build/. The main path at full width: V-RACER on cart-pole, 1024 envs
+    and 4096 x 501 slots in total ([2048, 501] per rank), batch 256 (128
+    per rank). K1 against its plain version at [2048, 501] first, in the
+    parent; then the ranks' warmup and train(MC_STEPS), which takes in
+    one refresh with its rebalance; then one pinned step of the mesh
+    against one single-process step on the card with the same global
+    batch. A rank that dies, times out (MC_TIMEOUT_S per collective) or
+    diverges fails the phase: mp.spawn raises."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from smarties_tpu_torch.algos.base import presample_uniform
+    from smarties_tpu_torch.envs import cartpole
+    from smarties_tpu_torch.models.convert import gather_replay
+    from smarties_tpu_torch.models.net import tree_map
+    from smarties_tpu_torch import launch
+    from smarties_tpu_torch.algos.vracer import VRacer
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+    from smarties_tpu_torch.replay import buffer as rb
+    from smarties_tpu_torch.runtime import bench_retrace as bench
+    from smarties_tpu_torch.runtime.trainer import _restructure
+
+    name = "multichip"
+    dev = torch.device("cuda")
+    E = MC_SLOTS // MC_RANKS
+    # the launcher refuses more NCCL ranks than cards before any starts
+    n_cards = torch.cuda.device_count()
+    args = launch.parse_args([
+        "cartpole", "--device", "cuda", "--nLearners", str(n_cards + 1),
+        "--nEnvironments", str(8 * (n_cards + 1)), "--runprefix",
+        os.path.join(ROOT, "build", "chip_smoke_runs")])
+    try:
+        launch.run(args)
+        raise AssertionError(f"{name}: {n_cards + 1} NCCL ranks on "
+                             f"{n_cards} card(s) did not raise")
+    except ValueError as e:
+        assert "one rank per card" in str(e), e
+    rk.library()      # built here once; the ranks load it
+    rng = np.random.RandomState(0)
+    err = {"retrace_sweep": 0.0}
+
+    def check(kname, got, want, what, exact):
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), \
+            f"{name}: {kname} {what} not bit-equal to the plain version"
+        err[kname] = max(err[kname], float((got - want).abs().max())
+                         if got.numel() else 0.0)
+    _check_sweep(rng, E, MAIN_L1, dev, check)
+    k1 = bench.measure_sweep_at(dev, E, MAIN_L1, "retrace")
+    print(f"{name}: K1 retrace_sweep at a rank's [{E}, {MAIN_L1}]: "
+          f"bit-equal to the plain version in 12 cases | kernel "
+          f"{k1['ms']:.4f} ms (cold L2) | plain torch version "
+          f"{k1['plain_ms']:.4f} ms | {k1['bytes']} B, bound "
+          f"{k1['bound_ms'] * 1e3:.2f} us, share of bound "
+          f"{k1['share_of_bound']:.3f}", flush=True)
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="multichip_", dir=build)
+    try:
+        t0 = time.perf_counter()
+        mp.spawn(_mc_rank, args=("file://" + os.path.join(tmp, "store"),
+                                 tmp), nprocs=MC_RANKS, join=True)
+        ranks_s = time.perf_counter() - t0
+        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=True) for r in range(MC_RANKS)]
+    finally:
+        shutil.rmtree(tmp)
+
+    # the same global batch in one process, on the card
+    cfg = _mc_config()
+    algo = VRacer(cartpole.MDP, cfg)
+    params0, opt0 = algo.init(torch.Generator().manual_seed(0), dev)
+    b = outs[0]["before"]
+    params = tree_map(lambda x: x.to(dev).requires_grad_(True), b["params"])
+    opt = _restructure(opt0, tree_map(lambda x: x.to(dev), b["opt"]))
+    full = gather_replay([rb.ReplayState(**{
+        f: x.to(dev) for f, x in o["before"]["replay"].items()})
+        for o in outs])
+    ep = torch.cat([o["before"]["ep"] + r * E
+                    for r, o in enumerate(outs)]).to(dev)
+    t = torch.cat([o["before"]["t"] for o in outs]).to(dev)
+    p1, o1, _, _ = algo.train_step(params, opt, full,
+                                   sample_override=(ep, t))
+    worst = 0.0
+    got = dict(_leaves(outs[0]["after"]["params"]))
+    for k, want in _leaves(p1):
+        g = got[k].to(dev)
+        torch.testing.assert_close(g, want.detach(), rtol=MC_RTOL,
+                                   atol=MC_ATOL,
+                                   msg=lambda m: f"{name}: param {k}: {m}")
+        worst = max(worst, float((g - want.detach()).abs().max()))
+    for moment in ("m1", "m2"):
+        got = dict(_leaves(outs[0]["after"]["opt"][moment]))
+        for k, y in _leaves(getattr(o1, moment)):
+            torch.testing.assert_close(
+                got[k].to(dev), y, rtol=1e-3, atol=1e-9,
+                msg=lambda m: f"{name}: Adam {moment} {k}: {m}")
+    # the single-rank grad step at the same width, batch and replay
+    pre = presample_uniform(torch.Generator(device=dev).manual_seed(1),
+                            full, cfg.batchSize, MC_SINGLE_STEPS)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for i in range(MC_SINGLE_STEPS):
+        p1, o1, full, _ = algo.train_step(p1, o1, full, sample_override=(
+            pre[0][i], pre[1][i]))
+    e1.record()
+    e1.synchronize()
+    single_ms = e0.elapsed_time(e1) / MC_SINGLE_STEPS
+
+    launches = [o["launches"]["retrace_sweep"] for o in outs]
+    ms_step = [o["chunk_ms"] / o["chunk_steps"] for o in outs]
+    per_step = outs[0]["step_collectives"]
+    o0 = outs[0]
+    assert all(o["grad_steps"] == o0["grad_steps"] >= MC_STEPS
+               and o["global_stored"] == o0["global_stored"] for o in outs)
+    print(f"{name}: {MC_RANKS} gloo ranks on cuda:0, V-RACER cart-pole "
+          f"{MC_ENVS} envs ({MC_ENVS // MC_RANKS} a rank), {MC_SLOTS} x "
+          f"{MAIN_L1} slots ([{E}, {MAIN_L1}] a rank), batch "
+          f"{cfg.batchSize} ({cfg.batchSize // MC_RANKS} a rank): warmup "
+          f"{[round(o['warmup_s'], 2) for o in outs]} s, train({MC_STEPS}) "
+          f"{[round(o['train_s'], 2) for o in outs]} s, ranks' processes "
+          f"{ranks_s:.2f} s | {o0['grad_steps']} grad steps, "
+          f"{o0['env_steps']} env steps, global stored steps "
+          f"{o0['global_stored']} in {o0['global_eps']} episodes | params, "
+          f"Adam state, beta, alpha and statistics equal across ranks "
+          f"(torch.equal on the card)", flush=True)
+    print(f"{name}: K1 sweep launches by rank {launches}, by site "
+          f"{[o['sites'] for o in outs]} for calls "
+          f"{[o['calls'] for o in outs]}, one per call", flush=True)
+    print(f"{name}: ms per grad step by CUDA events in train's chunks "
+          f"{[round(x, 4) for x in ms_step]} (ranks) | single-rank step at "
+          f"the same width and batch on the gathered replay "
+          f"{single_ms:.4f} ms | collectives per grad step {per_step} "
+          f"({o0['step_collectives_by_kind']}), all {per_step} gloo host "
+          f"round trips (gloo on CUDA tensors) | in train's chunks "
+          f"{o0['chunk_collectives']} for {o0['chunk_steps']} steps | all "
+          f"collectives of the run {o0['collectives_by_kind']} | one gloo "
+          f"all-reduce: {o0['n_params']}-float gradient buffer "
+          f"{o0['collective_ms']['grad_buffer']:.4f} ms, 2 counts "
+          f"{o0['collective_ms']['counts']:.4f} ms (host clock) | NCCL "
+          f"not measured (one card)", flush=True)
+    print(f"{name}: pinned step of the mesh vs one single-process step "
+          f"with the same global batch of {cfg.batchSize}: max |diff| of "
+          f"params {worst:.3e} (rtol {MC_RTOL}, atol {MC_ATOL})",
+          flush=True)
+    torch.cuda.empty_cache()
+    return {name: {"sites": {f"rank{r}": o["sites"]
+                             for r, o in enumerate(outs)},
+                   "launches": sum(launches),
+                   "launches_by_rank": launches, "k1": k1,
+                   "k1_max_abs_err": err["retrace_sweep"],
+                   "ms_per_grad_step": ms_step,
+                   "single_rank_ms_per_grad_step": single_ms,
+                   "collectives_per_grad_step": per_step,
+                   "gloo_round_trips_per_grad_step": per_step,
+                   "collectives_by_kind": o0["collectives_by_kind"],
+                   "collective_ms": o0["collective_ms"],
+                   "pinned_step_max_abs_diff": worst,
+                   "ranks_s": ranks_s}}
+
+
+# phases 17-21, by the names `--only` takes
 NEW_PHASES = {"glider": phase_glider, "predator_prey": phase_predator_prey,
-              "multitrainer": phase_multitrainer, "logs": phase_logs}
+              "multitrainer": phase_multitrainer, "logs": phase_logs,
+              "multichip": phase_multichip}
 
 
 def main(argv=None):
@@ -2666,6 +3004,8 @@ def main(argv=None):
     for name in ("glider", "predator_prey", "multitrainer"):
         learners.update(NEW_PHASES[name]())
     logs = phase_logs()["logs"]
+    learners.update(phase_multichip())
+    kern["path_rows"]["multichip"] = learners["multichip"]["k1"]
     launches = main_res["launches"]
 
     def row(entry, mode, case):

@@ -41,8 +41,9 @@ import torch
 
 from smarties_tpu_torch.algos.base import (Learner, backprop, check_ported,
                                            default_metrics, grad_stats,
-                                           post_step_processing,
-                                           returns_mode_of, target_copy)
+                                           local_batch, post_step_processing,
+                                           psum_grads_, returns_mode_of,
+                                           target_copy)
 from smarties_tpu_torch.core.mdp import MDPSpec
 from smarties_tpu_torch.models.net import NetSpec, apply_net, init_params
 from smarties_tpu_torch.models.optim import (AdamConfig, AdamState,
@@ -75,6 +76,11 @@ def window_coeffs(r_scaled, v, q_theta, c, nsteps, q_boot, gamma: float):
 
 
 class ACER(Learner):
+    # draws are hoisted through presample_fn on one rank; under a mesh
+    # each step draws its own, as in the JAX package (whose sharded chunk
+    # checks `presample` only, parallel/mesh.py:91-92)
+    presample = False
+
     def __init__(self, mdp: MDPSpec, cfg: HyperParameters):
         if mdp.is_discrete:
             raise ValueError("ACER is implemented for continuous actions")
@@ -162,18 +168,20 @@ class ACER(Learner):
     # ------------------------------------------------------------------
     def train_step(self, params, opt_state: AdamState, rs: rb.ReplayState,
                    gen: torch.Generator | None = None, sample_override=None,
-                   noise=None):
+                   noise=None, mesh=None):
         """ACER::Train (ACER.cpp:16-108). Updates params, Adam moments,
         the target actor and the replay in place; returns (params,
         opt_state, rs, metrics).
 
         sample_override: pinned (ep, tst_raw) [B] (presample_fn's draw,
         the parity tests); noise: (noise_pol [B, S+1, nA], noise_ext [5,
-        B, S+1, nA]) clipped normals; otherwise `gen` draws them."""
+        B, S+1, nA]) clipped normals; otherwise `gen` draws them. mesh:
+        this rank draws batchSize // K windows from its shard; the
+        gradient, the ReF-ER counts and the metrics are global."""
         cfg = self.cfg
         nA = self.mdp.dim_action
         S = min(SEQ_CUTOFF, rs.max_len)
-        B = cfg.batchSize
+        B = local_batch(cfg, mesh)
         gamma = cfg.gamma
         dev = rs.slot_len.device
         if sample_override is not None:
@@ -309,9 +317,10 @@ class ACER(Learner):
                 (-g_adv / N_EXPECTATION)[None].expand(
                     (N_EXPECTATION,) + tuple(g_adv.shape))])
 
-        grads = backprop(net, [pout, vout, aout],
-                         [pad(g_pol), pad(v_err + q_err)[..., None],
-                          g_aout[..., None]])
+        grads = psum_grads_(backprop(
+            net, [pout, vout, aout],
+            [pad(g_pol), pad(v_err + q_err)[..., None], g_aout[..., None]]),
+            mesh)
 
         # split Adam: the critics at lr x10, both halves reading the one
         # shared step and bias-correction state
@@ -348,16 +357,17 @@ class ACER(Learner):
                              (rs.delta_tm, q_err), (rs.value_tm, sl(v_st)),
                              (rs.advantage_tm, sl(q_theta - v_st))):
                 dst[wt, we] = new.gather(1, wsel)
-            rs, frac_off = post_step_processing(rs, cfg, new_opt.step, q_err)
+            rs, frac_off = post_step_processing(rs, cfg, new_opt.step, q_err,
+                                                mesh)
             is_far = rb.is_far_policy(sl(rho), rs.cmax_ret, rs.cinv_ret)
             metrics = default_metrics(sl(dkl), sl(rho), is_far, frac_off,
-                                      rs.beta, q_err, sl(v_st))
+                                      rs.beta, q_err, sl(v_st), mesh)
             metrics.update(grad_stats(grads))
         return params, new_opt, rs, metrics
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def initialize_stats(self, rs: rb.ReplayState):
+    def initialize_stats(self, rs: rb.ReplayState, mesh=None):
         """At training start: the exact state/reward statistics only; ACER
         recomputes no returns here (acer.py:386-389)."""
-        return rb.update_state_rew_stats(rs, 1.0, b_init=True)
+        return rb.update_state_rew_stats(rs, 1.0, b_init=True, mesh=mesh)

@@ -24,6 +24,7 @@ import torch
 from smarties_tpu_torch.models.net import (apply_net, init_carry,
                                            tree_leaves, tree_map)
 from smarties_tpu_torch.ops import continuous_policy as cp
+from smarties_tpu_torch.parallel.mesh import pmax_, pmean, psum_tree_
 from smarties_tpu_torch.replay import buffer as rb
 from smarties_tpu_torch.utils.config import anneal_rate
 
@@ -101,7 +102,9 @@ def presample_uniform(gen: torch.Generator, rs: rb.ReplayState, batch: int,
                       n: int):
     """Uniform sample indices for a whole train chunk at once -> (ep [n, B],
     t [n, B]). The sampling cache only changes at commit/refresh, never
-    inside a train chunk, so drawing up front equals drawing per step."""
+    inside a train chunk, so drawing up front equals drawing per step.
+    Under a mesh each rank draws its batch // K from its own shard with
+    its own generator (the JAX package's fold_in(key, axis_index))."""
     return rb.sample_uniform_from_flat(rs, rb.draw_flat(gen, rs, (n, batch)))
 
 
@@ -195,35 +198,38 @@ class Learner:
     # by the learners that stack frames (RACER family, DQN)
     n_appended = 0
 
-    def sample_minibatch(self, rs: rb.ReplayState, gen, sample_override):
+    def sample_minibatch(self, rs: rb.ReplayState, gen, sample_override,
+                         mesh=None):
         """Pinned (ep, t) indices (the trainer's presampled chunk, the
-        parity tests), or a draw of batchSize from `gen` by the sampler
+        parity tests), or a draw of batchSize (under a mesh batchSize // K
+        from this rank's shard) from `gen` by the sampler
         cfg.dataSamplingAlgo names."""
         if sample_override is not None:
             ep, t = sample_override
         else:
-            ep, t = rb.sample(gen, rs, self.cfg.batchSize,
+            ep, t = rb.sample(gen, rs, local_batch(self.cfg, mesh),
                               self.cfg.dataSamplingAlgo)
         return gather_minibatch(rs, ep, t, n_appended=self.n_appended)
 
     @torch.no_grad()
-    def refresh(self, rs: rb.ReplayState, n_grad_steps: float):
+    def refresh(self, rs: rb.ReplayState, n_grad_steps: float, mesh=None):
         """Every-1000-steps sweep (updateTrainingStatistics recompute
         branch + updateRewardsStats(.., rRateFac=10), Learner.cpp:74-100):
         returns recomputed with the OLD reward scaling, then the scaling
-        updated."""
+        updated. Under a mesh the returns are this rank's slots and the
+        statistics global."""
         cfg = self.cfg
         rs = rb.recompute_returns(rs, cfg.gamma, cfg.lambda_,
                                   self.returns_mode)
         lr = anneal_rate(cfg.learnrate, n_grad_steps, cfg.epsAnneal)
-        return rb.update_state_rew_stats(rs, 10.0 * lr)
+        return rb.update_state_rew_stats(rs, 10.0 * lr, mesh=mesh)
 
     @torch.no_grad()
-    def initialize_stats(self, rs: rb.ReplayState):
+    def initialize_stats(self, rs: rb.ReplayState, mesh=None):
         """At training start: exact state/reward stats from the gathered
-        data, then all return estimators (Learner::initializeLearner,
-        Learner.cpp:47-72)."""
-        rs = rb.update_state_rew_stats(rs, 1.0, b_init=True)
+        data (global under a mesh), then all return estimators
+        (Learner::initializeLearner, Learner.cpp:47-72)."""
+        rs = rb.update_state_rew_stats(rs, 1.0, b_init=True, mesh=mesh)
         return rb.recompute_returns(rs, self.cfg.gamma, self.cfg.lambda_,
                                     self.returns_mode)
 
@@ -304,16 +310,37 @@ def write_back_with_next(rs: rb.ReplayState, mb: MiniBatch, rho, dkl,
     return rs
 
 
-def post_step_processing(rs: rb.ReplayState, cfg, opt_step, delta_q):
+def local_batch(cfg, mesh=None) -> int:
+    """The minibatch of one rank: batchSize, split evenly over a mesh's
+    ranks (HyperParameters::defineDistributedLearning)."""
+    return cfg.batchSize // mesh.size if mesh is not None else cfg.batchSize
+
+
+def psum_grads_(grads, mesh=None):
+    """Under a mesh, sum the gradient tree across ranks before the
+    optimizer step, as ONE flat buffer (the MPI_Iallreduce over the
+    learners, Optimizer.cpp:110-119). In place; returns grads."""
+    if mesh is not None:
+        psum_tree_(mesh, [g for g in tree_leaves(grads) if g is not None])
+    return grads
+
+
+def post_step_processing(rs: rb.ReplayState, cfg, opt_step, delta_q,
+                         mesh=None):
     """Per-grad-step memory processing (Learner::processMemoryBuffer,
     Learner.cpp:74-100): anneal CmaxRet, ReF-ER beta fixed point,
-    maxAbsError EMA. Returns (rs, frac_off_policy)."""
+    maxAbsError EMA. Returns (rs, frac_off_policy). Under a mesh the
+    stored and far-policy counts are global (one collective) and the
+    batch's largest error is the largest on any rank (one more)."""
     n_step = opt_step.to(F32)
     rs = rb.update_cmax(rs, n_step, cfg.clipImpWeight, cfg.epsAnneal)
+    counts = rb.stored_and_far(rs, mesh)
     rs, frac_off = rb.update_beta_alpha(rs, cfg.batchSize, cfg.maxTotObsNum,
-                                        cfg.penalTol)
-    n_stored = rs.n_stored_steps().to(F32)
+                                        cfg.penalTol, counts=counts)
+    n_stored = counts[0].to(F32)
     batch_max_err = torch.max(torch.abs(delta_q))
+    if mesh is not None:
+        pmax_(mesh, batch_max_err)
     learn_r = 0.1 * cfg.batchSize / torch.clamp(
         n_stored, min=float(cfg.maxTotObsNum))
     rs.max_abs_error = rs.max_abs_error + learn_r * (batch_max_err
@@ -330,13 +357,21 @@ def grad_stats(grads):
     return {"grad_norm": torch.sqrt(sq), "grad_max": mx}
 
 
-def default_metrics(dkl, rho, is_far, frac_off, beta, delta_q, v_val):
+def default_metrics(dkl, rho, is_far, frac_off, beta, delta_q, v_val,
+                    mesh=None):
+    """The step's metrics; under a mesh each per-step mean is the mean
+    over ranks (one collective), taken before the sqrt of rmse."""
+    means = torch.stack([torch.mean(dkl), torch.mean(rho),
+                         torch.mean(is_far.to(F32)),
+                         torch.mean(delta_q * delta_q), torch.mean(v_val)])
+    if mesh is not None:
+        means = pmean(mesh, means)
     return {
-        "avg_dkl": torch.mean(dkl),
-        "avg_rho": torch.mean(rho),
-        "frac_far_batch": torch.mean(is_far.to(F32)),
+        "avg_dkl": means[0],
+        "avg_rho": means[1],
+        "frac_far_batch": means[2],
         "frac_far_data": frac_off,
         "beta": beta,
-        "rmse": torch.sqrt(torch.mean(delta_q * delta_q)),
-        "avg_v": torch.mean(v_val),
+        "rmse": torch.sqrt(means[3]),
+        "avg_v": means[4],
     }

@@ -36,6 +36,7 @@ from smarties_tpu_torch.algos.base import (Learner, bptt_window,
                                            check_ported, default_metrics,
                                            explore, grad_stats, ou_acting,
                                            post_step_processing,
+                                           psum_grads_,
                                            returns_mode_of, seq_outputs,
                                            target_copy, write_back_with_next)
 from smarties_tpu_torch.core.mdp import MDPSpec
@@ -185,11 +186,12 @@ class DPG(Learner):
 
     # ------------------------------------------------------------------
     def train_step(self, params, opt_state: AdamState, rs: rb.ReplayState,
-                   gen: torch.Generator | None = None, sample_override=None):
+                   gen: torch.Generator | None = None, sample_override=None,
+                   mesh=None):
         """DPG::Train (DPG.cpp:12-80). In place; returns (params,
         opt_state, rs, metrics)."""
         cfg = self.cfg
-        mb = self.sample_minibatch(rs, gen, sample_override)
+        mb = self.sample_minibatch(rs, gen, sample_override, mesh)
         net, tgt = params["net"], params["tgt"]
 
         # the objective's forward, with grad; a recurrent encoder runs the
@@ -244,7 +246,7 @@ class DPG(Learner):
         for p in tree_leaves(net):
             p.grad = None
         objective.backward()
-        grads = tree_map(lambda p: p.grad, net)
+        grads = psum_grads_(tree_map(lambda p: p.grad, net), mesh)
         opt_state = split_adam_step(net, grads, opt_state, self.part_adam,
                                     1.0 / cfg.batchSize)
         update_target(net, tgt, cfg.targetDelay, opt_state.step)
@@ -253,8 +255,9 @@ class DPG(Learner):
             err = target - q_val
             rs = write_back_with_next(rs, mb, rho, dkl, err, v_val,
                                       q_val - v_val, v_next)
-            rs, frac_off = post_step_processing(rs, cfg, opt_state.step, err)
+            rs, frac_off = post_step_processing(rs, cfg, opt_state.step, err,
+                                                mesh)
             metrics = default_metrics(dkl, rho, is_far, frac_off, rs.beta,
-                                      err, v_val)
+                                      err, v_val, mesh)
             metrics.update(grad_stats(grads))
         return params, opt_state, rs, metrics

@@ -24,6 +24,7 @@ import torch
 from smarties_tpu_torch.algos.base import (Learner, backprop, bptt_window,
                                            check_ported, default_metrics,
                                            grad_stats, post_step_processing,
+                                           psum_grads_,
                                            returns_mode_of, seq_forward_vjp,
                                            seq_outputs, target_copy,
                                            write_back_with_next)
@@ -118,11 +119,12 @@ class DQN(Learner):
 
     # ------------------------------------------------------------------
     def train_step(self, params, opt_state: AdamState, rs: rb.ReplayState,
-                   gen: torch.Generator | None = None, sample_override=None):
+                   gen: torch.Generator | None = None, sample_override=None,
+                   mesh=None):
         """DQN::Train (DQN.cpp:150-211). In place; returns (params,
         opt_state, rs, metrics)."""
         cfg, spec = self.cfg, self.spec
-        mb = self.sample_minibatch(rs, gen, sample_override)
+        mb = self.sample_minibatch(rs, gen, sample_override, mesh)
         net, tgt = params["net"], params["tgt"]
         if spec.is_recurrent:
             xs, active = bptt_window(rs, mb.ep, mb.t, cfg.nnBPTTseq)
@@ -181,7 +183,7 @@ class DQN(Learner):
                     is_far = torch.zeros_like(rho, dtype=torch.bool)
             v_val = self._value(qs)
 
-        grads = pullback(g)
+        grads = psum_grads_(pullback(g), mesh)
         _, opt_state = adam_step(net, grads, opt_state, self.adam_cfg,
                                  1.0 / cfg.batchSize)
         update_target(net, tgt, cfg.targetDelay, opt_state.step)
@@ -190,8 +192,8 @@ class DQN(Learner):
             rs = write_back_with_next(rs, mb, rho, dkl, td_error, v_val,
                                       q_a - v_val, v_next)
             rs, frac_off = post_step_processing(rs, cfg, opt_state.step,
-                                                td_error)
+                                                td_error, mesh)
             metrics = default_metrics(dkl, rho, is_far, frac_off, rs.beta,
-                                      td_error, v_val)
+                                      td_error, v_val, mesh)
             metrics.update(grad_stats(grads))
         return params, opt_state, rs, metrics

@@ -22,6 +22,7 @@ import torch
 from smarties_tpu_torch.algos.base import (Learner, check_ported,
                                            default_metrics, grad_stats,
                                            post_step_processing,
+                                           psum_grads_,
                                            returns_mode_of,
                                            write_back_with_next)
 from smarties_tpu_torch.core.mdp import MDPSpec
@@ -125,11 +126,11 @@ class MixedPG(Learner):
     # ------------------------------------------------------------------
     def train_step(self, params, opt_state: MixedPGOptState,
                    rs: rb.ReplayState, gen: torch.Generator | None = None,
-                   sample_override=None):
+                   sample_override=None, mesh=None):
         """MixedPG::Train (MixedPG.cpp:12-66). In place; returns (params,
         opt_state, rs, metrics)."""
         cfg = self.cfg
-        mb = self.sample_minibatch(rs, gen, sample_override)
+        mb = self.sample_minibatch(rs, gen, sample_override, mesh)
 
         # the ascent objective's forward, with grad: the critic at (s, a)
         # and at (s, mean) with the mean held constant
@@ -199,7 +200,7 @@ class MixedPG(Learner):
         for p in tree_leaves(params):
             p.grad = None
         objective.backward()
-        grads = tree_map(lambda p: p.grad, params)
+        grads = psum_grads_(tree_map(lambda p: p.grad, params), mesh)
         _, new_adam = adam_step(params, grads, opt_state.adam, self.adam_cfg,
                                 1.0 / cfg.batchSize)
 
@@ -221,8 +222,8 @@ class MixedPG(Learner):
             rs = write_back_with_next(rs, mb, rho, dkl, delta, v_est, a_est,
                                       v_next)
             rs, frac_off = post_step_processing(rs, cfg, opt_state.step,
-                                                delta)
+                                                delta, mesh)
             metrics = default_metrics(dkl, rho, is_far, frac_off, rs.beta,
-                                      delta, v_est)
+                                      delta, v_est, mesh)
             metrics.update(grad_stats(grads))
         return params, opt_state, rs, metrics

@@ -29,6 +29,7 @@ from smarties_tpu_torch.algos.base import (Learner, backprop, bptt_window,
                                            check_ported, default_metrics,
                                            explore, grad_stats, ou_acting,
                                            post_step_processing,
+                                           psum_grads_,
                                            returns_mode_of, seq_forward_vjp,
                                            seq_outputs, target_copy,
                                            write_back_with_next)
@@ -139,11 +140,12 @@ class NAF(Learner):
 
     # ------------------------------------------------------------------
     def train_step(self, params, opt_state: AdamState, rs: rb.ReplayState,
-                   gen: torch.Generator | None = None, sample_override=None):
+                   gen: torch.Generator | None = None, sample_override=None,
+                   mesh=None):
         """NAF::Train (NAF.cpp:121-165). In place; every value written back
         comes from the pre-step weights."""
         cfg, spec = self.cfg, self.spec
-        mb = self.sample_minibatch(rs, gen, sample_override)
+        mb = self.sample_minibatch(rs, gen, sample_override, mesh)
         net, tgt = params["net"], params["tgt"]
         if spec.is_recurrent:
             xs, active = bptt_window(rs, mb.ep, mb.t, cfg.nnBPTTseq)
@@ -193,7 +195,7 @@ class NAF(Learner):
             g_s = softplus_diff(sraw) * (cfg.explNoise - sigma) / 2
             g = torch.cat([error[:, None], g_l, g_m, g_s], dim=-1)
 
-        grads = pullback(g)
+        grads = psum_grads_(pullback(g), mesh)
         _, opt_state = adam_step(net, grads, opt_state, self.adam_cfg,
                                  1.0 / cfg.batchSize)
         update_target(net, tgt, cfg.targetDelay, opt_state.step)
@@ -202,8 +204,8 @@ class NAF(Learner):
             rs = write_back_with_next(rs, mb, rho, dkl, error, v, a_val,
                                       v_next)
             rs, frac_off = post_step_processing(rs, cfg, opt_state.step,
-                                                error)
+                                                error, mesh)
             metrics = default_metrics(dkl, rho, is_far, frac_off, rs.beta,
-                                      error, v)
+                                      error, v, mesh)
             metrics.update(grad_stats(grads))
         return params, opt_state, rs, metrics

@@ -44,8 +44,8 @@ import torch
 
 from smarties_tpu_torch.algos.base import (Learner, bptt_window,
                                            check_ported, grad_stats,
-                                           returns_mode_of, seq_outputs,
-                                           write_back)
+                                           psum_grads_, returns_mode_of,
+                                           seq_outputs, write_back)
 from smarties_tpu_torch.algos.dpg import shared_encoder, split_adam_step
 from smarties_tpu_torch.core.mdp import MDPSpec
 from smarties_tpu_torch.models.net import (NetSpec, apply_net, init_carry,
@@ -55,6 +55,7 @@ from smarties_tpu_torch.models.optim import (AdamConfig, AdamState,
                                              adam_init)
 from smarties_tpu_torch.ops import continuous_policy as cp
 from smarties_tpu_torch.ops import discrete_policy as dpol
+from smarties_tpu_torch.parallel.mesh import psum_
 from smarties_tpu_torch.replay import buffer as rb
 from smarties_tpu_torch.utils.config import HyperParameters, anneal_rate
 
@@ -167,11 +168,15 @@ class PPO(Learner):
 
     # ------------------------------------------------------------------
     def train_step(self, params, opt_state: PPOOptState, rs: rb.ReplayState,
-                   gen: torch.Generator | None = None, sample_override=None):
+                   gen: torch.Generator | None = None, sample_override=None,
+                   mesh=None):
         """PPO::Train (PPO_train.cpp:19-71) + updatePenalizationCoef
-        (:5-16). In place; returns (params, opt_state, rs, metrics)."""
+        (:5-16). In place; returns (params, opt_state, rs, metrics).
+        Under a mesh the gradient and the four clip counters are summed
+        across ranks; the advantage normalisation and the metrics stay
+        per rank, as in the JAX package."""
         cfg = self.cfg
-        mb = self.sample_minibatch(rs, gen, sample_override)
+        mb = self.sample_minibatch(rs, gen, sample_override, mesh)
         value_old = mb.value_old       # V recorded at acting time
 
         if self.recurrent:
@@ -234,14 +239,20 @@ class PPO(Learner):
             # (updatePenalizationCoef PPO_train.cpp:5-16, updateDKL_target
             # PPO_common.cpp:8-16)
             tgt, penal = opt_state.dkl_target, opt_state.penal_coef
-            n_lo = torch.sum((dkl < tgt / 1.5).to(F32))
-            n_hi = torch.sum((dkl > 1.5 * tgt).to(F32))
+            counts = torch.stack([
+                torch.sum((dkl < tgt / 1.5).to(F32)),
+                torch.sum((dkl > 1.5 * tgt).to(F32)),
+                torch.sum((is_off & (tgt > dkl)).to(F32)),
+                torch.sum(((~is_off) & (tgt < dkl)).to(F32))])
+            n_rows = rho.shape[0]
+            if mesh is not None:
+                psum_(mesh, counts)
+                n_rows *= mesh.size
+            n_lo, n_hi, n_shrink, n_grow = counts.unbind()
             delta = n_hi * penal - n_lo * penal / 2
             penal = torch.clamp(
-                penal + 1e-4 * delta / max(float(rho.shape[0]), 1.0),
+                penal + 1e-4 * delta / max(float(n_rows), 1.0),
                 min=1.19e-7)
-            n_shrink = torch.sum((is_off & (tgt > dkl)).to(F32))
-            n_grow = torch.sum(((~is_off) & (tgt < dkl)).to(F32))
             tgt = tgt * torch.pow(0.9995, n_shrink) \
                 * torch.pow(1.0001, n_grow)
 
@@ -252,7 +263,7 @@ class PPO(Learner):
         for p in tree_leaves(params):
             p.grad = None
         objective.backward()
-        grads = tree_map(lambda p: p.grad, params)
+        grads = psum_grads_(tree_map(lambda p: p.grad, params), mesh)
         adam = split_adam_step(params, grads, opt_state.adam, self.part_adam,
                                1.0 / cfg.batchSize)
         opt_state = PPOOptState(adam=adam, penal_coef=penal, dkl_target=tgt)
@@ -272,11 +283,11 @@ class PPO(Learner):
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def refresh(self, rs: rb.ReplayState, n_grad_steps: float):
+    def refresh(self, rs: rb.ReplayState, n_grad_steps: float, mesh=None):
         """Once per horizon, after its epochs: the state and reward
         statistics move at min(1, annealed learning rate)
         (updateRewardsStats, PPO.cpp:100-104). No return sweep: the data
         is cleared next."""
         lr = anneal_rate(self.cfg.learnrate, n_grad_steps,
                          self.cfg.epsAnneal)
-        return rb.update_state_rew_stats(rs, min(1.0, lr))
+        return rb.update_state_rew_stats(rs, min(1.0, lr), mesh=mesh)

@@ -40,6 +40,7 @@ from smarties_tpu_torch.models.net import apply_net, init_params
 from smarties_tpu_torch.ops import continuous_policy as cp
 from smarties_tpu_torch.ops import discrete_policy as dpol
 from smarties_tpu_torch.ops.value_scale import scale_net2v
+from smarties_tpu_torch.parallel.mesh import broadcast_, psum_
 from smarties_tpu_torch.replay import buffer as rb
 from smarties_tpu_torch.utils.config import HyperParameters, anneal_rate
 
@@ -131,13 +132,19 @@ class RacerES(VRacer):
     @torch.no_grad()
     def train_step(self, params, opt_state: ESOptState, rs: rb.ReplayState,
                    gen: torch.Generator | None = None, sample_override=None,
-                   z=None):
+                   z=None, mesh=None):
         """One CMA step on a minibatch (RACER::prepareCMALoss +
         CMA_Optimizer::apply_update) -> (params, opt_state, rs, metrics);
         the replay's write-backs take member 0's statistics.
 
         sample_override: pinned (ep, t) [B]; z: the [P, n] normals of the
-        resample; otherwise `gen` draws both."""
+        resample; otherwise `gen` draws both.
+
+        mesh: each rank draws batchSize samples from its shard (the JAX
+        package's sharded step does not split this learner's batch), the
+        members' losses are summed across ranks, and the resample takes
+        rank 0's normals, so that the population stays the same on every
+        rank (each JAX shard resamples from its own key)."""
         cfg = self.cfg
         mb = self.sample_minibatch(rs, gen, sample_override)
         rhos, advs, dkls, avals, vvals = self._members(params["pop"], mb)
@@ -155,6 +162,12 @@ class RacerES(VRacer):
         cost_dkl = (1 - beta) * dkls
         losses = torch.sum(alpha * (cost_adv + cost_dkl)
                            + (1 - alpha) * cost_val, dim=1)   # [P]
+        if mesh is not None:
+            psum_(mesh, losses)
+            if z is None:
+                z = broadcast_(mesh, torch.randn(
+                    tuple(opt_state.noise.shape), generator=gen, dtype=F32,
+                    device=losses.device))
 
         if self._w_pop.device != losses.device:
             # once: a copy from host memory inside the step would wait
@@ -169,8 +182,9 @@ class RacerES(VRacer):
         # write-backs with the MEAN member's statistics
         delta = advs[0] - avals[0]
         rs = write_back(rs, mb, rhos[0], dkls[0], delta, vvals[0], avals[0])
-        rs, frac_off = post_step_processing(rs, cfg, new_opt.step, delta)
+        rs, frac_off = post_step_processing(rs, cfg, new_opt.step, delta,
+                                            mesh)
         metrics = default_metrics(dkls[0], rhos[0],
                                   rb.is_far_policy(rhos[0], cmax, cinv),
-                                  frac_off, rs.beta, delta, vvals[0])
+                                  frac_off, rs.beta, delta, vvals[0], mesh)
         return {"pop": new_pop}, new_opt, rs, metrics

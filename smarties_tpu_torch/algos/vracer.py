@@ -35,7 +35,8 @@ import torch
 from smarties_tpu_torch.algos.base import (Learner, backprop, bptt_window,
                                            check_ported, default_metrics,
                                            grad_stats, post_step_processing,
-                                           returns_mode_of, seq_forward_vjp,
+                                           psum_grads_, returns_mode_of,
+                                           seq_forward_vjp,
                                            write_back_with_next)
 from smarties_tpu_torch.core.mdp import MDPSpec
 from smarties_tpu_torch.models.net import (Conv2DDesc, NetSpec, apply_net,
@@ -164,16 +165,23 @@ class VRacer(Learner):
 
     # ------------------------------------------------------------------
     def train_step(self, params, opt_state: AdamState, rs: rb.ReplayState,
-                   gen: torch.Generator | None = None, sample_override=None):
+                   gen: torch.Generator | None = None, sample_override=None,
+                   mesh=None):
         """One gradient step (RACER_train.cpp:14-67). Updates params, Adam
         moments and the replay in place; returns (params, opt_state, rs,
         metrics) with metrics as 0-d device tensors.
 
         sample_override: pinned (ep, t) sample indices (the trainer's
         presampled chunk, and the parity tests); otherwise `gen` draws
-        them uniformly."""
+        them uniformly.
+
+        mesh: this rank's LearnerMesh (parallel/mesh.py). The rank draws
+        batchSize // K samples from its replay shard, the gradient is
+        summed across ranks before Adam (the reference's MPI_Iallreduce,
+        Optimizer.cpp:110-119), and the ReF-ER counts and metrics are
+        global."""
         cfg, spec = self.cfg, self.spec
-        mb = self.sample_minibatch(rs, gen, sample_override)
+        mb = self.sample_minibatch(rs, gen, sample_override, mesh)
         a_t, mu_t, qret_t = mb.action, mb.mu, mb.qret
 
         if spec.is_recurrent:
@@ -256,7 +264,7 @@ class VRacer(Learner):
             # invalid (empty-replay) samples contribute no gradient
             g = torch.where(mb.valid[:, None], g, torch.zeros_like(g))
 
-        grads = pullback(g)
+        grads = psum_grads_(pullback(g), mesh)
         params, opt_state = adam_step(params, grads, opt_state,
                                       self.adam_cfg, 1.0 / cfg.batchSize)
 
@@ -265,9 +273,9 @@ class VRacer(Learner):
             rs = write_back_with_next(rs, mb, rho, dkl, delta_q, v_val,
                                       a_val, v_next)
             rs, frac_off = post_step_processing(rs, cfg, opt_state.step,
-                                                delta_q)
+                                                delta_q, mesh)
             metrics = default_metrics(dkl, rho, is_far, frac_off, rs.beta,
-                                      delta_q, v_val)
+                                      delta_q, v_val, mesh)
             metrics.update(grad_stats(grads))
         return params, opt_state, rs, metrics
 

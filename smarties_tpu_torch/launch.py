@@ -23,15 +23,29 @@ through the Engine, which serves it in forked worker processes.
         --nEnvironments 1020 --nTrainSteps 5     # 5 generations
     python -m smarties_tpu_torch.launch apps/cart_pole_py/exec.py \\
         --nEnvironments 8 --nTrainSteps 20000    # on the card
+    python -m smarties_tpu_torch.launch cartpole --nLearners 2 \\
+        --device cuda --nEnvironments 1024       # 2 ranks, 2 cards, NCCL
+    torchrun --nproc-per-node 4 -m smarties_tpu_torch.launch cartpole \\
+        --nLearners 4 --device cuda              # ranks from torchrun
 
 `catch` is the pixel env: its replay stores uint8 frames (65,536 slots of
 40 frames of 84x84 at the recipe's maxTotObsNum, 18.5 GB on the card, and
 as much in checkpoint.pt unless --noCheckpoint is given).
 
 --device defaults to "cuda" and raises where there is no card: nothing
-picks the CPU unless the caller asks for it (--device cpu). --recipe
-takes a name from utils/recipes.py or a settings json (a path or the
-json text itself). `run(args)` does the work and returns the Trainer
+picks the CPU unless the caller asks for it (--device cpu).
+
+--nLearners K trains one policy with K learner ranks, one process each
+(parallel/mesh.py): each owns nEnvironments / K lanes and a K-th of the
+replay, and the gradients are summed across ranks. Under torchrun
+(WORLD_SIZE set) each process joins the group torchrun made; otherwise
+the launcher spawns K local ranks. On "cuda" rank r takes card r and
+NCCL, which takes one rank per card; on "cpu" all ranks use gloo.
+As in the JAX launcher, CMA and app scripts run one process whatever
+--nLearners says.
+
+--recipe takes a name from utils/recipes.py or a settings json (a path
+or the json text itself). `run(args)` does the work and returns the Trainer
 (the Engine for an app script).
 """
 from __future__ import annotations
@@ -67,7 +81,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--nEnvironments", type=int, default=64)
     p.add_argument("--nTrainSteps", type=int, default=1_000_000)
     p.add_argument("--nLearners", type=int, default=1,
-                   help="learner shards (the port runs one)")
+                   help="learner ranks, one process each, training one "
+                        "policy on sharded envs and replay (CMA and app "
+                        "scripts run one process)")
     p.add_argument("--randSeed", type=int, default=0)
     p.add_argument("--maxEpisodeLength", type=int, default=1024)
     p.add_argument("--logAllSamples", action="store_true",
@@ -126,17 +142,14 @@ def _write_provenance(run_dir: str, cfg: HyperParameters):
             f.write(out)
 
 
-def _check_learners(args: argparse.Namespace):
-    if args.nLearners > 1:
-        raise NotImplementedError(
-            "--nLearners > 1: multi-device learners are not ported yet "
-            "(ROADMAP B12)")
-
-
-def _run_dir(args: argparse.Namespace, cfg: HyperParameters) -> str:
+def _run_dir(args: argparse.Namespace, cfg: HyperParameters,
+             write: bool = True) -> str:
+    """runs/<runname>/, created with its provenance where `write` (rank 0
+    of a learner mesh)."""
     run_dir = os.path.join(args.runprefix, args.runname)
-    os.makedirs(run_dir, exist_ok=True)
-    _write_provenance(run_dir, cfg)
+    if write:
+        os.makedirs(run_dir, exist_ok=True)
+        _write_provenance(run_dir, cfg)
     return run_dir
 
 
@@ -144,8 +157,8 @@ def run_app(args: argparse.Namespace):
     """An app script through the Engine (bin/smarties_tpu_launch.py:
     114-130): the script is run with runpy (its `__main__` block does not
     run), its app_main(comm) is served in nEnvironments forked workers
-    and trained with the recipe on args.device. Returns the Engine."""
-    _check_learners(args)
+    and trained with the recipe on args.device; --nLearners is not read,
+    as in the JAX launcher. Returns the Engine."""
     from smarties_tpu_torch.runtime.engine import Engine
     from smarties_tpu_torch.runtime.trainer import checked_device
     checked_device(args.device)
@@ -168,12 +181,11 @@ def run_app(args: argparse.Namespace):
     return e
 
 
-def make_trainer(args: argparse.Namespace):
+def make_trainer(args: argparse.Namespace, mesh=None):
     """Check the request, write the run directory's provenance and build
     the Trainer (the CMAES for learner CMA, whose lanes are split evenly
-    among the population). Raises NotImplementedError, naming the ROADMAP
-    item, for what the port does not have yet."""
-    _check_learners(args)
+    among the population). mesh: this process's learner rank; rank 0
+    writes the run directory, and the Trainer runs on mesh.device."""
     env = env_module(args.app)
     cfg = load_recipe(args.recipe, args.randSeed)
     if cfg.learner == "CMA" and args.nEnvironments % cfg.ESpopSize:
@@ -184,7 +196,7 @@ def make_trainer(args: argparse.Namespace):
     import torch
     from smarties_tpu_torch.runtime.trainer import Trainer, checked_device
     checked_device(args.device)
-    run_dir = _run_dir(args, cfg)
+    run_dir = _run_dir(args, cfg, write=mesh is None or mesh.rank == 0)
     if cfg.learner == "CMA":
         # as the JAX launcher builds it: the default max_len of 512
         from smarties_tpu_torch.algos.cma import CMAES
@@ -192,9 +204,92 @@ def make_trainer(args: argparse.Namespace):
                      device=args.device)
     return Trainer(env, env.MDP, cfg, n_envs=args.nEnvironments,
                    max_len=min(args.maxEpisodeLength, env.MAX_STEPS),
-                   device=args.device, run_dir=run_dir,
+                   device=args.device if mesh is None else mesh.device,
+                   run_dir=run_dir,
                    state_dtype=torch.uint8 if args.app == "catch" else None,
-                   obs_log=args.logAllSamples)
+                   obs_log=args.logAllSamples, mesh=mesh)
+
+
+def _train(tr, args: argparse.Namespace):
+    """Gather minTotObsNum observations (off-policy learners only), take
+    nTrainSteps grad steps, save checkpoint.pt (CMA: nTrainSteps
+    generations and no checkpoint)."""
+    if tr.cfg.learner == "CMA":
+        tr.train(args.nTrainSteps)
+        return tr
+    if not tr.on_policy:
+        tr.warmup()
+    tr.train(args.nTrainSteps)
+    if not args.noCheckpoint:
+        tr.save(os.path.join(tr.run_dir, "checkpoint.pt"))
+    return tr
+
+
+def _run_rank(args: argparse.Namespace, prepare=None):
+    """One learner rank in an initialised process group: build the
+    sharded Trainer on this rank's device (card LOCAL_RANK, or the rank,
+    for "cuda") and train it."""
+    import torch
+    import torch.distributed as dist
+    from smarties_tpu_torch.parallel.mesh import make_mesh
+    device = args.device
+    if torch.device(device).type == "cuda":
+        device = f"cuda:{os.environ.get('LOCAL_RANK', dist.get_rank())}"
+        torch.cuda.set_device(device)
+    mesh = make_mesh(device)
+    tr = make_trainer(args, mesh)
+    if prepare is not None:
+        prepare(tr)
+    return _train(tr, args)
+
+
+def _spawned_rank(rank: int, args: argparse.Namespace, store: str,
+                  prepare=None):
+    """The body of a rank that `run` spawned: join the group through the
+    file store, train, leave the group."""
+    import torch
+    import torch.distributed as dist
+    from smarties_tpu_torch.parallel.multihost import (backend_for,
+                                                       init_multihost)
+    if args.device == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                  // args.nLearners))
+    init_multihost(store, args.nLearners, rank,
+                   backend=backend_for(args.device), timeout_s=120.0)
+    try:
+        _run_rank(args, prepare)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_learners(args: argparse.Namespace, prepare=None):
+    """--nLearners K > 1 for a built-in env: join torchrun's group (when
+    WORLD_SIZE is set; returns this rank's Trainer) or spawn K local
+    ranks (returns None once all have finished; a rank's failure
+    raises). K must divide the env lanes; on "cuda", NCCL takes at most
+    one rank per card."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from smarties_tpu_torch.parallel.multihost import (backend_for,
+                                                       check_ranks,
+                                                       init_multihost)
+    from smarties_tpu_torch.runtime.trainer import checked_device
+    K = args.nLearners
+    if args.nEnvironments % K:
+        raise ValueError(f"--nLearners {K} must divide --nEnvironments "
+                         f"{args.nEnvironments}: each rank owns "
+                         f"nEnvironments / nLearners lanes")
+    checked_device(args.device)
+    backend = backend_for(args.device)
+    if "WORLD_SIZE" in os.environ:
+        init_multihost(backend=backend)
+        return _run_rank(args, prepare)
+    check_ranks(backend, K)
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_spawned_rank, nprocs=K, join=True, args=(
+            args, "file://" + os.path.join(tmp, "store"), prepare))
+    return None
 
 
 def run(args: argparse.Namespace,
@@ -208,21 +303,17 @@ def run(args: argparse.Namespace,
     prepare(trainer), when given, runs before the warmup (chip_smoke.py
     attaches its launch counters and timers there). Returns the Trainer
     (the CMAES for CMA). An app that is not a built-in env name is an app
-    script: `run_app`, which returns the Engine."""
+    script: `run_app`, which returns the Engine. With --nLearners K > 1
+    the built-in env trains on K learner ranks (`run_learners`)."""
     if args.app not in BUILTIN_ENVS:
         return run_app(args)
+    if (args.nLearners > 1
+            and load_recipe(args.recipe, args.randSeed).learner != "CMA"):
+        return run_learners(args, prepare)
     tr = make_trainer(args)
     if prepare is not None:
         prepare(tr)
-    if tr.cfg.learner == "CMA":
-        tr.train(args.nTrainSteps)
-        return tr
-    if not tr.on_policy:
-        tr.warmup()
-    tr.train(args.nTrainSteps)
-    if not args.noCheckpoint:
-        tr.save(os.path.join(tr.run_dir, "checkpoint.pt"))
-    return tr
+    return _train(tr, args)
 
 
 if __name__ == "__main__":

@@ -29,6 +29,8 @@ into the port (and parameters back) without the JAX runtime.
   orientation ([E, L+1, ...] per step, [E] per slot, scalars). A uint8
   `states` array (pixel replays) stays uint8.
   `replay_to_numpy` gives the port's replay under the same keys.
+  `replay_shards_from_jax` splits a JAX replay into the K shards of a
+  K-rank learner mesh, `gather_replay` joins shards into one replay.
 - an Engine learner's snapshot (`engine_snapshot_from_jax`): what the
   JAX package's `_LearnerBundle.snapshot()` holds, as numpy, in the
   form of the port's `_LearnerBundle.snapshot()`, for checkpoint.pt.
@@ -44,6 +46,7 @@ import torch
 
 from smarties_tpu_torch.models.net import tree_map
 from smarties_tpu_torch.models.optim import AdamState
+from smarties_tpu_torch.parallel.mesh import shard_fields
 from smarties_tpu_torch.replay import buffer as rb
 
 # per-step views [E, L+1(, d)] -> time-major storage
@@ -193,6 +196,37 @@ def replay_from_jax(rs_np, device=None) -> rb.ReplayState:
     kw["samp_csum"] = torch.zeros((E,), dtype=torch.int32, device=device)
     kw["samp_start"] = torch.zeros((E,), dtype=torch.int32, device=device)
     return rb.rebuild_sample_cache(rb.ReplayState(**kw))
+
+
+def split_replay(rs: rb.ReplayState, K: int) -> list:
+    """K replay shards of one replay, for K learner ranks: rank r holds
+    slots [r E/K, (r+1) E/K) and a copy of the replicated fields, with
+    its own sampling cache (parallel/mesh.py::shard_fields)."""
+    dims = shard_fields(rs)
+    if rs.n_slots % K:
+        raise ValueError(f"{K} ranks must divide the {rs.n_slots} slots")
+    return [rb.rebuild_sample_cache(rb.ReplayState(**{
+        f: (getattr(rs, f).chunk(K, dims[f])[r].clone() if f in dims
+            else getattr(rs, f).clone())
+        for f in rs.__dataclass_fields__})) for r in range(K)]
+
+
+def gather_replay(shards) -> rb.ReplayState:
+    """One replay of K ranks' shards (the inverse of split_replay): the
+    per-slot fields concatenated in rank order, the replicated fields
+    those of rank 0, as the JAX package's host reads a sharded replay."""
+    dims = shard_fields(shards[0])
+    return rb.rebuild_sample_cache(rb.ReplayState(**{
+        f: (torch.cat([getattr(x, f) for x in shards], dims[f])
+            if f in dims else getattr(shards[0], f).clone())
+        for f in shards[0].__dataclass_fields__}))
+
+
+def replay_shards_from_jax(rs_np, K: int, device=None) -> list:
+    """K port replays from a dict of the JAX replay's field views: the
+    shards a K-rank mesh holds where the JAX package's "learners" axis
+    shards the slots (replay_pspec)."""
+    return split_replay(replay_from_jax(rs_np, device), K)
 
 
 def replay_to_numpy(rs: rb.ReplayState) -> dict:

@@ -41,6 +41,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from smarties_tpu_torch.parallel.mesh import pmean, psum_, ring_shift
+
 F32 = torch.float32
 I32 = torch.int32
 
@@ -591,13 +593,28 @@ def sample(gen, rs: ReplayState, batch: int, algo: str = "uniform", u=None):
 # ReF-ER rule 2 (beta fixed point) + annealed C (rule 1 schedule)
 # ---------------------------------------------------------------------------
 
+def stored_and_far(rs: ReplayState, mesh=None):
+    """(stored steps, far-policy steps) as 0-d i64 tensors; under a mesh
+    the sums over every rank's shard, in ONE collective (the
+    MPI_Iallreduce of MemoryProcessing.cpp:56-58)."""
+    counts = torch.stack([rs.n_stored_steps().to(torch.int64),
+                          n_far_policy_steps(rs).to(torch.int64)])
+    if mesh is not None:
+        psum_(mesh, counts)
+    return counts[0], counts[1]
+
+
 def update_beta_alpha(rs: ReplayState, batch_size: int, max_tot_obs: int,
-                      penal_tol: float):
+                      penal_tol: float, mesh=None, counts=None):
     """beta/alpha fixed-point iteration (MemoryProcessing::updateCounters,
     MemoryProcessing.cpp:46-92): learnRefer = 0.1 B / max(maxN, nData);
-    beta -> 0 if fracOffPol > D else -> 1. Returns (rs, frac_off)."""
-    n_data = rs.n_stored_steps().to(F32)
-    n_far = n_far_policy_steps(rs)
+    beta -> 0 if fracOffPol > D else -> 1. Returns (rs, frac_off).
+    batch_size and max_tot_obs are GLOBAL totals; under a mesh n_data
+    and n_far are summed across ranks (stored_and_far), unless the
+    caller passes those global `counts` already."""
+    n_data, n_far = counts if counts is not None else stored_and_far(
+        rs, mesh)
+    n_data = n_data.to(F32)
     frac_off = n_far.to(F32) / torch.clamp(n_data, min=1.0)
     learn_r = 0.1 * batch_size / torch.clamp(n_data, min=float(max_tot_obs))
 
@@ -655,14 +672,16 @@ def _state_moments(rs: ReplayState):
 
 
 def update_state_rew_stats(rs: ReplayState, learn_rate, b_init: bool = False,
-                           adapt_state_scale: bool = True):
+                           adapt_state_scale: bool = True, mesh=None):
     """Annealed running mean/std of stored states and rewards
     (MemoryProcessing::updateRewardsStats, MemoryProcessing.cpp:94-185):
       mean += lr * Evar;  var = Evar2 - Evar^2 (2lr - lr^2);
       std += lr (sqrt(var) - std);  scale = 1/std.
     b_init uses lr == 1 (exact stats). learn_rate is a python number;
     it becomes a 0-d f32 device tensor, as the JAX package computes it.
-    The states are reduced in chunks of the time axis (_state_moments)."""
+    The states are reduced in chunks of the time axis (_state_moments).
+    Under a mesh every moment and count is summed across ranks, in ONE
+    collective (the StateRewRdx allreduce, MemoryProcessing.cpp:139-150)."""
     dev = rs.rew_mean.device
     wr = _full(1.0 if b_init else min(1.0, float(learn_rate)), F32, dev)
     ws = wr if adapt_state_scale else _full(0.0, F32, dev)
@@ -671,10 +690,16 @@ def update_state_rew_stats(rs: ReplayState, learn_rate, b_init: bool = False,
     t = torch.arange(L1, device=dev)[:, None]
     valid = rs.valid_slots()[None, :]
     rmask = ((t >= 1) & (t <= rs.slot_len[None, :]) & valid).to(F32)
-    count = torch.clamp(torch.sum(rmask), min=1.0)
     dr = (rs.rewards_tm - rs.rew_mean) * rmask
-    evar_r = torch.sum(dr) / count
-    evar2_r = torch.sum(dr * dr) / count
+    sum_s, sum2_s, scount = _state_moments(rs)
+    sums = torch.cat([torch.stack([torch.sum(rmask), torch.sum(dr),
+                                   torch.sum(dr * dr), scount]),
+                      sum_s, sum2_s])
+    if mesh is not None:
+        psum_(mesh, sums)
+    count = torch.clamp(sums[0], min=1.0)
+    evar_r = sums[1] / count
+    evar2_r = sums[2] / count
 
     def upd(mean, std, lr, evar, evar2):
         new_mean = mean + lr * evar
@@ -686,10 +711,10 @@ def update_state_rew_stats(rs: ReplayState, learn_rate, b_init: bool = False,
     rs.rew_mean, rs.rew_std, rs.rew_scale = upd(
         rs.rew_mean, rs.rew_std, wr, evar_r, evar2_r)
 
-    sum_s, sum2_s, scount = _state_moments(rs)
-    scount = torch.clamp(scount, min=1.0)
-    evar_s = sum_s / scount
-    evar2_s = sum2_s / scount
+    D = sum_s.shape[0]
+    scount = torch.clamp(sums[3], min=1.0)
+    evar_s = sums[4:4 + D] / scount
+    evar2_s = sums[4 + D:] / scount
     rs.state_mean, rs.state_std, rs.state_scale = upd(
         rs.state_mean, rs.state_std, ws, evar_s, evar2_s)
     return rs
@@ -749,4 +774,58 @@ def recompute_returns(rs: ReplayState, gamma: float, lam: float,
         return rs
     _sweep_returns_(rs, rs.valid_slots(), gamma, lam, mode,
                     zero_unselected=True)
+    return rs
+
+
+def rebalance_shards(rs: ReplayState, mesh, k_max: int = 8,
+                     max_tot_obs: int = 2 ** 30,
+                     filter_algo: str = "oldest") -> ReplayState:
+    """Cross-shard episode balancing at the refresh cadence: a rank
+    holding more episodes than the mean over ranks ships up to k_max of
+    its lowest keep-priority slots to its ring neighbour (rank + 1) % K
+    (the round-robin episode sharing of DataCoordinator.cpp:91-112; JAX
+    package: buffer.py::rebalance_shards). In place.
+
+    As in the JAX package: the candidates are the first k_max slots in
+    keep-priority order, where empty slots come first, and only valid
+    ones ship; a shipped record travels with kl = delta = 0 and with its
+    v_trunc in the value entry at T. The sender invalidates the shipped
+    slots (length 0, id -1, far count 0); the receiver commits them
+    through commit_episodes (new ids from its n_seen_eps) and restores
+    n_seen_eps / n_seen_steps: they migrated, they are not new."""
+    k = min(k_max, rs.n_slots)
+    n_eps = rs.n_stored_eps().to(F32)
+    n_ship = torch.clamp((n_eps - pmean(mesh, n_eps)).to(I32), 0, k)
+    order = torch.argsort(_keep_priority(rs, filter_algo), stable=True)
+    take = torch.arange(k, device=order.device)
+    slots = order[:k]
+    ship = (take < n_ship) & (rs.slot_id[slots] >= 0)
+    T = torch.clamp(rs.slot_len[slots].long(), 0, rs.max_len)
+    value = rs.value_tm[:, slots].t().clone()
+    value[take, T] = rs.v_trunc[slots]
+    sent = ring_shift(mesh, dict(
+        states=rs.states_tm[:, slots].transpose(0, 1),
+        actions=rs.actions_tm[:, slots].transpose(0, 1),
+        mus=rs.mus_tm[:, slots].transpose(0, 1),
+        rewards=rs.rewards_tm[:, slots].t(), value=value,
+        advantage=rs.advantage_tm[:, slots].t(),
+        qret=rs.qret_tm[:, slots].t(), rho=rs.rho_tm[:, slots].t(),
+        length=rs.slot_len[slots], terminal=rs.slot_term[slots],
+        ship=ship))
+
+    # sender side: invalidate the shipped slots
+    drop = torch.zeros_like(rs.qret_stale)
+    drop[slots] = ship
+    rs.slot_len.masked_fill_(drop, 0)
+    rs.slot_id.masked_fill_(drop, -1)
+    rs.far_count.masked_fill_(drop, 0.0)
+
+    # receiver side: commit the neighbour's episodes as migrated
+    seen_eps, seen_steps = rs.n_seen_eps, rs.n_seen_steps
+    rs = commit_episodes(
+        rs, sent["states"], sent["actions"], sent["mus"], sent["rewards"],
+        sent["value"], sent["advantage"], sent["qret"], sent["rho"],
+        sent["length"], sent["terminal"], sent["ship"], max_tot_obs,
+        filter_algo)
+    rs.n_seen_eps, rs.n_seen_steps = seen_eps, seen_steps
     return rs

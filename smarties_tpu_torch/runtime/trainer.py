@@ -1,8 +1,8 @@
 """Host-side training driver: pacing, warmup, eval, logging, checkpointing.
 
-Port of the single-device path of smarties_tpu/runtime/trainer.py
-(reference runtime: Core/Worker.cpp:53-142 runTraining,
-Learner::blockDataAcquisition / blockGradientUpdates, Learner.cpp:102-123).
+Port of smarties_tpu/runtime/trainer.py (reference runtime:
+Core/Worker.cpp:53-142 runTraining, Learner::blockDataAcquisition /
+blockGradientUpdates, Learner.cpp:102-123).
 The host loop alternates rollout chunks over all vectorized envs with
 chunks of gradient steps, paced by the obsPerStep invariant, or runs the
 fused cycle (one env sweep, the at-ingest Retrace sweep, n_envs /
@@ -25,6 +25,27 @@ minibatch draws; parameters are initialised from a CPU generator so
 that they do not depend on the device. All three derive from
 cfg.randSeed.
 
+THE LEARNER MESH (`mesh=`, parallel/mesh.py; the reference's
+--nLearners K MPI ranks, the JAX package's "learners" mesh axis): one
+process per rank, each running this host loop on its own n_envs / K
+lanes and n_slots / K replay slots, with replicated parameters and
+optimizer state. Each rank's env, acting and batch generators derive
+from SeedSequence([randSeed, rank]); the parameters come from the same
+CPU generator on every rank, so they start identical, and stay so: the
+gradient is summed across ranks before each optimizer step. Every host
+decision that reads the replay (the warmup loop, the one-time start
+check, the PPO horizon fill) reads a count summed across ranks, and the
+refresh, log and save cadences follow host counters that every rank
+shares, so all ranks issue the same collectives in the same order.
+n_env_steps counts the lanes of all ranks. The refresh first balances
+episodes among the ranks (rebalance_shards); K1 runs on each rank's own
+slots. Rank 0 writes the run directory: the episode logs of every lane
+(gathered, lane rank * n_envs / K + lane), the status line and one
+checkpoint.pt in the single-rank layout, which restore splits by rank.
+log_status and save are collectives: call them on every rank, and give
+every rank the same run_dir.
+train_fused hands over to train() under a mesh, as in the JAX package.
+
 Logs as the JAX trainer writes them into a run directory:
 agent_00_rank00_cumulative_rewards.dat, with obs_log the raw observation
 stream agent_00_rank00_obs.raw (f32 rows [lane, status, state...,
@@ -34,8 +55,9 @@ the replay's stats table, the importance-weight histogram and the phase
 profiler's table (utils/profiler.py: ROLL, TRAIN, REFRESH and HOST timed
 by CUDA events on the card, read only there).
 
-Left out of the JAX trainer: the device mesh (ROADMAP B12), the
-TPU-worker crash retry of train_fused and SMT_PACK_STATES.
+Left out of the JAX trainer: the TPU-worker crash retry of train_fused,
+SMT_PACK_STATES and the single-controller shard addressing
+(_host_local), whose counterpart is the gather to rank 0.
 """
 from __future__ import annotations
 
@@ -46,9 +68,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from smarties_tpu_torch.algos.base import presample_uniform
+from smarties_tpu_torch.algos.base import local_batch, presample_uniform
 from smarties_tpu_torch.core.mdp import MDPSpec
 from smarties_tpu_torch.models.net import tree_map
+from smarties_tpu_torch.parallel import mesh as pm
 from smarties_tpu_torch.replay import buffer as rb
 from smarties_tpu_torch.replay.collector import (InProgress, RolloutCarry,
                                                  RolloutGens,
@@ -58,8 +81,9 @@ from smarties_tpu_torch.utils.config import HyperParameters
 from smarties_tpu_torch.utils.profiler import Profiler
 
 
-def _seeds(seed: int, n: int):
-    """n independent 63-bit seeds derived from one integer seed."""
+def _seeds(seed, n: int):
+    """n independent 63-bit seeds derived from one integer seed (or a
+    list of integers: SeedSequence's entropy)."""
     return [int(s.generate_state(2, np.uint64)[0] >> np.uint64(1))
             for s in np.random.SeedSequence(seed).spawn(n)]
 
@@ -90,6 +114,12 @@ def _restructure(template, plain):
     return plain
 
 
+def _inprog_lane_dim(x) -> int:
+    """The lane axis of an InProgress field: [L1, V, ...] buffers, [V]
+    cursors and returns."""
+    return 1 if x.dim() >= 2 else 0
+
+
 def checked_device(device) -> torch.device:
     """The torch.device of `device`, which is required; asking for a card
     where CUDA is not available raises (nothing falls back to the CPU)."""
@@ -104,34 +134,39 @@ def checked_device(device) -> torch.device:
     return dev
 
 
-def can_presample(algo, cfg: HyperParameters) -> bool:
+def can_presample(algo, cfg: HyperParameters, mesh=None) -> bool:
     """Indices can be drawn for a whole chunk up front when the sampler
     is uniform and the learner allows it (a `presample` attribute or a
     `presample_fn` of its own), as in the JAX package; the prioritized
     samplers depend on the TD errors each step writes and draw inside
-    the step, as does a learner that opts out (RACER-ES)."""
+    the step, as does a learner that opts out (RACER-ES). Under a mesh
+    only `presample` counts (the JAX package's sharded chunk,
+    parallel/mesh.py:91-92): ACER draws inside each step there."""
     return ((getattr(algo, "presample", False)
-             or hasattr(algo, "presample_fn"))
+             or (mesh is None and hasattr(algo, "presample_fn")))
             and cfg.dataSamplingAlgo in ("uniform", "default"))
 
 
 def train_chunk(algo, cfg: HyperParameters, params, opt_state,
                 rs: rb.ReplayState, gen: torch.Generator, n: int,
-                pre=None):
+                pre=None, mesh=None):
     """n gradient steps -> (params, opt_state, rs, metrics stacked [n]
     per key, on the device). The indices are drawn up front (the
     learner's `presample_fn`, else uniform) when the learner can
     presample, else by each step itself. pre: the chunk's (ep [n, B],
     t [n, B]) indices, given instead of drawn (a test's pinned
-    samples). The Trainer and the Engine's learners share this chunk."""
-    if pre is None and can_presample(algo, cfg):
-        fn = getattr(algo, "presample_fn", presample_uniform)
-        pre = fn(gen, rs, cfg.batchSize, n)
+    samples). The Trainer and the Engine's learners share this chunk.
+    mesh: the learner rank's mesh; each rank draws batchSize // K."""
+    if pre is None and can_presample(algo, cfg, mesh):
+        fn = (presample_uniform if mesh is not None
+              else getattr(algo, "presample_fn", presample_uniform))
+        pre = fn(gen, rs, local_batch(cfg, mesh), n)
     ms = []
     for i in range(n):
         params, opt_state, rs, m = algo.train_step(
             params, opt_state, rs, gen=gen,
-            sample_override=None if pre is None else (pre[0][i], pre[1][i]))
+            sample_override=None if pre is None else (pre[0][i], pre[1][i]),
+            mesh=mesh)
         ms.append(m)
     return params, opt_state, rs, {k: torch.stack([m[k] for m in ms])
                                    for k in ms[0]}
@@ -141,13 +176,18 @@ class Trainer:
     def __init__(self, env_module, mdp: MDPSpec, cfg: HyperParameters,
                  n_envs: int = 64, n_slots: Optional[int] = None,
                  max_len: int = 512, *, device, run_dir: Optional[str] = None,
-                 algo_cls=None, state_dtype=None, obs_log: bool = False):
+                 algo_cls=None, state_dtype=None, obs_log: bool = False,
+                 mesh: Optional[pm.LearnerMesh] = None):
         """device: where every tensor lives ("cuda", "cuda:1", "cpu"). It
         is required: nothing picks the CPU when a card is missing.
         state_dtype: storage type of the raw states in the replay and the
         in-progress episodes (default f32; torch.uint8 for pixels).
         obs_log: write the raw observation stream into run_dir (the
-        launcher's --logAllSamples)."""
+        launcher's --logAllSamples).
+        mesh: this process's learner rank (parallel/mesh.py). n_envs and
+        n_slots are the totals over all ranks and must divide by the
+        rank count; this rank holds n_envs / K lanes and n_slots / K
+        slots."""
         # the learner first: one the port lacks is reported before any
         # settings check
         if algo_cls is None:
@@ -172,10 +212,19 @@ class Trainer:
         self.n_slots = n_slots
         if n_envs > n_slots:
             raise ValueError(f"n_envs {n_envs} > n_slots {n_slots}")
+        self.mesh = mesh
+        K, rank = (mesh.size, mesh.rank) if mesh is not None else (1, 0)
+        if n_envs % K or n_slots % K:
+            raise ValueError(
+                f"{K} learner ranks must divide the env lanes ({n_envs}) "
+                f"and the replay slots ({n_slots})")
+        # this rank's share (the totals without a mesh)
+        self.n_local_envs, self.n_local_slots = n_envs // K, n_slots // K
+        self.is_coordinator = rank == 0
         self.run_dir = run_dir
         self._rew_file = self._obs_file = self._grads_file = None
         self.obs_log = obs_log and run_dir is not None
-        if run_dir:
+        if run_dir and self.is_coordinator:
             os.makedirs(run_dir, exist_ok=True)
             self._rew_file = open(os.path.join(
                 run_dir, "agent_00_rank00_cumulative_rewards.dat"), "a")
@@ -189,6 +238,9 @@ class Trainer:
                 run_dir, "grads_rank00.raw"), "ab")
 
         s_init, s_env, s_act, s_batch = _seeds(cfg.randSeed, 4)
+        if mesh is not None:
+            # the same parameters on every rank; its own streams per rank
+            s_env, s_act, s_batch = _seeds([cfg.randSeed, rank], 3)
         self.params, self.opt_state = self.algo.init(
             torch.Generator().manual_seed(s_init), self.device)
 
@@ -199,32 +251,51 @@ class Trainer:
             dev_gen(s_env), dev_gen(s_act), dev_gen(s_batch))
 
         sdt = state_dtype or torch.float32
-        rs = rb.init_replay(n_slots, max_len, mdp.dim_state_observed,
+        rs = rb.init_replay(self.n_local_slots, max_len,
+                            mdp.dim_state_observed,
                             mdp.dim_action, mdp.dim_policy,
                             cfg.clipImpWeight, mu_init=rb.safe_mu(mdp),
                             device=self.device, state_dtype=sdt)
-        ip = init_inprogress(n_envs, max_len, mdp.dim_state_observed,
-                             mdp.dim_action, mdp.dim_policy,
-                             device=self.device, state_dtype=sdt)
-        env_state = env_module.init(self.gen_env, n_envs, self.device)
+        ip = init_inprogress(self.n_local_envs, max_len,
+                             mdp.dim_state_observed, mdp.dim_action,
+                             mdp.dim_policy, device=self.device,
+                             state_dtype=sdt)
+        env_state = env_module.init(self.gen_env, self.n_local_envs,
+                                    self.device)
         self.carry = RolloutCarry(rs, ip, env_state,
                                   RolloutGens(self.gen_act, self.gen_env),
-                                  self._init_rnn(n_envs))
+                                  self._init_rnn(self.n_local_envs))
 
         act_fn = self.algo.make_act_fn(train=cfg.bTrain)
         # on-policy (PPO) fills a horizon, then clears: the commit cap gets
-        # slack so that commit-time pruning never drops fresh horizon data
+        # slack so that commit-time pruning never drops fresh horizon data.
+        # Each rank holds its share of the cap (the reference splits
+        # maxTotObsNum across learner ranks, defineDistributedLearning)
         self.on_policy = self.algo.on_policy
-        commit_cap = cfg.maxTotObsNum * (4 if self.on_policy else 1)
+        commit_cap = cfg.maxTotObsNum * (4 if self.on_policy else 1) // K
         self._rollout = make_rollout_chunk(
             env_module, mdp, act_fn, commit_cap, cfg.ERoldSeqFilter,
             record_obs=self.obs_log)
         mode = self.algo.returns_mode
-        # the three return-sweep callables (K1 runs inside each)
+        # the three return-sweep callables (K1 runs inside each, on this
+        # rank's slots)
         self._fix_returns = lambda r: rb.refresh_new_returns(
             r, cfg.gamma, cfg.lambda_, mode)
-        self._refresh = self.algo.refresh
-        self._init_stats = self.algo.initialize_stats
+        if mesh is None:
+            self._refresh = self.algo.refresh
+            self._init_stats = self.algo.initialize_stats
+        else:
+            def refresh(r, n_grad):
+                # balance the shards first (mesh.py:152-160 of the JAX
+                # package), with the global capacity as it passes it
+                r = rb.rebalance_shards(r, mesh, k_max=8,
+                                        max_tot_obs=cfg.maxTotObsNum,
+                                        filter_algo=cfg.ERoldSeqFilter)
+                return self.algo.refresh(r, n_grad, mesh=mesh)
+
+            self._refresh = refresh
+            self._init_stats = lambda r: self.algo.initialize_stats(
+                r, mesh=mesh)
         # phase profiler (Utils/Profiler; ROLL / TRAIN / REFRESH / HOST)
         self.profiler = Profiler(self.device)
 
@@ -276,11 +347,37 @@ class Trainer:
         if len(self._pending_logs) >= self.log_flush_threshold:
             self._flush_logs()
 
+    def _global_counts(self, *counts) -> list:
+        """Host ints of 0-d device counts, summed over the ranks under a
+        mesh (one collective: every rank calls this at the same point).
+        A synchronisation."""
+        v = torch.stack([c.to(torch.int64) for c in counts])
+        if self.mesh is not None:
+            pm.psum_(self.mesh, v)
+        return v.tolist()
+
+    def _gather_lanes(self, pending):
+        """The pending logs with every rank's lanes, on rank 0 (lane
+        rank * n_local + lane, the JAX mesh's global order); [] on the
+        other ranks. Each log field of all pending chunks goes in one
+        all_gather."""
+        n = [logs[0].shape[0] for logs, _, _ in pending]
+        fields = [pm.all_gather(self.mesh, torch.cat(
+            [logs[i] for logs, _, _ in pending]))
+            for i in range(len(pending[0][0]))]
+        if not self.is_coordinator:
+            return []
+        fields = [torch.cat(parts, dim=1).split(n) for parts in fields]
+        return [(tuple(f[j] for f in fields), g, e)
+                for j, (_, g, e) in enumerate(pending)]
+
     def _flush_logs(self):
         pending, self._pending_logs = self._pending_logs, []
         if not pending:
             return
         with self.profiler("HOST"):
+            if self.mesh is not None:
+                pending = self._gather_lanes(pending)
             for logs, g, e in pending:
                 self._log_episodes(logs, g, e)
 
@@ -341,10 +438,13 @@ class Trainer:
                 self._roll(chunk)
                 done += chunk
         else:
-            while int(self.replay.n_stored_steps()) < self.n_obs_b4_start:
-                in_flight = int(torch.sum(self.carry.inprog.t))
-                remaining = (self.n_obs_b4_start
-                             - int(self.replay.n_stored_steps()) - in_flight)
+            while True:
+                stored, in_flight = self._global_counts(
+                    self.replay.n_stored_steps(),
+                    torch.sum(self.carry.inprog.t))
+                if stored >= self.n_obs_b4_start:
+                    break
+                remaining = self.n_obs_b4_start - stored - in_flight
                 n = max(1, min(chunk, int(np.ceil(
                     max(remaining, self.n_envs) / self.n_envs))))
                 n = chunk if (n >= chunk or not adaptive) else 1
@@ -354,6 +454,18 @@ class Trainer:
         self._initialized = True
 
     # ------------------------------------------------------------------
+    def _keep_going(self, target: int, t0: float, max_wall_s: float) -> bool:
+        """The training loops' condition. Under a mesh a wall-clock limit
+        is decided by all ranks together (each rank's clock differs; a
+        rank that stopped alone would leave the others waiting)."""
+        go = (self.n_grad_steps < target
+              and time.time() - t0 < max_wall_s)
+        if self.mesh is not None and max_wall_s != float("inf"):
+            n_go, = self._global_counts(torch.full(
+                (), int(go), dtype=torch.int64, device=self.device))
+            go = n_go == self.mesh.size
+        return go
+
     def _n_loc_train_steps(self) -> int:
         return self.n_env_steps - self.n_obs_b4_start
 
@@ -362,7 +474,8 @@ class Trainer:
         one-time start condition reads the stored-step count back until
         it holds, then is cached."""
         if not self._min_stored_reached:
-            if int(self.replay.n_stored_steps()) < self.n_obs_b4_start:
+            stored, = self._global_counts(self.replay.n_stored_steps())
+            if stored < self.n_obs_b4_start:
                 return False
             self._min_stored_reached = True
         return (self._n_loc_train_steps()
@@ -383,7 +496,7 @@ class Trainer:
         stacked [n] per key, on the device."""
         self.params, self.opt_state, rs, metrics = train_chunk(
             self.algo, self.cfg, self.params, self.opt_state,
-            self.carry.replay, self.gen_batch, n)
+            self.carry.replay, self.gen_batch, n, mesh=self.mesh)
         self.carry = self.carry._replace(replay=rs)
         return metrics
 
@@ -409,15 +522,16 @@ class Trainer:
         learner has no such cycle and takes train()'s horizon loop, as in
         the JAX package; every other learner keeps the cycle, with each
         step drawing its own minibatch where it cannot presample (the
-        prioritized samplers, RACER-ES)."""
-        if self.on_policy:
+        prioritized samplers, RACER-ES). Under a mesh it hands over to
+        train(), as the JAX package does."""
+        if self.on_policy or self.mesh is not None:
             return self.train(n_grad_steps, log_every, max_wall_s)
         if not self._initialized:
             self.warmup()
         n_train = max(1, int(round(self.n_envs / self.cfg.obsPerStep)))
         target = self.n_grad_steps + n_grad_steps
         t0 = time.time()
-        while self.n_grad_steps < target and time.time() - t0 < max_wall_s:
+        while self._keep_going(target, t0, max_wall_s):
             metrics, logs = self._fused_cycle(1, n_train)
             self.n_env_steps += self.n_envs
             self.n_grad_steps += n_train
@@ -455,7 +569,7 @@ class Trainer:
         target = self.n_grad_steps + n_grad_steps
         t0 = time.time()
         Q = 100
-        while self.n_grad_steps < target and time.time() - t0 < max_wall_s:
+        while self._keep_going(target, t0, max_wall_s):
             allowed = int(self._n_loc_train_steps() / self.cfg.obsPerStep
                           ) - self.n_grad_steps
             allowed = min(allowed, target - self.n_grad_steps)
@@ -501,10 +615,11 @@ class Trainer:
         roll_n = max(1, min(64, (horizon // 8) // self.n_envs or 1))
         target = self.n_grad_steps + n_grad_steps
         t0 = time.time()
-        while self.n_grad_steps < target and time.time() - t0 < max_wall_s:
+        while self._keep_going(target, t0, max_wall_s):
             # fill the horizon with fresh on-policy data: one read of the
-            # stored-step count per rollout chunk
-            while int(self.replay.n_stored_steps()) < horizon:
+            # (global) stored-step count per rollout chunk
+            while self._global_counts(self.replay.n_stored_steps())[0] \
+                    < horizon:
                 self._roll(roll_n)
             if not self._initialized:
                 self.carry = self.carry._replace(
@@ -544,10 +659,17 @@ class Trainer:
     def log_status(self, full: bool = False):
         """The status line; the gradient moments into grads_rank00.raw;
         with `full` the stats table, the importance-weight histogram and
-        the profiler's table. Reads the device: a log-time call only."""
+        the profiler's table. Reads the device: a log-time call only.
+        Under a mesh every rank calls it (the episode logs and the replay
+        counts are gathered) and rank 0 prints; the stats table and the
+        histogram are of rank 0's shard."""
         self._flush_logs()
         self._check_nan()
         rs = self.replay
+        n_eps, n_obs = self._global_counts(rs.n_stored_eps(),
+                                           rs.n_stored_steps())
+        if not self.is_coordinator:
+            return
         avg_r = (np.mean(self._ep_returns[-100:])
                  if self._ep_returns else float("nan"))
         m = self._last_metrics
@@ -555,8 +677,7 @@ class Trainer:
         print(f"step {self.n_grad_steps:>8d} | envstep {self.n_env_steps:>9d}"
               f" | avgR {avg_r:8.2f} | beta {float(rs.beta):.3f}"
               f" | dkl {get('avg_dkl'):.4f} | rmse {get('rmse'):.3f}"
-              f" | nEp {int(rs.n_stored_eps())}"
-              f" | nObs {int(rs.n_stored_steps())}", flush=True)
+              f" | nEp {n_eps} | nObs {n_obs}", flush=True)
         if self._grads_file is not None and "grad_norm" in m:
             # f32 rows [grad_step, grad_norm, grad_max]
             self._grads_file.write(np.asarray(
@@ -613,32 +734,71 @@ class Trainer:
         return out
 
     # ------------------------------------------------------------------
+    def _gather(self, x, dim: int):
+        """Every rank's x concatenated along `dim` (x itself without a
+        mesh): the single-rank layout of a sharded tensor."""
+        if self.mesh is None:
+            return x
+        return torch.cat(pm.all_gather(self.mesh, x), dim=dim).cpu()
+
+    def _split(self, x, dim: int):
+        """This rank's block of a single-rank-layout tensor along `dim`
+        (the inverse of _gather)."""
+        if self.mesh is None:
+            return x
+        return x.chunk(self.mesh.size, dim)[self.mesh.rank].contiguous()
+
     def save(self, path: str):
         """Checkpoint params/opt/replay/rollout state/acting carry/
         generators/counters with torch.save (the fields of the JAX
         package's pickle; the replay in the port's per-field layout), and
         flush cumulative_rewards.dat. Loadable with weights_only=True:
-        named tuples are stored as plain dicts and lists."""
+        named tuples are stored as plain dicts and lists.
+
+        Under a mesh every rank calls it: the replay slots, the lanes'
+        in-progress episodes, env states and acting carries are gathered
+        into the single-rank layout (rank-major), the replicated fields
+        are rank 0's, and rank 0 writes the one file. The generators are
+        rank 0's under "gens" and every rank's under "rank_gens"."""
         self._flush_logs()
         for f in (self._rew_file, self._obs_file, self._grads_file):
             if f is not None:
                 f.flush()
+        rs = self.carry.replay
+        gens = {k: getattr(self, "gen_" + k).get_state()
+                for k in ("env", "act", "batch")}
+        extra = {}
+        if self.mesh is not None:
+            from smarties_tpu_torch.models.convert import gather_replay
+            parts = {f: pm.all_gather(self.mesh, getattr(rs, f))
+                     for f in rs.__dataclass_fields__}
+            rs = gather_replay([rb.ReplayState(**{
+                f: p[r].cpu() for f, p in parts.items()})
+                for r in range(self.mesh.size)])
+            extra["rank_gens"] = [
+                {k: g.cpu() for k, g in zip(gens, per_rank)}
+                for per_rank in zip(*(pm.all_gather(
+                    self.mesh, st.to(self.device)) for st in gens.values()))]
         ip = self.carry.inprog
         state = {
             "params": tree_map(lambda x: x.detach(), self.params),
             "opt_state": _plain(self.opt_state),
-            "replay": {f: getattr(self.carry.replay, f)
-                       for f in self.carry.replay.__dataclass_fields__},
-            "inprog": ip._asdict(),
-            "env_state": self.carry.env_state._asdict(),
-            "rnn": _plain(self.carry.rnn),
-            "gens": {k: getattr(self, "gen_" + k).get_state()
-                     for k in ("env", "act", "batch")},
+            "replay": {f: getattr(rs, f) for f in rs.__dataclass_fields__},
+            "inprog": {k: self._gather(v, _inprog_lane_dim(v))
+                       for k, v in ip._asdict().items()},
+            "env_state": {k: self._gather(v, 0) for k, v in
+                          self.carry.env_state._asdict().items()},
+            "rnn": _plain(tree_map(lambda x: self._gather(x, 0),
+                                   self.carry.rnn)),
+            "gens": gens,
             "n_env_steps": self.n_env_steps,
             "n_grad_steps": self.n_grad_steps,
             "initialized": self._initialized,
             "cfg": self.cfg.to_dict(),
+            **extra,
         }
+        if not self.is_coordinator:
+            return
         tmp = path + ".tmp"
         torch.save(state, tmp)
         os.replace(tmp, path)  # write-then-rename atomicity
@@ -648,19 +808,41 @@ class Trainer:
         into the existing leaves (nested {"net", "tgt"} trees included),
         the optimiser state and acting carry are rebuilt in the structure
         of the current ones (AdamState, MixedPGOptState, PPOOptState; the
-        carry's nested tuples, LSTM (h, c) pairs included)."""
+        carry's nested tuples, LSTM (h, c) pairs included).
+
+        Under a mesh each rank takes its block of the slots and lanes, and
+        the generators of its rank where the checkpoint has as many ranks
+        ("rank_gens"); a single process takes "gens". Otherwise the ranks
+        keep their own generators."""
         state = torch.load(path, map_location=self.device, weights_only=True)
+        n_saved = state["replay"]["slot_len"].shape[0]
+        if n_saved != self.n_slots:
+            raise ValueError(f"the checkpoint holds {n_saved} replay slots, "
+                             f"this trainer {self.n_slots}")
         with torch.no_grad():
             tree_map(lambda dst, src: dst.copy_(src), self.params,
                      state["params"])
         self.opt_state = _restructure(self.opt_state, state["opt_state"])
+        dims = pm.shard_fields(self.carry.replay)
+        rs = rb.ReplayState(**{
+            f: self._split(x, dims[f]) if f in dims else x
+            for f, x in state["replay"].items()})
+        if self.mesh is not None:
+            rs = rb.rebuild_sample_cache(rs)
         self.carry = RolloutCarry(
-            rb.ReplayState(**state["replay"]),
-            InProgress(**state["inprog"]),
-            type(self.carry.env_state)(**state["env_state"]),
+            rs,
+            InProgress(**{k: self._split(v, _inprog_lane_dim(v))
+                          for k, v in state["inprog"].items()}),
+            type(self.carry.env_state)(**{
+                k: self._split(v, 0) for k, v in state["env_state"].items()}),
             self.carry.gens,
-            _restructure(self.carry.rnn, state["rnn"]))
-        for k, st in state["gens"].items():
+            tree_map(lambda x: self._split(x, 0),
+                     _restructure(self.carry.rnn, state["rnn"])))
+        K = self.mesh.size if self.mesh is not None else 1
+        gens = state["gens"] if K == 1 else None
+        if self.mesh is not None and len(state.get("rank_gens", ())) == K:
+            gens = state["rank_gens"][self.mesh.rank]
+        for k, st in (gens or {}).items():
             getattr(self, "gen_" + k).set_state(st.cpu())
         self.n_env_steps = state["n_env_steps"]
         self.n_grad_steps = state["n_grad_steps"]

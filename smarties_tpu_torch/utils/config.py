@@ -149,8 +149,10 @@ class HyperParameters:
 
         Reference: HyperParameters::defineDistributedLearning
         (HyperParameters.cpp:182-210) splits batchSize and buffer bounds
-        across learner ranks (kept for config parity; the port runs on one
-        device).
+        across learner ranks. The learner mesh (parallel/mesh.py) keeps
+        the global settings and splits where it uses them: each rank
+        draws batchSize // K samples and commits into its share of
+        maxTotObsNum.
         """
         out = dataclasses.replace(self)
         out.batchSize = max(1, self.batchSize // n_learners)

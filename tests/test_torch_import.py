@@ -58,6 +58,7 @@ def test_port_imports_no_jax():
                 "runtime.bench_retrace", "runtime.engine",
                 "runtime.env_pool", "runtime.socket_pool",
                 "runtime.communicator", "runtime.team", "utils.config",
+                "parallel.mesh", "parallel.multihost",
                 "utils.recipes", "utils.stats", "utils.profiler", "launch"):
         assert "smarties_tpu_torch." + sub in res["submodules"], sub
     assert res["lazy"] == ["Communicator", "Engine", "HyperParameters",

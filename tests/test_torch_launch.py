@@ -21,8 +21,11 @@ Gaussian and the discrete advantage) run and restore the same way; ACER
 under PERrank keeps its own episode draw. CMA trains whole generations
 through the launcher and writes no checkpoint, as the JAX launcher does.
 Every recipe of utils/recipes.py builds, at its published widths, the
-learner the JAX registry builds for it (CMA: the CMAES). Unsupported
-apps and options raise NotImplementedError naming their ROADMAP item.
+learner the JAX registry builds for it (CMA: the CMAES).
+--nLearners 2 trains two gloo ranks on the CPU, whose checkpoint restores
+into one process; the app-script path and CMA run one process under it,
+as the JAX launcher does; a rank count that does not divide the lanes
+raises, and on the card so does one rank more than there are cards.
 The glider (RACER_glider) and predator-prey (VRACER, both agents' lanes
 feeding one learner) run through the launcher as the other apps do.
 """
@@ -167,14 +170,71 @@ def test_launch_builtin(tmp_path, app, recipe, extra, cls):
     assert np.isfinite(rets).all()
 
 
-@pytest.mark.parametrize("app,recipe,extra,item", [
-    ("catch", "VRACER", ("--nLearners", "2"), "B12"),
-    ("apps/cart_pole_py/exec.py", "VRACER", ("--nLearners", "2"), "B12"),
-    ("cartpole", "VRACER", ("--nLearners", "2"), "B12"),
+def test_launch_learners_cpu(tmp_path):
+    """--nLearners 2 on the CPU: two gloo ranks of 4 lanes each train
+    one policy; rank 0 writes the settings, the rewards of both ranks'
+    lanes and one checkpoint.pt, which restores into one process."""
+    path = tmp_path / "recipe.json"
+    path.write_text(json.dumps({**RECIPES["VRACER"], **TINY}))
+    args = _args(tmp_path, "cartpole", path, "--nLearners", "2")
+    assert launch.run(args) is None         # the ranks ran in their own
+    run = tmp_path / "r0"
+    got = json.loads((run / "settings.json").read_text())
+    assert got["batchSize"] == TINY["batchSize"]
+    rows = np.loadtxt(run / "agent_00_rank00_cumulative_rewards.dat",
+                      ndmin=2)
+    assert rows.shape[1] == 5
+    assert {int(a) // 4 for a in rows[:, 2]} == {0, 1}   # both ranks
+    one = launch.make_trainer(_args(tmp_path, "cartpole", path))
+    one.restore(str(run / "checkpoint.pt"))
+    assert one.n_grad_steps >= 40
+    assert one.replay.n_slots == one.n_slots
+    assert all(torch.isfinite(x).all() for x in tree_leaves(one.params))
+    assert int(one.replay.samp_csum[-1]) == int(one.replay.n_stored_steps())
+
+
+APP_TINY = {"nnLayerSizes": [16, 16], "batchSize": 16, "minTotObsNum": 128,
+            "maxTotObsNum": 1024}
+
+
+@pytest.mark.parametrize("app,recipe,n_envs,kind", [
+    ("apps/cart_pole_py/exec.py", json.dumps(APP_TINY), "2", "Engine"),
+    ("cartpole", json.dumps({**RECIPES["CMA"], "ESpopSize": 4,
+                             "batchSize": 2, "nnLayerSizes": [8]}), "8",
+     "CMAES"),
 ])
-def test_not_ported_raises(tmp_path, app, recipe, extra, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        launch.run(_args(tmp_path, app, recipe, *extra))
+def test_learners_one_process_paths(tmp_path, app, recipe, n_envs, kind):
+    """As the JAX launcher does, the app-script path (the Engine) and CMA
+    run one process whatever --nLearners says."""
+    args = launch.parse_args([
+        app, "--recipe", recipe, "--device", "cpu", "--runprefix",
+        str(tmp_path), "--runname", "r0", "--nEnvironments", n_envs,
+        "--nTrainSteps", "2" if kind == "CMAES" else "30",
+        "--maxEpisodeLength", "256", "--nLearners", "2"])
+    out = launch.run(args)
+    assert type(out).__name__ == kind
+    assert (tmp_path / "r0" / "settings.json").exists()
+
+
+def test_learners_must_divide_lanes(tmp_path):
+    args = _args(tmp_path, "cartpole", json.dumps(TINY), "--nLearners",
+                 "3", "--nEnvironments", "16")
+    with pytest.raises(ValueError, match="must divide --nEnvironments"):
+        launch.run(args)
+
+
+@pytest.mark.cuda
+def test_learners_more_than_cards_raise(tmp_path):
+    """NCCL takes one rank per card: one rank more than there are cards
+    raises before any rank starts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n = torch.cuda.device_count() + 1
+    args = _args(tmp_path, "cartpole", json.dumps(TINY), "--device",
+                 "cuda", "--nLearners", str(n), "--nEnvironments",
+                 str(8 * n))
+    with pytest.raises(ValueError, match="one rank per card"):
+        launch.run(args)
 
 
 def test_launch_cma(tmp_path):

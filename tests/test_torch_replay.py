@@ -242,6 +242,96 @@ def test_far_count_and_beta_alpha_and_cmax():
                                         "cinv_ret"), rtol=1e-6, atol=1e-7)
 
 
+def _one_episode(length, dim_s=DS):
+    """Both replays after tests/test_replay.py::commit_one: one episode of
+    `length` steps, rewards 1, rho 1 on its steps."""
+    b = _batch(0, [True], [length], [False])
+    b["rewards"][0, 1:length + 1] = 1.0
+    b["states"] = b["states"][..., :dim_s]
+    rj, rt = (jrb.init_replay(E, L, dim_s, DA, DP, 4.0),
+              trb.init_replay(E, L, dim_s, DA, DP, 4.0))
+    return _commit_both(rj, rt, b, 1000)
+
+
+def _both(rj, **kw):
+    """rj with kw set, and its port twin."""
+    rj = rj._replace(**kw)
+    return rj, convert.replay_from_jax(jax_replay_views(rj))
+
+
+@pytest.mark.parametrize("case", [
+    "beta_decreases_when_far", "beta_increases_when_near",
+    "beta_fixed_point_formula", "cmax_anneal", "far_policy_mask",
+    "init_stats_exact"])
+def test_refer_rules(case):
+    """The twins of tests/test_replay.py::TestReferRules and
+    TestStats::test_init_stats_exact: each of their inputs through the
+    JAX function and the port's, equal to the JAX result (rtol 1e-6;
+    statistics rtol 1e-5 / atol 1e-5) and meeting the JAX test's
+    assertion."""
+    B, maxN, D = 32, 100, 0.1
+    if case.startswith("beta"):
+        rj, _ = _one_episode(8)
+        far = case == "beta_decreases_when_far"
+        if far:
+            # every step far-policy, the incremental counts resynced
+            rj = rj._replace(rho=jnp.full_like(rj.rho, 100.0))
+            rj = rj._replace(far_count=jrb.far_count_exact(rj))
+        rj, rt = _both(rj, beta=jnp.float32(0.5))
+        rj, fj = jrb.update_beta_alpha(rj, B, maxN, D)
+        rt, ft = trb.update_beta_alpha(rt, B, maxN, D)
+        np.testing.assert_allclose(float(ft), float(fj), rtol=1e-6)
+        assert_replay_close(rj, rt, fields=("beta", "alpha"), rtol=1e-6,
+                            atol=0)
+        if case == "beta_fixed_point_formula":
+            # MemoryProcessing.cpp:73-85, one step toward 1
+            lr = 0.1 * B / max(maxN, int(rt.n_stored_steps()))
+            want = (1 - min(lr, 0.5)) * 0.5 + min(lr, 1 - 0.5)
+            np.testing.assert_allclose(float(rt.beta), want, rtol=1e-6)
+        else:
+            assert float(ft) == (1.0 if far else 0.0)
+            assert (float(rt.beta) < 0.5) == far
+    elif case == "cmax_anneal":
+        rj, rt = _fresh()
+        for step, eps, want in ((0.0, 0.0, 5.0), (1000.0, 1e-3, 3.0)):
+            rj = jrb.update_cmax(rj, jnp.float32(step), 4.0, eps)
+            rt = trb.update_cmax(rt, torch.tensor(step), 4.0, eps)
+            assert_replay_close(rj, rt, fields=("cmax_ret", "cinv_ret"),
+                                rtol=1e-6, atol=0)
+            np.testing.assert_allclose(float(rt.cmax_ret), want)
+    elif case == "far_policy_mask":
+        rho = np32([0.1, 0.5, 1.0, 3.9, 4.1])
+        for c, want in ((4.0, [True, False, False, False, True]),
+                        (1.0, [False] * 5)):     # C <= 1: no filtering
+            got = tn(trb.is_far_policy(tt(rho), torch.tensor(c),
+                                       torch.tensor(1.0 / c)))
+            np.testing.assert_array_equal(got, np.asarray(jrb.is_far_policy(
+                jnp.asarray(rho), jnp.float32(c), jnp.float32(1.0 / c))))
+            np.testing.assert_array_equal(got, want)
+    else:
+        # exact statistics of one episode of T steps (rtol as the JAX test)
+        T, L1 = 7, L + 1
+        rng = np.random.RandomState(0)
+        rj, rt = _one_episode(T, dim_s=2)
+        states = np32(rng.randn(L1, 2) * 3 + 1)
+        states[T + 1:] = 0
+        rewards = np.zeros((L1,), np.float32)
+        rewards[1:T + 1] = rng.randn(T) * 2 + 5
+        slot = int(np.argmax(np.asarray(rj.ep_id) >= 0))
+        rj, rt = _both(rj, states=rj.states.at[slot].set(states),
+                       rewards=rj.rewards.at[slot].set(rewards))
+        rj = jrb.update_state_rew_stats(rj, 1.0, b_init=True)
+        rt = trb.update_state_rew_stats(rt, 1.0, b_init=True)
+        assert_replay_close(rj, rt, fields=(
+            "state_mean", "state_std", "rew_mean", "rew_std"), **STATS)
+        r, s = rewards[1:T + 1], states[:T + 1]
+        np.testing.assert_allclose(float(rt.rew_mean), r.mean(), rtol=1e-4)
+        np.testing.assert_allclose(float(rt.rew_std), r.std(), rtol=1e-3)
+        np.testing.assert_allclose(tn(rt.state_mean), s.mean(0), rtol=1e-4,
+                                   atol=1e-5)
+        np.testing.assert_allclose(tn(rt.state_std), s.std(0), rtol=1e-3)
+
+
 @pytest.mark.parametrize("b_init,lr", [(True, 1.0), (False, 0.05)])
 def test_update_state_rew_stats(b_init, lr):
     rj, rt = _perturbed(cap=25)
