@@ -177,8 +177,18 @@ Phases, each reported on its own line:
    CUDA events beside the single-rank step's, the collectives per step
    (each a gloo host round trip) and one all-reduce's cost. NCCL is not
    measured: one card.
-`--only NAME ...` runs the device phase and the named phases of 17-21
-alone (glider, predator_prey, multitrainer, logs, multichip).
+22. curves: the learning-record tools (smarties_tpu_torch/tools) through
+   their command lines on the card at cut budgets: `learning_curves run
+   vracer_cma_cartpole --budget 2048` (warmup, 2 fused cycles of 1024
+   grad steps) and `run ppo_std_cartpole --budget 1` (one horizon of 320
+   updates), then `cma_func_max_record --generations 3` over 8 forked
+   func_maximization apps. Checks the rewards rows (5 columns) and every
+   summary key (the JAX tool's and the port's), a finite eval, the budget
+   reached, the card's name in the summary, K1's launches by site (one
+   per call; none in PPO's refresh) and mode; holds K1 against its plain
+   version at each run's replay shape (bit-equal) and times it there.
+`--only NAME ...` runs the device phase and the named phases of 17-22
+alone (glider, predator_prey, multitrainer, logs, multichip, curves).
 Then one JSON line with the kernels' results and, last, the device line.
 
 The script imports no JAX and nothing of the JAX package. Any failed
@@ -284,6 +294,12 @@ LOGS_ENVS, LOGS_STEPS = 64, 300
 # devices) and the single-rank steps timed beside it
 MC_RANKS, MC_ENVS, MC_SLOTS, MC_STEPS = 2, 1024, 4096, 1000
 MC_TIMEOUT_S, MC_RTOL, MC_ATOL, MC_SINGLE_STEPS = 300.0, 2e-5, 2e-6, 50
+# the curves phase: (combo, --budget, the grad steps it runs (whole fused
+# cycles of 1024 steps; one PPO horizon of 10 epochs x 2048 / 64), K1's
+# mode); CMA generations
+CURVES_RUNS = (("vracer_cma_cartpole", 2048, 2048, "retrace"),
+               ("ppo_std_cartpole", 1, 320, "GAE"))
+CURVES_CMA_GENERATIONS = 3
 
 
 def phase_device():
@@ -2960,10 +2976,118 @@ def phase_multichip():
                    "ranks_s": ranks_s}}
 
 
-# phases 17-21, by the names `--only` takes
+def phase_curves():
+    """The learning-record tools on the card through their own command
+    lines, at cut budgets; the files, keys and K1's launches checked; K1
+    against its plain version at each run's replay shape."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+    from smarties_tpu_torch.runtime import bench_retrace as bench
+    from smarties_tpu_torch.tools import cma_func_max_record as cmarec
+    from smarties_tpu_torch.tools import learning_curves as lc
+
+    dev = torch.device("cuda")
+    out = os.path.join(ROOT, "build", "chip_smoke_curves")
+    card = lc.card(dev)
+    jax_keys = {"name", "recipe", "env", "grad_steps", "env_steps",
+                "episodes", "wall_s", "eval_mean", "eval_std"}
+    port_keys = {"device", "power_limit", "budget", "wall_cap_s",
+                 "stopped_by", "cuts", "deviations", "k1_launches",
+                 "k1_calls", "k1_launches_by_entry", "replay"}
+    rng = np.random.RandomState(22)
+    err = {"retrace_sweep": 0.0}
+
+    def check(kname, got, want, what, exact):
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), \
+            f"curves: {kname} {what} not bit-equal to the plain version"
+        err[kname] = max(err[kname], float((got - want).abs().max())
+                         if got.numel() else 0.0)
+
+    results = {}
+    for name, budget, steps, mode in CURVES_RUNS:
+        rk.reset_launches()
+        t0 = time.perf_counter()
+        lc.main(["run", name, "--device", "cuda", "--budget", str(budget),
+                 "--out", out])
+        run_s = time.perf_counter() - t0
+        counts, modes = dict(rk.launches), dict(rk.launch_modes)
+        s = json.load(open(os.path.join(out, name, "summary.json")))
+        rows = np.loadtxt(os.path.join(out, name, lc.REWARDS), ndmin=2)
+        assert jax_keys | port_keys <= set(s), (name, sorted(s))
+        assert rows.shape[1] == 5 and len(rows) == s["episodes"] >= 1, \
+            (name, rows.shape, s["episodes"])
+        assert np.isfinite(rows).all() and np.isfinite(s["eval_mean"]), name
+        assert (s["grad_steps"], s["stopped_by"]) == (steps, "budget"), s
+        assert (s["device"], s["power_limit"]) == (card["device"],
+                                                   card["power_limit"]), s
+        no_sweep = {"refresh"} if mode == "GAE" else set()
+        assert set(s["k1_calls"]) == {"ingest", "initialize_stats",
+                                      "refresh"}, s["k1_calls"]
+        assert s["k1_launches"] == {
+            k: 0 if k in no_sweep else n for k, n in s["k1_calls"].items()}, \
+            (name, s["k1_launches"], s["k1_calls"])
+        total = sum(s["k1_launches"].values())
+        assert counts["retrace_sweep"] == sum(counts.values()) == total, \
+            (name, counts, s["k1_launches"])
+        assert s["k1_launches_by_entry"] == counts, (name, counts, s)
+        assert modes == {"retrace": 0, "GAE": 0, mode: total}, (name, modes)
+        E, L1 = s["replay"]
+        err["retrace_sweep"] = 0.0
+        _check_sweep(rng, E, L1, dev, check)
+        k1 = dict(bench.measure_sweep_at(dev, E, L1, mode),
+                  max_abs_err=err["retrace_sweep"])
+        print(f"curves: {name} (learning_curves run --budget {budget}): "
+              f"{s['grad_steps']} grad steps, {s['env_steps']} env steps, "
+              f"{s['episodes']} episodes in {s['wall_s']} s (command "
+              f"{run_s:.2f} s) | eval {s['eval_mean']} +- {s['eval_std']} "
+              f"| K1 launches by site {s['k1_launches']} of calls "
+              f"{s['k1_calls']}, by mode {modes} | K1 {mode} sweep at the "
+              f"replay's [{E}, {L1}]: bit-equal to the plain version in 12 "
+              f"cases | kernel {k1['ms']:.4f} ms (cold L2) | plain torch "
+              f"version {k1['plain_ms']:.4f} ms | {k1['bytes']} B, bound "
+              f"{k1['bound_ms'] * 1e3:.2f} us, share of bound "
+              f"{k1['share_of_bound']:.3f}", flush=True)
+        results[f"curves_{name}"] = {
+            "sites": s["k1_launches"], "launches": total, "modes": modes,
+            "k1": k1, "run_s": run_s, "grad_steps": s["grad_steps"],
+            "eval_mean": s["eval_mean"]}
+
+    rk.reset_launches()
+    t0 = time.perf_counter()
+    cma_out = os.path.join(out, "cma_func_max")
+    cmarec.main(["--device", "cuda", "--generations",
+                 str(CURVES_CMA_GENERATIONS), "--out", cma_out])
+    run_s = time.perf_counter() - t0
+    s = json.load(open(os.path.join(cma_out, "summary.json")))
+    curve = json.load(open(os.path.join(cma_out, "curve.json")))
+    assert {"name", "recipe", "app", "dim", "generations",
+            "final_avg_return", "final_objective", "proposed_x",
+            "optimum_x", "solved", "device", "power_limit"} <= set(s), s
+    assert [g for g, _ in curve] == list(
+        range(1, CURVES_CMA_GENERATIONS + 1)), curve
+    assert np.isfinite([r for _, r in curve] + [s["final_objective"]]).all()
+    assert s["device"] == card["device"], s
+    assert sum(rk.launches.values()) == 0, dict(rk.launches)
+    print(f"curves: cma_func_max_record --generations "
+          f"{CURVES_CMA_GENERATIONS}: avgR by generation "
+          f"{[round(r, 4) for _, r in curve]}, objective "
+          f"{s['final_objective']} at x {s['proposed_x']} (command "
+          f"{run_s:.2f} s) | K1 launches 0 (CMA runs no return sweep)",
+          flush=True)
+    results["curves_cma_func_max"] = {"launches": 0, "run_s": run_s,
+                                      "curve": curve}
+    shutil.rmtree(out)
+    return results
+
+
+# phases 17-22, by the names `--only` takes
 NEW_PHASES = {"glider": phase_glider, "predator_prey": phase_predator_prey,
               "multitrainer": phase_multitrainer, "logs": phase_logs,
-              "multichip": phase_multichip}
+              "multichip": phase_multichip, "curves": phase_curves}
 
 
 def main(argv=None):
@@ -3006,6 +3130,9 @@ def main(argv=None):
     logs = phase_logs()["logs"]
     learners.update(phase_multichip())
     kern["path_rows"]["multichip"] = learners["multichip"]["k1"]
+    learners.update(phase_curves())
+    for name, *_ in CURVES_RUNS:
+        kern["path_rows"][f"curves_{name}"] = learners[f"curves_{name}"]["k1"]
     launches = main_res["launches"]
 
     def row(entry, mode, case):

@@ -2,7 +2,8 @@
 
 A fresh interpreter imports smarties_tpu_torch and every submodule and
 reports what got loaded: no jax module, no module of the JAX package,
-and no kernel library built or loaded at import time.
+no matplotlib (the learning-record tools import it inside `render` and
+`--plot` only) and no kernel library built or loaded at import time.
 """
 import json
 import os
@@ -30,6 +31,8 @@ print(json.dumps({
     "reference": sorted(m for m in sys.modules
                         if m == "smarties_tpu"
                         or m.startswith("smarties_tpu.")),
+    "matplotlib": sorted(m for m in sys.modules
+                         if m.split(".")[0] == "matplotlib"),
     "kernel_loaded": retrace_kernel._lib is not None}))
 """
 
@@ -42,6 +45,7 @@ def test_port_imports_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["jax"] == [], res["jax"]
     assert res["reference"] == [], res["reference"]
+    assert res["matplotlib"] == [], res["matplotlib"]
     assert not res["kernel_loaded"]
     for sub in ("core.mdp", "ops.returns", "ops.retrace_kernel",
                 "ops.continuous_policy", "ops.discrete_policy",
@@ -59,7 +63,9 @@ def test_port_imports_no_jax():
                 "runtime.env_pool", "runtime.socket_pool",
                 "runtime.communicator", "runtime.team", "utils.config",
                 "parallel.mesh", "parallel.multihost",
-                "utils.recipes", "utils.stats", "utils.profiler", "launch"):
+                "utils.recipes", "utils.stats", "utils.profiler", "launch",
+                "tools.learning_curves", "tools.cma_func_max_record",
+                "tools.lstm_endurance", "tools.plot_weights"):
         assert "smarties_tpu_torch." + sub in res["submodules"], sub
     assert res["lazy"] == ["Communicator", "Engine", "HyperParameters",
                            "MDPSpec"]
