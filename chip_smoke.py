@@ -187,8 +187,21 @@ Phases, each reported on its own line:
    reached, the card's name in the summary, K1's launches by site (one
    per call; none in PPO's refresh) and mode; holds K1 against its plain
    version at each run's replay shape (bit-equal) and times it there.
-`--only NAME ...` runs the device phase and the named phases of 17-22
-alone (glider, predator_prey, multitrainer, logs, multichip, curves).
+23. bench: the port's bench (smarties_tpu_torch/bench.py) through its
+   `run` at full width: the main path's trainer (1024 envs, 4096 x 501
+   slots), warmup, one untimed and 2 timed fused cycles, the steady
+   phase as in the bench (64 sweeps, a chunk of 500 steps), the Atari
+   step with 128 presampled steps, and quality on seed 0 with 2 cycles
+   and the full evaluate(32). Checks that the line parses, fits 1800
+   characters and has every throughput, Atari and quality key, finite;
+   that K1 made one sweep launch per call of each site of the fused and
+   quality trainers, as many calls as the code makes, and none in the
+   steady and Atari phases. Then the serving bench
+   (tools/serving_bench.py) for 3 s over 4 forked apps: served > 0.
+   Prints the phase's time.
+`--only NAME ...` runs the device phase and the named phases of 17-23
+alone (glider, predator_prey, multitrainer, logs, multichip, curves,
+bench).
 Then one JSON line with the kernels' results and, last, the device line.
 
 The script imports no JAX and nothing of the JAX package. Any failed
@@ -300,6 +313,10 @@ MC_TIMEOUT_S, MC_RTOL, MC_ATOL, MC_SINGLE_STEPS = 300.0, 2e-5, 2e-6, 50
 CURVES_RUNS = (("vracer_cma_cartpole", 2048, 2048, "retrace"),
                ("ppo_std_cartpole", 1, 320, "GAE"))
 CURVES_CMA_GENERATIONS = 3
+# the bench phase: timed fused cycles, the Atari step's presampled steps,
+# quality cycles of seed 0; the serving bench's apps and seconds
+BENCH_CYCLES, BENCH_ATARI_STEPS, BENCH_QUALITY_CYCLES = 2, 128, 2
+SERVING_APPS, SERVING_S = 4, 3.0
 
 
 def phase_device():
@@ -613,18 +630,11 @@ def phase_reference():
 def phase_main_path():
     import numpy as np
     import torch
-    from smarties_tpu_torch.envs import cartpole
     from smarties_tpu_torch.ops import retrace_kernel as rk
-    from smarties_tpu_torch.runtime.trainer import Trainer
-    from smarties_tpu_torch.utils.config import HyperParameters
+    from smarties_tpu_torch.runtime.profile_main import main_path_trainer
 
-    cfg = HyperParameters(minTotObsNum=16384, maxTotObsNum=262144,
-                          batchSize=256, obsPerStep=1.0,
-                          nnLayerSizes=[128, 128], randSeed=0)
     t_build = time.perf_counter()
-    tr = Trainer(cartpole, cartpole.MDP, cfg, n_envs=1024, n_slots=4096,
-                 max_len=cartpole.MAX_STEPS, device="cuda")
-    tr.log_flush_threshold = 10 ** 9
+    tr = main_path_trainer(0, "cuda")
     assert tr.replay.rewards.shape == (MAIN_E, MAIN_L1)
     sites = SiteCounter(tr, rk)
     torch.cuda.synchronize()
@@ -3084,10 +3094,112 @@ def phase_curves():
     return results
 
 
-# phases 17-22, by the names `--only` takes
+# the bench line's keys that must hold finite numbers (the Atari MFU and
+# Adam floor may be null for a card missing from the bench's tables, with
+# the reason in atari_peak_note)
+BENCH_KEYS = ("combined_env_steps_per_s", "combined_grad_steps_per_s",
+              "fused_cycle_ms", "fused_cycle_ms_min", "fused_cycle_ms_median",
+              "fused_cycle_ms_max", "rollout_env_steps_per_s",
+              "train_chunk_grad_steps_per_s", "atari_train_step_ms",
+              "atari_grad_steps_per_s", "atari_flops_per_step_g",
+              "atari_tflops_achieved", "setup_s", "wall_s")
+BENCH_PEAK_KEYS = ("atari_mfu_vs_f32_peak", "atari_adam_hbm_floor_ms",
+                   "atari_adam_hbm_floor_frac")
+
+
+def phase_bench():
+    """The port's bench through its `run` at full width with cut
+    repetitions; the line's keys, K1's launches by site and phase; then
+    the serving bench."""
+    import math
+
+    from smarties_tpu_torch import bench
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+    from smarties_tpu_torch.tools import serving_bench
+
+    counters = {}
+
+    def hook(tr, phase):
+        counters[phase] = SiteCounter(tr, rk)
+
+    t0 = time.perf_counter()
+    line, errors = bench.run(
+        bench.Sizes(fused_cycles=BENCH_CYCLES,
+                    atari_steps=BENCH_ATARI_STEPS),
+        seeds=(0,), quality_cycles=BENCH_QUALITY_CYCLES, device="cuda",
+        partial_path=os.path.join(ROOT, "build", "chip_smoke_bench.json"),
+        hook=hook)
+    bench_s = time.perf_counter() - t0
+    assert errors == [], errors
+    assert len(line) <= bench.LINE_BUDGET, len(line)
+    doc = json.loads(line)
+    assert set(doc) == {"metric", "value", "unit", "vs_baseline",
+                        "extras"}, sorted(doc)
+    ex = doc["extras"]
+    for k in BENCH_KEYS:
+        assert isinstance(ex.get(k), (int, float)) and math.isfinite(ex[k]), \
+            (k, ex.get(k))
+    for k in BENCH_PEAK_KEYS:
+        assert (isinstance(ex.get(k), float) and math.isfinite(ex[k])) or (
+            k in ex and ex[k] is None and "atari_peak_note" in ex), (k, ex)
+    assert doc["value"] == ex["combined_env_steps_per_s"] > 0, doc["value"]
+    assert ex["fused_cycles"] == BENCH_CYCLES, ex
+    assert ex["skipped_for_budget"] == [], ex["skipped_for_budget"]
+    assert ex["quality_seeds"] == [0] and ex["quality_cycles"] == \
+        BENCH_QUALITY_CYCLES, ex
+    assert ex["quality_grad_steps"] == [
+        BENCH_QUALITY_CYCLES * bench.Sizes().n_envs], ex
+    assert ex["cut_by_wall_s"] == [False], ex
+    assert "episodes_to_threshold" in ex and "final_trail_mean" in ex, ex
+    ev = ex["eval_mean_deterministic"][0]
+    assert isinstance(ev, float) and math.isfinite(ev), ex
+    # K1: one sweep launch per site call, and the calls the code makes:
+    # fused: 1 warmup roll of 16 sweeps + 1 untimed and BENCH_CYCLES timed
+    # cycles at ingest, a refresh after each cycle (1024 steps cross a
+    # 1000-step boundary); quality: 64 blind sweeps in rolls of 16
+    want_calls = {
+        "fused": {"ingest": 2 + BENCH_CYCLES, "initialize_stats": 1,
+                  "refresh": 1 + BENCH_CYCLES},
+        "quality0": {"ingest": bench.Sizes().quality_sweeps // 16
+                     + BENCH_QUALITY_CYCLES,
+                     "initialize_stats": 1,
+                     "refresh": BENCH_QUALITY_CYCLES}}
+    k1 = ex["k1_launches"]
+    for phase, want in want_calls.items():
+        c = counters[phase]
+        assert c.calls == want, (phase, c.calls, want)
+        assert c.sites == c.calls, (phase, c.sites, c.calls)
+        assert k1[phase] == sum(c.sites.values()), (phase, k1, c.sites)
+    assert k1["steady"] == k1["atari"] == 0, k1
+    print(f"bench: the port's bench at full width ({BENCH_CYCLES} timed "
+          f"fused cycles, Atari {BENCH_ATARI_STEPS} steps, quality seed 0 "
+          f"x {BENCH_QUALITY_CYCLES} cycles) in {bench_s:.2f} s | line of "
+          f"{len(line)} characters: {line}", flush=True)
+    print(f"bench: K1 launches by phase {k1}; by site, fused "
+          f"{counters['fused'].sites}, quality0 "
+          f"{counters['quality0'].sites}, one per call", flush=True)
+
+    t1 = time.perf_counter()
+    srv = serving_bench.serve(SERVING_APPS, SERVING_S, "cuda")
+    assert srv["served"] > 0 and srv["rounds"] > 0, srv
+    phase_s = time.perf_counter() - t0
+    print(f"bench: serving_bench {SERVING_APPS} apps for {SERVING_S} s: "
+          f"served {srv['served']} states in {srv['seconds']:.1f}s -> "
+          f"{srv['states_per_s']:,.0f} states/s, {srv['rounds']} rounds "
+          f"(command {time.perf_counter() - t1:.2f} s) | phase "
+          f"{phase_s:.2f} s", flush=True)
+    return {"bench": {"sites": {p: dict(c.sites)
+                                for p, c in counters.items()},
+                      "launches": sum(k1.values()), "k1_by_phase": k1,
+                      "line_chars": len(line), "bench_s": bench_s,
+                      "serving": srv, "phase_s": phase_s}}
+
+
+# phases 17-23, by the names `--only` takes
 NEW_PHASES = {"glider": phase_glider, "predator_prey": phase_predator_prey,
               "multitrainer": phase_multitrainer, "logs": phase_logs,
-              "multichip": phase_multichip, "curves": phase_curves}
+              "multichip": phase_multichip, "curves": phase_curves,
+              "bench": phase_bench}
 
 
 def main(argv=None):
@@ -3131,6 +3243,7 @@ def main(argv=None):
     learners.update(phase_multichip())
     kern["path_rows"]["multichip"] = learners["multichip"]["k1"]
     learners.update(phase_curves())
+    learners.update(phase_bench())
     for name, *_ in CURVES_RUNS:
         kern["path_rows"][f"curves_{name}"] = learners[f"curves_{name}"]["k1"]
     launches = main_res["launches"]

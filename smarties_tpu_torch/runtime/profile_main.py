@@ -70,12 +70,19 @@ from smarties_tpu_torch.runtime.trainer import Trainer
 from smarties_tpu_torch.utils.config import HyperParameters
 
 
-def main_path_trainer() -> Trainer:
+def main_path_trainer(seed: int = 0, device="cuda", n_envs: int = 1024,
+                      n_slots: int = 4096) -> Trainer:
+    """The main path's V-RACER cart-pole trainer, the JAX package's
+    bench.py::_build_trainer: [128, 128], batch 256, obsPerStep 1,
+    minTotObsNum 16384, maxTotObsNum 262144, episodes up to 500 steps,
+    episode logs held on the device. The bench, this profiler and
+    chip_smoke.py build it here; the tests pass a smaller n_envs and
+    n_slots."""
     cfg = HyperParameters(minTotObsNum=16384, maxTotObsNum=262144,
                           batchSize=256, obsPerStep=1.0,
-                          nnLayerSizes=[128, 128], randSeed=0)
-    tr = Trainer(cartpole, cartpole.MDP, cfg, n_envs=1024, n_slots=4096,
-                 max_len=cartpole.MAX_STEPS, device="cuda")
+                          nnLayerSizes=[128, 128], randSeed=seed)
+    tr = Trainer(cartpole, cartpole.MDP, cfg, n_envs=n_envs, n_slots=n_slots,
+                 max_len=cartpole.MAX_STEPS, device=device)
     tr.log_flush_threshold = 10 ** 9
     return tr
 

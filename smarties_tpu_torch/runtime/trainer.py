@@ -20,10 +20,12 @@ so the host runs ahead of the card and a later CUDA-graph capture stays
 possible. Logs and metrics stay on the device until log time.
 
 Randomness comes from explicit torch.Generators on the device: one for
-env resets (and evaluation starts), one for acting noise, one for
-minibatch draws; parameters are initialised from a CPU generator so
-that they do not depend on the device. All three derive from
-cfg.randSeed.
+env resets, one for acting noise, one for minibatch draws and one for
+evaluation episodes (their starts and their acting), so that an
+evaluation between cycles leaves training as it was, as the JAX
+package's split of its host key does; parameters are initialised from
+a CPU generator so that they do not depend on the device. All four
+derive from cfg.randSeed.
 
 THE LEARNER MESH (`mesh=`, parallel/mesh.py; the reference's
 --nLearners K MPI ranks, the JAX package's "learners" mesh axis): one
@@ -237,18 +239,19 @@ class Trainer:
             self._grads_file = open(os.path.join(
                 run_dir, "grads_rank00.raw"), "ab")
 
-        s_init, s_env, s_act, s_batch = _seeds(cfg.randSeed, 4)
+        s_init, s_env, s_act, s_batch, s_eval = _seeds(cfg.randSeed, 5)
         if mesh is not None:
             # the same parameters on every rank; its own streams per rank
-            s_env, s_act, s_batch = _seeds([cfg.randSeed, rank], 3)
+            s_env, s_act, s_batch, s_eval = _seeds([cfg.randSeed, rank], 4)
         self.params, self.opt_state = self.algo.init(
             torch.Generator().manual_seed(s_init), self.device)
 
         def dev_gen(s):
             return torch.Generator(device=self.device).manual_seed(s)
 
-        self.gen_env, self.gen_act, self.gen_batch = (
-            dev_gen(s_env), dev_gen(s_act), dev_gen(s_batch))
+        self.gen_env, self.gen_act, self.gen_batch, self.gen_eval = (
+            dev_gen(s_env), dev_gen(s_act), dev_gen(s_batch),
+            dev_gen(s_eval))
 
         sdt = state_dtype or torch.float32
         rs = rb.init_replay(self.n_local_slots, max_len,
@@ -698,14 +701,16 @@ class Trainer:
     def evaluate(self, n_episodes: int = 10, max_steps: int = 1000,
                  materialize: bool = True):
         """Deterministic-policy evaluation episodes (bTrain=0 serving path,
-        Worker.cpp:91-111). Start states come from the env generator.
+        Worker.cpp:91-111). Start states and acting draws come from the
+        evaluation's own generator (`gen_eval`), so an evaluation leaves
+        the training streams untouched.
 
         materialize=False returns the device tensor of returns without
         reading it back (the caller checks it)."""
         act = self.algo.make_act_fn(False)
         env, mdp = self.env, self.mdp
         rs = self.replay
-        es = env.init(self.gen_env, n_episodes, self.device)
+        es = env.init(self.gen_eval, n_episodes, self.device)
         rets = torch.zeros((n_episodes,), dtype=torch.float32,
                            device=self.device)
         done = torch.zeros((n_episodes,), dtype=torch.bool,
@@ -720,7 +725,7 @@ class Trainer:
             hist = torch.cat([obs[:, None, :], hist[:, :k_app]], dim=1)
             obs_std = ((hist - rs.state_mean) * rs.state_scale
                        ).reshape(n_episodes, -1)
-            a, _, _, _, rnn = act(self.params, obs_std, self.gen_act, rnn)
+            a, _, _, _, rnn = act(self.params, obs_std, self.gen_eval, rnn)
             es, r, d, _ = env.step(es, mdp.learner_to_env_action(a))
             rets = rets + r * (~done).to(r.dtype)
             done = done | d
@@ -766,7 +771,7 @@ class Trainer:
                 f.flush()
         rs = self.carry.replay
         gens = {k: getattr(self, "gen_" + k).get_state()
-                for k in ("env", "act", "batch")}
+                for k in ("env", "act", "batch", "eval")}
         extra = {}
         if self.mesh is not None:
             from smarties_tpu_torch.models.convert import gather_replay

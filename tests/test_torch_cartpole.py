@@ -6,6 +6,7 @@ operation order in both: agreement to a few ulps, growing slowly over a
 rollout; 200 steps stay within rtol 1e-4 / atol 1e-5 on the state.
 Rewards, done and terminal flags must match exactly.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -101,3 +102,45 @@ def test_generator_draws_in_range():
     assert s.u.shape == (256, 4) and float(s.u.abs().max()) <= 0.05
     s2 = tc.reset_where(s, torch.ones(256, dtype=torch.bool), g)
     assert not torch.equal(s.u, s2.u) and float(s2.u.abs().max()) <= 0.05
+
+
+def test_500_steps_1024_lanes():
+    """The main path's width over a whole episode's length: 1024 lanes,
+    500 steps of fixed random forces, finished lanes reset to start
+    states drawn once from a seed and given to both, each side otherwise
+    going on from its own state; 8 lanes balanced at rest reach the
+    truncation at MAX_STEPS. Flags equal; the state within STATE_TOL
+    while its pole is up."""
+    n, steps = 1024, tc.MAX_STEPS
+    rng = np.random.RandomState(6)
+    u0 = _start(7, n)
+    acts = np32(rng.uniform(-1, 1, (steps, n, 1)))
+    news = np32(rng.uniform(-0.05, 0.05, (steps, n, 4)))
+    # 8 lanes rest upright with no force: they run to the truncation
+    u0[:8], acts[:, :8], news[:, :8] = 0.0, 0.0, 0.0
+    js = jc.CartPoleState(u=jnp.asarray(u0), step=jnp.zeros(n, jnp.int32))
+    ts = tc.init(None, n, u_new=tt(u0))
+    n_done = n_trunc = 0
+    jstep = jax.jit(jc.step)
+    for k in range(steps):
+        js, jr, jd, jt = jstep(js, jnp.asarray(acts[k]))
+        ts, tr, td, tterm = tc.step(ts, tt(acts[k]))
+        np.testing.assert_array_equal(tn(td), np.asarray(jd), f"step {k}")
+        np.testing.assert_array_equal(tn(tterm), np.asarray(jt))
+        np.testing.assert_array_equal(tn(tr), np.asarray(jr))
+        live = ~np.asarray(jc._failed(js.u))
+        np.testing.assert_allclose(tn(ts.u)[live], np.asarray(js.u)[live],
+                                   err_msg=f"step {k}", **STATE_TOL)
+        d = np.array(jd)
+        n_done += int(d.sum())
+        n_trunc += int((d & ~np.asarray(jt)).sum())
+        # finished lanes restart from the same start state on both sides;
+        # the others go on from each side's own state
+        step = np.where(d, 0, np.asarray(js.step)).astype(np.int32)
+        js = jc.CartPoleState(
+            u=jnp.asarray(np.where(d[:, None], news[k], np.asarray(js.u))),
+            step=jnp.asarray(step))
+        ts = tc.CartPoleState(
+            u=torch.where(torch.as_tensor(d)[:, None], tt(news[k]), ts.u),
+            step=torch.as_tensor(step))
+    assert n_done > n and n_trunc == 8, (n_done, n_trunc)

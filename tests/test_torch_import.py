@@ -65,7 +65,8 @@ def test_port_imports_no_jax():
                 "parallel.mesh", "parallel.multihost",
                 "utils.recipes", "utils.stats", "utils.profiler", "launch",
                 "tools.learning_curves", "tools.cma_func_max_record",
-                "tools.lstm_endurance", "tools.plot_weights"):
+                "tools.lstm_endurance", "tools.plot_weights", "bench",
+                "tools.serving_bench", "tools.submit"):
         assert "smarties_tpu_torch." + sub in res["submodules"], sub
     assert res["lazy"] == ["Communicator", "Engine", "HyperParameters",
                            "MDPSpec"]

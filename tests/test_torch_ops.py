@@ -185,3 +185,36 @@ def test_mdp_codec(fn):
     got = tn(getattr(tm, fn)(tt(x)))
     want = np.asarray(getattr(jm, fn)(jnp.asarray(x)))
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_klgrad_matches_autograd(seed):
+    """The twin of tests/test_policies.py::TestGaussianPolicy::
+    test_klgrad_matches_autodiff: the analytic d KL / d outputs equals
+    autograd of kl_div, beside test_kl_grad's value parity. kl_div reads
+    the unclamped mean, so the JAX test's three bounded cases are one
+    function; the twin draws three inputs instead."""
+    rng = np.random.RandomState(seed)
+    nA = 2
+    mean = tt(rng.randn(nA)).requires_grad_(True)
+    sraw = tt(rng.randn(nA)).requires_grad_(True)
+    mu = torch.cat([tt(rng.randn(nA)),
+                    tsp.softplus(tt(rng.randn(nA)))])
+    tcp.kl_div(mu, mean, tcp.sigma_of(sraw)).backward()
+    d_mean, d_sig = tcp.kl_grad(mu, mean.detach(),
+                                tcp.sigma_of(sraw.detach()), sraw.detach(),
+                                torch.tensor(1.0))
+    np.testing.assert_allclose(tn(d_mean), tn(mean.grad), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(tn(d_sig), tn(sraw.grad), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_vdiff_is_derivative():
+    """The twin of tests/test_policies.py::TestValueScale::
+    test_vdiff_is_derivative: scale_vdiff is autograd's derivative of
+    scale_net2v (f64 here; the JAX test takes central differences)."""
+    x = torch.linspace(-2, 2, 21, dtype=torch.float64).requires_grad_(True)
+    tvs.scale_net2v(x).sum().backward()
+    np.testing.assert_allclose(tn(tvs.scale_vdiff(x.detach())),
+                               tn(x.grad), rtol=1e-3, atol=1e-3)

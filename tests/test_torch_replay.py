@@ -653,3 +653,45 @@ def test_filter_victim_slots_on_commit(filt):
     rt = trb.commit_episodes(rt, *targs, 40, filt)
     assert_replay_close(rj, rt, **EXACT)
     assert (tn(rt.ep_id) != before).sum() >= 3
+
+
+def _one_lane(seed, length, L1, reward=1.0):
+    """One finished episode of `length` steps as a 1-lane commit batch:
+    the twin of tests/test_replay.py::commit_one."""
+    rng = np.random.RandomState(seed)
+    rew = np.zeros((1, L1), np.float32)
+    rew[:, 1:length + 1] = reward
+    rho = np.zeros((1, L1), np.float32)
+    rho[:, :length] = 1.0
+    return dict(states=np32(rng.randn(1, L1, DS)),
+                actions=np32(rng.randn(1, L1, DA)),
+                mus=np32(rng.randn(1, L1, DP)), rewards=rew,
+                value=np.zeros((1, L1), np.float32),
+                advantage=np.zeros((1, L1), np.float32),
+                qret=np.zeros((1, L1), np.float32), rho=rho,
+                length=np.asarray([length], np.int32),
+                terminal=np.asarray([False]), done=np.asarray([True]))
+
+
+def test_commit_overwrites_when_full():
+    """The twin of tests/test_replay.py::TestCommitPrune::
+    test_commit_overwrites_when_full: 5 episodes into 3 slots; the oldest
+    are evicted, as in the JAX replay field for field."""
+    rj = jrb.init_replay(3, L, DS, DA, DP, 4.0)
+    rt = trb.init_replay(3, L, DS, DA, DP, 4.0)
+    for i in range(5):
+        rj, rt = _commit_both(rj, rt, _one_lane(i, 4, L + 1), 1000)
+    ids = tn(rt.ep_id)
+    assert set(ids[ids >= 0]) == {2, 3, 4}
+    assert_replay_close(rj, rt, **EXACT)
+
+
+def test_single_long_episode_kept():
+    """The twin of ...::test_single_long_episode_kept: one episode longer
+    than maxTotObsNum survives the prune."""
+    rj = jrb.init_replay(E, 30, DS, DA, DP, 4.0)
+    rt = trb.init_replay(E, 30, DS, DA, DP, 4.0)
+    rj, rt = _commit_both(rj, rt, _one_lane(0, 25, 31), 10)
+    assert int(rt.n_stored_eps()) == 1 == int(rj.n_stored_eps())
+    assert int(rt.n_stored_steps()) == 25
+    assert_replay_close(rj, rt, **EXACT)

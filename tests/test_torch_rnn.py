@@ -248,7 +248,7 @@ def _lstm_trainer(tmp_path=None, seed=0):
 def _eval_by_hand(tr, n, steps, thread: bool):
     act = tr.algo.make_act_fn(False)
     rs = tr.replay
-    es = tc.pomdp.init(tr.gen_env, n, tr.device)
+    es = tc.pomdp.init(tr.gen_eval, n, tr.device)
     rets, done = torch.zeros(n), torch.zeros(n, dtype=torch.bool)
     rnn = tr._init_rnn(n)
     for _ in range(steps):
@@ -275,11 +275,11 @@ def test_recurrent_trainer_evaluate_and_restore(tmp_path):
             for k in ("Rc", "Ri", "Rf", "Ro"):
                 layer[k].mul_(40.0)
         tr.params["out"]["W"].mul_(200.0)
-    state = tr.gen_env.get_state()
+    state = tr.gen_eval.get_state()
     got = tr.evaluate(6, max_steps=40)
-    tr.gen_env.set_state(state)
+    tr.gen_eval.set_state(state)
     threaded = _eval_by_hand(tr, 6, 40, True)
-    tr.gen_env.set_state(state)
+    tr.gen_eval.set_state(state)
     dropped = _eval_by_hand(tr, 6, 40, False)
     np.testing.assert_array_equal(got, threaded)
     assert (got != dropped).any()
