@@ -5,8 +5,9 @@
 
 Phases, each reported on its own line:
 1. device: a CUDA card is required (exit 2 without one; there is no CPU
-   fallback). Prints `nvidia-smi --query-gpu=name,power.limit` and turns
-   TF32 off for matmuls and cuDNN.
+   fallback). Prints `nvidia-smi --query-gpu=name,power.limit`, turns
+   TF32 off for matmuls and cuDNN and keeps f32 accumulation in the bf16
+   GEMMs' split-K reductions (runtime/trainer.py::set_precision).
 2. kernels: builds K1 (csrc/retrace.cu) with nvcc from this checkout and
    holds its three entry points against their plain torch versions on
    the card at [200, 37], [33, 22], the main path's [4096, 501] and the
@@ -72,6 +73,22 @@ Phases, each reported on its own line:
    frames, uint8 replay; cuDNN's f32 backward sums in another order than
    the CPU's, and the params stay within the other learners' rtol 1e-4 /
    atol 1e-6).
+8b. bf16: the nnBf16 compute type (the dense and conv contractions in
+   bf16 with f32 accumulation). `catch` with RACER_atari and nnBf16
+   through the launcher at phase 8's width (1024 envs, 65,536 x 40 uint8
+   slots): warmup, one fused cycle of 1024 grad steps timed by CUDA
+   events (its 1000-step refresh at the end), evaluate(8, 39); one K1
+   Retrace launch per call at ingest, initialize_stats and refresh. Then
+   the RACER_atari grad step at profile_main.atari_setup's shapes in f32,
+   bf16, bf16, f32: ms per step by events, launches, device-busy ms,
+   TFLOP/s at the step's FLOPs from the shapes and the MFU against the
+   H100 SXM's dense BF16 (989.4 TFLOP/s) or FP32 (67) peak; the bf16
+   GEMM and conv kernels of a bf16 step counted by name with
+   torch.profiler (more than none; no kernel of an f32 step names bf16).
+   Last, 4 pinned bf16 grad steps at RACER_atari's widths on the card and
+   on the CPU from one state: their params must differ less than the
+   card's bf16 and f32 steps differ (so the card computed bf16, not TF32
+   or f32).
 9. samplers: the main path's learner (V-RACER, 1024 envs, 4096 x 501
    slots, [128, 128], batch 256) under dataSamplingAlgo PERrank with
    ERoldSeqFilter farpolfrac: warmup, train_fused(1024), one fused cycle
@@ -199,13 +216,17 @@ Phases, each reported on its own line:
    steady and Atari phases. Then the serving bench
    (tools/serving_bench.py) for 3 s over 4 forked apps: served > 0.
    Prints the phase's time.
-`--only NAME ...` runs the device phase and the named phases of 17-23
-alone (glider, predator_prey, multitrainer, logs, multichip, curves,
-bench).
+`--only NAME ...` runs the device phase and the named phases of 8b and
+17-23 alone (bf16, glider, predator_prey, multitrainer, logs, multichip,
+curves, bench).
 Then one JSON line with the kernels' results and, last, the device line.
 
 The script imports no JAX and nothing of the JAX package. Any failed
-check raises and the exit code is non-zero.
+check raises and the exit code is non-zero. Whether it passes or fails,
+it ends by stopping every process it started that is still running
+(forked apps, native clients, the multiprocessing resource tracker, and
+their orphans, which it reaps as the subreaper), and names them on
+stderr.
 """
 from __future__ import annotations
 
@@ -264,6 +285,13 @@ RNN_PATHS = (("racer_rnn", "RACER_RNN", 4096, 16384),
 RNN_ENVS, RNN_STEPS = 1024, 200
 # the conv / Atari phase
 ATARI_ENVS, ATARI_STEPS = 1024, 300
+# the bf16 phase: the grad step at atari_setup's shapes timed in each
+# dtype (calls by events, calls profiled); the card against the CPU
+# (replay slots of random pixels, pinned steps); the H100 SXM's dense
+# BF16 and FP32 peaks (NVIDIA's datasheet), TFLOP/s
+BF16_TIMED, BF16_PROFILED = 30, 5
+BF16_CVC_SLOTS, BF16_CVC_STEPS = 64, 4
+BF16_PEAK_TFLOPS, FP32_PEAK_TFLOPS = 989.4, 67.0
 # the samplers phase: steps through train()
 PER_STEPS = 100
 # the learning phase: tests/test_torch_e2e.py's settings
@@ -330,12 +358,13 @@ def phase_device():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from smarties_tpu_torch.runtime.trainer import set_precision
+    set_precision()
     print(card, flush=True)
     print(f"device: {torch.cuda.get_device_name(0)} | count "
           f"{torch.cuda.device_count()} | torch {torch.__version__} | "
-          f"cuda {torch.version.cuda} | tf32 off", flush=True)
+          f"cuda {torch.version.cuda} | tf32 off, bf16 reductions in f32",
+          flush=True)
     return card
 
 
@@ -1119,6 +1148,198 @@ def phase_atari():
                    "memory_peak_bytes": peak,
                    "init_stats_extra_bytes": init_extra,
                    "card_vs_cpu": worst}}
+
+
+def _bf16_kernels(counts):
+    """{name: launches} of the GEMM and convolution kernels among
+    `counts` whose names mark bf16 operands: cuDNN's and CUTLASS's name
+    the type, cuBLAS's `nvjet_tst_*` GEMMs mark bf16 operands with the
+    first letter of their type code (cuDNN's layout transforms and
+    padding kernels name bf16 too, and are left out)."""
+    gemm_or_conv = ("nvjet", "gemm", "fprop", "dgrad", "wgrad")
+    return {k: n for k, n in counts.items()
+            if _marks_bf16(k) and any(m in k.lower() for m in gemm_or_conv)}
+
+
+def _marks_bf16(name):
+    return (name.startswith("nvjet_t")
+            or any(m in name for m in ("bf16", "bfloat16", "BFloat16")))
+
+
+def _atari_step(bf16):
+    """The RACER_atari grad step at profile_main.atari_setup's shapes in
+    one compute type: (ms per step by events, the profile of
+    BF16_PROFILED steps, GFLOP of a step)."""
+    import torch
+    from smarties_tpu_torch.algos.base import presample_uniform
+    from smarties_tpu_torch.runtime import profile_main as pm
+
+    algo, params, opt, rs = pm.atari_setup("cuda", bf16=bf16)
+    B = algo.cfg.batchSize
+    n = 10 + BF16_TIMED + BF16_PROFILED
+    eps, ts = presample_uniform(torch.Generator(device="cuda").manual_seed(2),
+                                rs, B, n)
+    state = {"p": params, "o": opt, "rs": rs, "i": 0}
+
+    def step():
+        i = state["i"] % n
+        state["p"], state["o"], state["rs"], _ = algo.train_step(
+            state["p"], state["o"], state["rs"],
+            sample_override=(eps[i], ts[i]))
+        state["i"] += 1
+
+    for _ in range(10):
+        step()
+    ms = pm.time_calls(step, BF16_TIMED)[0]
+    prof = pm.profile_calls(step, BF16_PROFILED)
+    # [s_t; s_t1] go forward together and back together, as bench.py counts
+    gflop = pm.step_flops(algo.spec, 2 * B, 2 * B) / 1e9
+    del algo, params, opt, rs, state
+    torch.cuda.empty_cache()
+    return ms, prof, gflop
+
+
+def _bf16_card_vs_cpu():
+    """The same pinned state and (ep, t): BF16_CVC_STEPS bf16 grad steps
+    of the RACER_atari learner at its widths on the CPU and on the card,
+    and the same steps in f32 on the card -> (max |card bf16 - CPU bf16|,
+    max |card bf16 - card f32|) over the params."""
+    import torch
+    import dataclasses
+
+    from smarties_tpu_torch.algos.base import presample_uniform
+    from smarties_tpu_torch.algos.vracer import VRacer
+    from smarties_tpu_torch.models import convert
+    from smarties_tpu_torch.runtime.profile_main import atari_setup
+
+    algo, params, opt, rs = atari_setup("cpu", n_slots=BF16_CVC_SLOTS,
+                                        bf16=True)
+    eps, ts = presample_uniform(torch.Generator().manual_seed(3), rs,
+                                algo.cfg.batchSize, BF16_CVC_STEPS)
+    p_np, o_np = convert.params_to_jax(params), convert.opt_state_to_numpy(opt)
+    rs_np = convert.replay_to_numpy(rs)
+    out = {}
+    for dev, bf16 in (("cpu", True), ("cuda", True), ("cuda", False)):
+        learner = VRacer(algo.mdp, dataclasses.replace(algo.cfg,
+                                                       nnBf16=bf16))
+        assert learner.spec.compute_dtype == ("bfloat16" if bf16
+                                              else "float32")
+        p = convert.params_from_jax(p_np, dev)
+        o = convert.opt_state_from_jax(o_np, dev)
+        r = convert.replay_from_jax(rs_np, dev)
+        for i in range(BF16_CVC_STEPS):
+            p, o, r, _ = learner.train_step(
+                p, o, r, sample_override=(eps[i].to(dev), ts[i].to(dev)))
+        out[dev, bf16] = {k: x.detach().cpu() for k, x in _leaves(p)}
+
+    def gap(a, b):
+        return max(float((out[a][k] - out[b][k]).abs().max()) for k in out[a])
+
+    return gap(("cuda", True), ("cpu", True)), gap(("cuda", True),
+                                                   ("cuda", False))
+
+
+def phase_bf16():
+    """The nnBf16 compute type on the conv path: `catch` with RACER_atari
+    and nnBf16 through the launcher at the Atari phase's width; bf16 GEMM
+    and conv kernels in a grad step (none in f32); the card against the
+    CPU; the grad step timed in f32 and bf16."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from smarties_tpu_torch.envs import catch
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+    from smarties_tpu_torch.utils.recipes import RECIPES
+
+    name = "racer_atari_bf16"
+    recipe = json.dumps(dict(RECIPES["RACER_atari"], nnBf16=True))
+    # warmup from the recipe's 131072 observations, then one fused cycle:
+    # one env sweep and 1024 grad steps, the 1000-step refresh at its end
+    tr, hooks, counts, run_s = _launcher_path(
+        name, "catch", recipe, ATARI_ENVS, ATARI_ENVS)
+    modes, sites = dict(rk.launch_modes), dict(hooks["sites"].sites)
+    rets = tr.evaluate(8, max_steps=catch.MAX_STEPS)
+    _check_finite(name, tr, rets, 8)
+    assert tr.algo.spec.compute_dtype == "bfloat16" and tr.cfg.nnBf16
+    assert (tr.cfg.batchSize, tr.cfg.nnLayerSizes, tr.n_envs) == (
+        128, [512], ATARI_ENVS), tr.cfg
+    assert tuple(tr.replay.states_tm.shape) == (ATARI_L1, ATARI_E, 84 * 84)
+    assert tr.replay.states_tm.dtype == torch.uint8
+    assert hooks["cycles"] == 1 and hooks["steps"] == ATARI_ENVS, hooks
+    assert all(p.dtype == torch.float32 for _, p in _leaves(tr.params))
+    assert set(np.unique(rets)) <= {-1.0, 1.0}, rets
+    hooks["sites"].check_one_launch_per_call(
+        counts, ("ingest", "initialize_stats", "refresh"), name)
+    assert modes == {"retrace": counts["retrace_sweep"], "GAE": 0}, \
+        (name, modes, counts)
+    ms_step = hooks["train_ms"] / hooks["steps"]
+    print(f"bf16: {name} (catch, RACER_atari + nnBf16, {ATARI_ENVS} envs, "
+          f"uint8 replay {ATARI_E} x {ATARI_L1}): warmup "
+          f"{hooks['warmup_s']:.2f} s | one fused cycle "
+          f"{hooks['train_ms']:.1f} ms by events ({ms_step:.3f} ms/grad "
+          f"step, host wall {hooks['train_wall_s']:.2f} s) | launch.run "
+          f"{run_s:.2f} s | evaluate(8, 39) mean return "
+          f"{float(np.mean(rets)):.2f} | K1 sweep launches by site {sites},"
+          f" one per call, by mode {modes}", flush=True)
+    shutil.rmtree(tr.run_dir)
+    del tr
+    torch.cuda.empty_cache()
+
+    # the grad step in each dtype, in turns: f32, bf16, bf16, f32
+    steps = {"float32": [], "bfloat16": []}
+    for bf16 in (False, True, True, False):
+        ms, prof, gflop = _atari_step(bf16)
+        steps["bfloat16" if bf16 else "float32"].append((ms, prof))
+    for dtype, runs in steps.items():
+        peak, kind = ((BF16_PEAK_TFLOPS, "BF16") if dtype == "bfloat16"
+                      else (FP32_PEAK_TFLOPS, "FP32"))
+        for ms, prof in runs:
+            tflops = gflop / ms
+            print(f"bf16: RACER_atari grad step at atari_setup's shapes in "
+                  f"{dtype}: {ms:.3f} ms/step by events | "
+                  f"{prof['launches']:.1f} launches/step | "
+                  f"{prof['device_kernels']:.1f} device kernels/step | "
+                  f"device busy "
+                  f"{prof['busy_ms']:.3f} ms/step | {tflops:.3f} TFLOP/s at "
+                  f"{gflop:.3f} GFLOP a step | MFU {tflops / peak:.4f} of "
+                  f"the {peak} TFLOP/s dense {kind} peak (H100 SXM "
+                  f"datasheet)", flush=True)
+    # the bf16 GEMMs and convs of one step, by name
+    bf16_counts = steps["bfloat16"][0][1]["kernel_counts"]
+    f32_counts = steps["float32"][0][1]["kernel_counts"]
+    bf_kernels = _bf16_kernels(bf16_counts)
+    f32_marked = {k: n for k, n in f32_counts.items() if _marks_bf16(k)}
+    per_step = sum(bf_kernels.values()) / BF16_PROFILED
+    print(f"bf16: bf16 GEMM and conv kernels per bf16 step "
+          f"{per_step:.1f}: " + "; ".join(
+              f"{k[:90]} x{n // BF16_PROFILED}" for k, n in
+              sorted(bf_kernels.items())), flush=True)
+    print(f"bf16: kernels naming bf16 in an f32 step: {len(f32_marked)}",
+          flush=True)
+    # what the bf16 step runs in place of the f32 step's kernels
+    for label, a, b in (("bf16 only", bf16_counts, f32_counts),
+                        ("f32 only", f32_counts, bf16_counts)):
+        for k in sorted(set(a) - set(b)):
+            print(f"  {label}: x{a[k] / BF16_PROFILED:g}/step {k[:150]}",
+                  flush=True)
+    assert per_step > 0, "no bf16 GEMM or conv kernel ran in a bf16 step"
+    assert not f32_marked, f32_marked
+
+    d_cpu, d_f32 = _bf16_card_vs_cpu()
+    print(f"bf16: {BF16_CVC_STEPS} bf16 grad steps at RACER_atari's widths "
+          f"from one state: max |param, card - CPU| {d_cpu:.3e} | max "
+          f"|param, card bf16 - card f32| {d_f32:.3e}", flush=True)
+    assert d_cpu < d_f32, (d_cpu, d_f32)
+    return {name: {"sites": sites, "launches": counts["retrace_sweep"],
+                   "modes": modes, "ms_per_grad_step": ms_step,
+                   "run_s": run_s,
+                   "step": {k: [{"ms": ms, "launches": p["launches"],
+                                 "busy_ms": p["busy_ms"]} for ms, p in v]
+                            for k, v in steps.items()},
+                   "step_gflop": gflop,
+                   "bf16_kernels_per_step": per_step,
+                   "card_vs_cpu": d_cpu, "bf16_vs_f32": d_f32}}
 
 
 def phase_samplers():
@@ -3195,8 +3416,9 @@ def phase_bench():
                       "serving": srv, "phase_s": phase_s}}
 
 
-# phases 17-23, by the names `--only` takes
-NEW_PHASES = {"glider": phase_glider, "predator_prey": phase_predator_prey,
+# phases 8b and 17-23, by the names `--only` takes
+NEW_PHASES = {"bf16": phase_bf16, "glider": phase_glider,
+              "predator_prey": phase_predator_prey,
               "multitrainer": phase_multitrainer, "logs": phase_logs,
               "multichip": phase_multichip, "curves": phase_curves,
               "bench": phase_bench}
@@ -3211,6 +3433,7 @@ def main(argv=None):
                         "line (for work on one path; the check is the "
                         "run with no arguments)")
     args = p.parse_args(argv)
+    _adopt_orphans()
     phase_device()
     import torch
     if args.only:
@@ -3229,6 +3452,7 @@ def main(argv=None):
     learners.update(phase_on_policy())
     learners.update(phase_recurrent())
     learners.update(phase_atari())
+    learners.update(phase_bf16())
     learners.update(phase_samplers())
     learners.update(phase_learning())
     learners.update(phase_acer())
@@ -3336,5 +3560,76 @@ def main(argv=None):
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def _adopt_orphans():
+    """Make this process the reaper of its descendants' orphans
+    (prctl PR_SET_CHILD_SUBREAPER), so that _stop_children finds a
+    process whose parent ended before it did."""
+    import ctypes
+    ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+
+
+def _children():
+    """{pid: command line} of the processes whose parent is this one."""
+    me, kids = os.getpid(), {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        # the fields after the command's closing parenthesis: state, ppid
+        if int(stat.rsplit(")", 1)[1].split()[1]) == me:
+            kids[int(d)] = cmd.strip() or stat.split(" ", 2)[1]
+    return kids
+
+
+def _stop_children():
+    """Stop every process this run started that is still there: the
+    multiprocessing children, the resource tracker (which unlinks the
+    shared-memory segments left registered, then exits) and whatever
+    else has this process as its parent, orphans included. Prints what
+    was still running."""
+    import multiprocessing
+    import signal
+    from multiprocessing import resource_tracker
+    for p in multiprocessing.active_children():
+        p.terminate()
+        p.join(5)
+    resource_tracker._resource_tracker._stop()
+    stopped = []
+    # a process stopped here may leave orphans of its own: sweep again
+    for _ in range(5):
+        left = _children()
+        if not left:
+            break
+        stopped += left.values()
+        for pid in left:
+            try:
+                os.kill(pid, signal.SIGTERM)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + 5
+        for pid in left:
+            try:
+                while os.waitpid(pid, os.WNOHANG) == (0, 0):
+                    if time.monotonic() > deadline:
+                        os.kill(pid, signal.SIGKILL)
+                        os.waitpid(pid, 0)
+                        break
+                    time.sleep(0.05)
+            except ChildProcessError:
+                pass
+    if stopped:
+        print(f"chip_smoke: stopped {len(stopped)} processes still running "
+              f"at the end: " + "; ".join(c[:100] for c in stopped),
+              file=sys.stderr, flush=True)
+
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        _stop_children()

@@ -69,7 +69,8 @@ class DQN(Learner):
             n_in=mdp.dim_net_input, hidden=tuple(cfg.nnLayerSizes),
             conv=tuple(Conv2DDesc(*c) for c in mdp.conv_layers),
             n_out=self.n_opts, kind=cfg.nnType, act=cfg.nnFunc,
-            out_prefac=cfg.outWeightsPrefac)
+            out_prefac=cfg.outWeightsPrefac,
+            compute_dtype="bfloat16" if cfg.nnBf16 else "float32")
         self.adam_cfg = AdamConfig(eta=cfg.learnrate, lambda_=cfg.nnLambda,
                                    eps_anneal=cfg.epsAnneal)
         # the factory default estimator for DQN is "none"

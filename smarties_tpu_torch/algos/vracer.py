@@ -73,7 +73,8 @@ class VRacer(Learner):
         common = dict(n_in=mdp.dim_net_input, hidden=tuple(cfg.nnLayerSizes),
                       conv=tuple(Conv2DDesc(*c) for c in mdp.conv_layers),
                       kind=cfg.nnType, act=cfg.nnFunc,
-                      out_prefac=cfg.outWeightsPrefac)
+                      out_prefac=cfg.outWeightsPrefac,
+                      compute_dtype="bfloat16" if cfg.nnBf16 else "float32")
         if self.discrete:
             self.n_opts = mdp.max_action_label
             self.nL = adv_ops.discrete_n_outputs(self.n_opts)

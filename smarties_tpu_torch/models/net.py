@@ -47,8 +47,17 @@ order as the JAX package's NHWC conv flattens it, so the first dense
 layer's rows mean the same in both. The conv itself is
 torch.nn.functional.conv2d (cuDNN on the card), run channels_last there.
 The JAX package's space-to-depth rewrite of the first layer is a layout
-transform for another device and computes the same sums: not ported. The
-bf16 compute type is not ported.
+transform for another device and computes the same sums: not ported.
+
+`NetSpec.compute_dtype = "bfloat16"` (the settings' nnBf16) runs the
+dense and conv contractions as the JAX package runs them: both operands
+cast to bf16, the product accumulated in f32 and rounded to bf16, then
+cast back to f32. That covers the FFNN layers, the output layer and the
+convs (the input is cast before its reshape; each conv's bias is added
+in f32 after the upcast). The recurrent cells' products, the parameter
+head, the bias adds, the activations and the residual sums stay f32, and
+the leaves stay f32: autograd through the casts gives the JAX VJP, whose
+cotangents are cast to bf16 for the transposed products and back.
 """
 from __future__ import annotations
 
@@ -138,7 +147,7 @@ class Conv2DDesc:
 @dataclass(frozen=True)
 class NetSpec:
     """Static architecture description (Builder.cpp:27-180); the fields
-    of the JAX package's NetSpec without the compute type."""
+    of the JAX package's NetSpec."""
     n_in: int
     hidden: Tuple[int, ...] = (128, 128)
     n_out: int = 1
@@ -154,10 +163,15 @@ class NetSpec:
     # conv preprocessing stack applied to the (flattened-image) input
     # before the dense layers (addConv2d, Conv2Dfactory.h)
     conv: Tuple[Conv2DDesc, ...] = ()
+    # "bfloat16": the dense and conv contractions in bf16 with f32
+    # accumulation (see the module docstring); "float32" throughout else
+    compute_dtype: str = "float32"
 
     def __post_init__(self):
         if self.kind not in ("FFNN", "RNN", "LSTM", "GRU"):
             raise ValueError(f"nnType {self.kind!r}")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype {self.compute_dtype!r}")
 
     @property
     def total_out(self) -> int:
@@ -277,18 +291,35 @@ def init_carry(spec: NetSpec, batch_shape=(), device=None):
                  for h in spec.hidden)
 
 
-def _conv_stack(layers, conv: Tuple[Conv2DDesc, ...], x):
+def _mm(a, w, bf16: bool):
+    """a @ w; in bf16 with the result rounded to bf16 and cast back, as
+    the JAX package's `mm` computes it."""
+    if not bf16:
+        return a @ w
+    return (a.to(torch.bfloat16) @ w.to(torch.bfloat16)).float()
+
+
+def _conv_stack(layers, conv: Tuple[Conv2DDesc, ...], x, bf16: bool):
     """[..., C*H*W] flat CHW input -> [..., h*w*c] features, flattened in
     (h, w, c) order."""
+    conv2d = torch.nn.functional.conv2d
     c0 = conv[0]
     lead = x.shape[:-1]
+    if bf16:
+        x = x.to(torch.bfloat16)
     h = x.reshape((-1, c0.in_c, c0.in_h, c0.in_w))
     if h.is_cuda:
         h = h.contiguous(memory_format=torch.channels_last)
     for layer, c in zip(layers, conv):
         # leaves are HWIO; conv2d takes OIHW
         w = layer["W"].permute(3, 2, 0, 1)
-        h = torch.nn.functional.conv2d(h, w, layer["b"], stride=c.stride)
+        if bf16:
+            # the bias joins in f32, after the upcast
+            h = (conv2d(h.to(torch.bfloat16), w.to(torch.bfloat16),
+                        stride=c.stride).float()
+                 + layer["b"][:, None, None])
+        else:
+            h = conv2d(h, w, layer["b"], stride=c.stride)
         h = _ACTS["LRelu"](h)
     # a view where h is channels_last
     return h.permute(0, 2, 3, 1).reshape(lead + (-1,))
@@ -300,13 +331,14 @@ def apply_net(params: Dict, spec: NetSpec, x, carry=()):
     Batched over leading axes; a recurrent carry (see init_carry) must
     share those axes. Feed-forward nets return ()."""
     act = _ACTS[spec.act]
+    bf16 = spec.compute_dtype == "bfloat16"
     h = x
     if spec.conv:
-        h = _conv_stack(params["conv"], spec.conv, h)
+        h = _conv_stack(params["conv"], spec.conv, h, bf16)
     new_carry = []
     for li, layer in enumerate(params["layers"]):
         if spec.kind == "FFNN":
-            h_new = act(h @ layer["W"] + layer["b"])
+            h_new = act(_mm(h, layer["W"], bf16) + layer["b"])
             if spec.residual and h_new.shape[-1] == h.shape[-1]:
                 h_new = h_new + h
             h = h_new
@@ -334,7 +366,8 @@ def apply_net(params: Dict, spec: NetSpec, x, carry=()):
                             + layer["bh"])
             h = (1 - f) * hprev + f * hh
             new_carry.append(h)
-    y = _ACTS[spec.out_act](h @ params["out"]["W"] + params["out"]["b"])
+    y = _ACTS[spec.out_act](_mm(h, params["out"]["W"], bf16)
+                            + params["out"]["b"])
     if spec.n_param_out:
         p = params["param"].expand(tuple(y.shape[:-1])
                                    + (spec.n_param_out,))

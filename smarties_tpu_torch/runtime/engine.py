@@ -70,7 +70,8 @@ from smarties_tpu_torch.replay import buffer as rb
 from smarties_tpu_torch.runtime.communicator import FAIL, INIT, LAST, TERM
 from smarties_tpu_torch.runtime.env_pool import EnvPool
 from smarties_tpu_torch.runtime.trainer import (_plain, _restructure,
-                                                checked_device, train_chunk)
+                                                checked_device, set_precision,
+                                                train_chunk)
 from smarties_tpu_torch.utils.config import HyperParameters
 
 
@@ -154,6 +155,7 @@ class _LearnerBundle:
                  lanes: List[int], max_ep_len: int, *, device):
         from smarties_tpu_torch.algos.registry import make_learner
         self.device = checked_device(device)
+        set_precision()
         self.learner_id = learner_id
         self.mdp = mdp
         self.cfg = cfg

@@ -172,6 +172,13 @@ class EnvPool:
         self.n_members = max(1, int(workers_per_env))
         self.max_respawns = max_respawns
         self._respawns = [0] * n_envs            # per team
+        if self._use_shm:
+            # the workers' slabs register with this process's resource
+            # tracker: a worker forked before it runs starts a tracker of
+            # its own, which outlives the worker as an orphan, and the
+            # slab the worker unlinks stays registered here
+            from multiprocessing import resource_tracker
+            resource_tracker.ensure_running()
         n_procs = n_envs * self.n_members
         self._conns: List = [None] * n_procs     # member-indexed
         self._procs: List = [None] * n_procs

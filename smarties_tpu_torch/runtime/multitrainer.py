@@ -38,7 +38,7 @@ from smarties_tpu_torch.replay.multi_collector import (MultiRolloutCarry,
                                                        make_multi_rollout_chunk)
 from smarties_tpu_torch.runtime.trainer import (_plain, _restructure,
                                                 _seeds, checked_device,
-                                                train_chunk)
+                                                set_precision, train_chunk)
 
 
 class MultiTrainer:
@@ -63,8 +63,7 @@ class MultiTrainer:
                       for m, c in zip(self.mdps, self.cfgs)]
         for c in self.cfgs:
             c.check()
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        set_precision()
         self.device = checked_device(device)
         self.n_envs = n_envs
         self.max_len = max_len

@@ -66,7 +66,7 @@ from smarties_tpu_torch.envs import cartpole, catch
 from smarties_tpu_torch.models.net import _mlp_in_dim
 from smarties_tpu_torch.ops import retrace_kernel as rk
 from smarties_tpu_torch.replay import buffer as rb
-from smarties_tpu_torch.runtime.trainer import Trainer
+from smarties_tpu_torch.runtime.trainer import Trainer, set_precision
 from smarties_tpu_torch.utils.config import HyperParameters
 
 
@@ -124,10 +124,14 @@ def profile_calls(fn, n: int):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     launches = sum(1 for e in prof.events()
                    if e.name.startswith("cudaLaunchKernel"))
+    counts = {}
+    for e in kernels:
+        counts[e.name] = counts.get(e.name, 0) + 1
     return {"wall_ms": wall_ms / n, "busy_ms": busy_ms / n,
             "busy_share": busy_ms / wall_ms, "launches": launches / n,
             "device_kernels": len(kernels) / n,
-            "top_kernels": [(k[:60], us / 1e3 / n) for k, us in top]}
+            "top_kernels": [(k[:60], us / 1e3 / n) for k, us in top],
+            "kernel_counts": counts}
 
 
 def composed_sweep_(rs, select, gamma, lam, mode, zero_unselected):
@@ -201,15 +205,17 @@ def step_flops(spec, n_forward: int, n_backward: int) -> int:
 
 
 def atari_setup(device, seed: int = 0, n_slots: int = 512,
-                max_len: int = 128):
+                max_len: int = 128, bf16: bool = False):
     """(learner, params, optimiser state, replay): RACER-discrete, 6
     actions, the Mnih stack over 4 stacked 84x84 frames, [512], batch 128,
-    on a uint8 replay of n_slots full episodes of random pixels."""
+    on a uint8 replay of n_slots full episodes of random pixels; `bf16`:
+    the nnBf16 compute type."""
     from smarties_tpu_torch.algos.vracer import VRacer
     mdp = MDPSpec(dim_state=84 * 84, dim_action=1, discrete_values=(6,),
                   n_appended_obs=3, conv_layers=catch.CONV_STACK)
     cfg = HyperParameters(batchSize=128, nnLayerSizes=[512], gamma=0.99,
-                          minTotObsNum=16384, maxTotObsNum=262144)
+                          minTotObsNum=16384, maxTotObsNum=262144,
+                          nnBf16=bf16)
     algo = VRacer(mdp, cfg)     # discrete: the RACER rewrite
     params, opt = algo.init(torch.Generator().manual_seed(seed), device)
     rs = rb.init_replay(n_slots, max_len, mdp.dim_state_observed,
@@ -325,9 +331,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("profile_main: needs a CUDA card", file=sys.stderr)
         sys.exit(2)
-    # f32 throughout, as the Trainer sets it: no TF32 in matmuls or convs
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_precision()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -122,6 +122,16 @@ def _inprog_lane_dim(x) -> int:
     return 1 if x.dim() >= 2 else 0
 
 
+def set_precision():
+    """The contractions as the JAX package computes them, for every entry
+    point: f32 products and convolutions without TF32, and bf16 GEMMs
+    (nnBf16) that keep f32 accumulation in cuBLAS's split-K reduction.
+    Sets nothing else."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 def checked_device(device) -> torch.device:
     """The torch.device of `device`, which is required; asking for a card
     where CUDA is not available raises (nothing falls back to the CPU)."""
@@ -198,11 +208,7 @@ class Trainer:
         else:
             self.algo = algo_cls(mdp, cfg)
         cfg.check()
-        if cfg.nnBf16:
-            raise NotImplementedError("nnBf16: the port computes in f32")
-        # f32 throughout: no TF32 in matmuls or convolutions
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        set_precision()
         self.device = checked_device(device)
         self.env = env_module
         self.mdp = mdp

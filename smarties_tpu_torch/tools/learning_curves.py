@@ -36,9 +36,8 @@ Differences from the JAX tool:
   256 cycles costs the host loop nothing measurable.
 - summary.json adds the card's name and power limit, the budget and wall
   cap, what stopped the run, the cuts asked for, the deviations from the
-  combo's settings and K1's launches by site and by entry point.
-- The port computes in f32: a combo with nnBf16 (racer_catch) runs in f32
-  and its summary says so.
+  combo's settings (none: every combo runs its settings as they are) and
+  K1's launches by site and by entry point.
 """
 import argparse
 import importlib
@@ -286,10 +285,6 @@ def train_combo(name, device="cuda", *, out=OUT, run_dir=None, budget=None,
     env = _import_env(c["env"])
     d = dict(recipes.RECIPES[c["recipe"]])
     d.update(c["over"])
-    deviations = []
-    if d.get("nnBf16"):
-        d["nnBf16"] = False
-        deviations.append("nnBf16: run in f32 (the port computes in f32)")
     cuts = {k: v for k, v in (("budget", budget),
                               ("wall", None if wall == float("inf")
                                else wall),
@@ -343,7 +338,7 @@ def train_combo(name, device="cuda", *, out=OUT, run_dir=None, budget=None,
         "budget": budget, "wall_cap_s": None if wall == float("inf")
         else wall, "wall_s": wall_s,
         "stopped_by": "budget" if tr.n_grad_steps >= budget else "wall",
-        "cuts": cuts, "deviations": deviations,
+        "cuts": cuts, "deviations": [],
         "k1_launches": sites.launches, "k1_calls": sites.calls,
         "k1_launches_by_entry": sites.by_entry(),
         "replay": [tr.n_slots, tr.max_len + 1], **device_info}

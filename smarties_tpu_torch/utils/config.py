@@ -55,8 +55,9 @@ class HyperParameters:
     nnBPTTseq: int = 16
     nnLambda: float = 0.0              # L2 penalty coefficient
     outWeightsPrefac: float = 0.1      # output-layer init scale factor
-    # JAX-package extension (bf16 matmuls); the port computes in f32
-    # only and Trainer rejects True (kept so that configs load unchanged)
+    # JAX-package extension: the dense and conv contractions of RACER,
+    # V-RACER, RACER-ES and DQN in bf16 with f32 accumulation
+    # (models/net.py); the other learners compute in f32 either way
     nnBf16: bool = False
     # DQN exploration mode (reference compile switch DQN_USE_POLICY,
     # DQN.cpp:15): False = Boltzmann-over-Q + ReF-ER (the reference's

@@ -23,8 +23,11 @@ and 0, terminal and truncated.
 Two more checks need the card though they hold no kernel of the port's
 own: the conv stack (cuDNN, channels_last) against the CPU, forward and
 gradients at the Mnih shapes with TF32 off (rtol 1e-4 / atol 1e-5: sums
-of up to 3136 f32 products in another order), and the inverse-CDF draw
-on the card against the CPU at 2^21 categories (equal).
+of up to 3136 f32 products in another order), the same net with the
+bf16 compute type (nnBf16) on the card against the CPU (the output, and
+the gradients taken together, nearer the CPU's bf16 than the card's own
+f32: the card ran bf16 products, not TF32 or f32), and the inverse-CDF draw on the card
+against the CPU at 2^21 categories (equal).
 """
 import numpy as np
 import pytest
@@ -219,6 +222,47 @@ def test_conv_stack_on_the_card_matches_the_cpu(cuda):
     for g, w in zip(net.tree_leaves(card), net.tree_leaves(cpu)):
         torch.testing.assert_close(g.grad.cpu(), w.grad, rtol=1e-4,
                                    atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_bf16_conv_net_on_the_card_matches_the_cpu(cuda):
+    import dataclasses
+
+    from smarties_tpu_torch.models import net
+    from smarties_tpu_torch.runtime.trainer import set_precision
+    set_precision()
+    conv = tuple(net.Conv2DDesc(*c) for c in (
+        (84, 84, 4, 32, 8, 4), (20, 20, 32, 64, 4, 2), (9, 9, 64, 64, 3, 1)))
+    spec = net.NetSpec(n_in=4 * 84 * 84, hidden=(512,), n_out=13, conv=conv,
+                       compute_dtype="bfloat16")
+    cpu = net.init_params(torch.Generator().manual_seed(0), spec)
+    rng = np.random.RandomState(0)
+    x = torch.tensor(((rng.randint(0, 256, (8, spec.n_in)) - 128) / 64.0
+                      ).astype(np.float32))
+    c = torch.tensor(rng.randn(8, 13).astype(np.float32))
+    outs = []
+    for s, dev in ((spec, "cpu"), (spec, cuda),
+                   (dataclasses.replace(spec, compute_dtype="float32"),
+                    cuda)):
+        params = net.tree_map(
+            lambda p: p.detach().to(dev).requires_grad_(True), cpu)
+        y, _ = net.apply_net(params, s, x.to(dev))
+        torch.sum(y * c.to(dev)).backward()
+        outs.append([y.detach().cpu()] + [p.grad.cpu() for p in
+                                          net.tree_leaves(params)])
+    cpu_bf16, card_bf16, card_f32 = outs
+
+    def gap(x, y):
+        """The largest |x - y| of the output and of each gradient, each
+        relative to its own largest value (the output bias's gradient,
+        sum(c), is the same in every case)."""
+        return max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                   for a, b in zip(x, y))
+
+    assert gap(card_bf16, cpu_bf16) < gap(card_bf16, card_f32)
+    y_cpu, y_f32 = ((card_bf16[0] - o[0]).abs().max() for o in (cpu_bf16,
+                                                                card_f32))
+    assert float(y_cpu) < float(y_f32)
 
 
 @pytest.mark.cuda

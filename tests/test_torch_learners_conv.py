@@ -19,70 +19,21 @@ import pytest
 import torch
 
 from smarties_tpu.algos.registry import make_learner as jmake
-from smarties_tpu.replay import buffer as jrb
 from smarties_tpu.utils.config import HyperParameters as JHP
 from smarties_tpu_torch.algos.registry import make_learner as tmake
 from smarties_tpu_torch.models import convert
 from smarties_tpu_torch.models.net import tree_leaves
 from smarties_tpu_torch.utils.config import HyperParameters as THP
 
-from _torch_learner_cases import (B, BASE, E, L, MOMENT_TOL, PARAM_TOL,
-                                  POLICY_TOL, RAW_VALUE_TOL, VALUE_TOL,
-                                  _jax_replay, _mdp, _pinned,
+from _torch_learner_cases import (B, BASE, CONV_CASES, IMG_K, MOMENT_TOL,
+                                  PARAM_TOL, POLICY_TOL, RAW_VALUE_TOL,
+                                  VALUE_TOL, _img_mdps, _jax_replay,
+                                  _jax_replay_img, _mdp, _pinned,
                                   assert_replay_close, assert_tree_close,
                                   jax_replay_views, np32, tn, tt)
 
 # ---------------------------------------------------------------------
 # conv stack + appended frames on a uint8 replay
-
-IMG_W, IMG_K = 12, 2
-IMG_CONV = ((IMG_W, IMG_W, IMG_K + 1, 4, 4, 2), (5, 5, 4, 8, 3, 2))
-CONV_CASES = {
-    "racer_discrete_conv": dict(learner="RACER", nnLayerSizes=[16]),
-    "dqn_conv_refer_retrace": dict(learner="DQN", nnLayerSizes=[16],
-                                   clipImpWeight=4.0,
-                                   returnsEstimator="retrace",
-                                   targetDelay=1e-3),
-}
-
-
-def _img_mdps():
-    from smarties_tpu.core.mdp import MDPSpec as JM
-    from smarties_tpu_torch.core.mdp import MDPSpec as TM
-    kw = dict(dim_state=IMG_W * IMG_W, dim_action=1, discrete_values=(3,),
-              n_appended_obs=IMG_K, conv_layers=IMG_CONV)
-    return JM(**kw), TM(**kw)
-
-
-def _jax_replay_img(jmdp, clip):
-    """E slots of uint8 image episodes (lengths 1..L: some shorter than
-    the frame window), committed by the JAX package."""
-    rng = np.random.RandomState(0)
-    V, L1 = E, L + 1
-    lens = rng.randint(1, L + 1, V).astype(np.int32)
-    lens[:4] = [1, 2, L, L]
-    rew = np.zeros((V, L1), np.float32)
-    rho = np.zeros((V, L1), np.float32)
-    for v, n in enumerate(lens):
-        rew[v, 1:n + 1] = np32(rng.randn(n) + 1.0)
-        rho[v, :n] = 1.0
-    p = np32(0.2 + rng.rand(V, L1, 3))
-    # blocky images: a bright square on a dim background
-    img = rng.randint(0, 40, (V, L1, IMG_W, IMG_W))
-    for v in range(V):
-        for t in range(L1):
-            r, c = rng.randint(0, IMG_W - 3, 2)
-            img[v, t, r:r + 3, c:c + 3] = 255
-    rs = jrb.init_replay(E, L, IMG_W * IMG_W, 1, 3, clip,
-                         state_dtype=jnp.uint8, mu_init=jrb.safe_mu(jmdp))
-    return jrb.commit_episodes(
-        rs, jnp.asarray(img.reshape(V, L1, -1).astype(np.uint8)),
-        jnp.asarray(np32(rng.randint(0, 3, (V, L1, 1)))),
-        jnp.asarray(p / p.sum(-1, keepdims=True)), jnp.asarray(rew),
-        jnp.asarray(np32(rng.randn(V, L1))), jnp.zeros((V, L1)),
-        jnp.zeros((V, L1)), jnp.asarray(rho), jnp.asarray(lens),
-        jnp.asarray(rng.rand(V) > 0.5), jnp.ones(V, bool),
-        BASE["maxTotObsNum"], "oldest")
 
 
 @pytest.mark.parametrize("s2d", [True, False], ids=["s2d", "no_s2d"])

@@ -213,6 +213,55 @@ def test_env_pool_shm_respawn():
     assert fails >= 1 and pool._respawns[0] >= 1
 
 
+_FRESH_POOL = """
+import os
+import numpy as np
+from smarties_tpu_torch.runtime.env_pool import EnvPool
+
+def app(comm):
+    comm.setStateActionDims(1, 1)
+    comm.setActionScales([1.0], [-1.0], True)
+    comm.sendInitState(np.zeros(1))
+    while True:
+        comm.recvAction()
+        comm.sendState(np.zeros(1), 0.0)
+
+def children(pids):
+    out = []
+    for d in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            stat = open(f"/proc/{d}/stat").read()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) in pids:
+            out.append(int(d))
+    return out
+
+pool = EnvPool(app, 3, seed=0, use_shm=True)
+pool.probe_spec()
+for _ in range(4):
+    pool.gather_states()
+    pool.send_actions([np.zeros(1)] * 3)
+print(len(pool._shm), len(children({p.pid for p in pool._procs})))
+pool.kill()
+"""
+
+
+def test_env_pool_workers_share_the_resource_tracker():
+    """In a fresh process, shm workers register their slabs with the
+    pool's resource tracker: none starts a tracker of its own (which
+    would outlive it as an orphan), and no slab is reported leaked."""
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    r = subprocess.run([sys.executable, "-c", _FRESH_POOL], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["3", "0"], (r.stdout, r.stderr)
+    assert "resource_tracker" not in r.stderr, r.stderr
+
+
 def test_socket_pool_mode_guard():
     """gather_states after poll_states buffering must raise (one serving
     mode per pool instance)."""
