@@ -29,10 +29,24 @@ Phases, each reported on its own line:
    small size, from one state (8 train steps and a refresh, so K1 runs
    inside the pipeline against its plain version).
 4. main path: the V-RACER cart-pole trainer at full width (1024 envs x
-   4096 slots x 501 steps, [128, 128] net, batch 256): warmup, two fused
-   cycles (2048 grad steps, two 1000-step refreshes), one train() chunk
-   and evaluate(32). Checks finiteness, the stored-step count, and that
-   every call of K1's four sites made exactly one sweep launch.
+   4096 slots x 501 steps, [128, 128] net, batch 256), as users run it:
+   its env sweep and grad step captured as CUDA graphs
+   (runtime/graphs.py): warmup, two fused cycles (2048 grad steps, two
+   1000-step refreshes), one train() chunk and evaluate(32). Checks
+   finiteness, the stored-step count, and that every call of K1's four
+   sites made exactly one sweep launch (a graph's replays count what its
+   capture launched).
+4b. graphs: the main path's captured programs against its eager loops
+   (Trainer(graphs=False), the counterpart of jax.disable_jit), at full
+   width, from one state: warmup, the graphs' warm-up cycles and their
+   capture, 2 fused cycles timed by CUDA events, a save, a cycle, a
+   restore and a cycle (the 1000-step refresh after each cycle that
+   crosses one). Params, Adam state, replay, in-progress episodes, env
+   state and generator states must be torch.equal; K1 one sweep launch
+   per site call, counted over replays, on both. Prints fused_cycle_ms
+   both ways, launches per grad step and per env sweep both ways
+   (torch.profiler: kernel launches, graph launches, copies), a train
+   chunk's grad steps/s both ways, and the graph pools' bytes.
 5. learners: RACER, RACER-discrete, DQN, NAF, DPG and MixedPG, each
    through the launcher (smarties_tpu_torch.launch.run) at its recipe's
    published widths and batch with 1024 envs: warmup, train(1000) timed
@@ -216,9 +230,9 @@ Phases, each reported on its own line:
    steady and Atari phases. Then the serving bench
    (tools/serving_bench.py) for 3 s over 4 forked apps: served > 0.
    Prints the phase's time.
-`--only NAME ...` runs the device phase and the named phases of 8b and
-17-23 alone (bf16, glider, predator_prey, multitrainer, logs, multichip,
-curves, bench).
+`--only NAME ...` runs the device phase and the named phases of 4b, 8b
+and 17-23 alone (graphs, bf16, glider, predator_prey, multitrainer,
+logs, multichip, curves, bench).
 Then one JSON line with the kernels' results and, last, the device line.
 
 The script imports no JAX and nothing of the JAX package. Any failed
@@ -341,6 +355,9 @@ MC_TIMEOUT_S, MC_RTOL, MC_ATOL, MC_SINGLE_STEPS = 300.0, 2e-5, 2e-6, 50
 CURVES_RUNS = (("vracer_cma_cartpole", 2048, 2048, "retrace"),
                ("ppo_std_cartpole", 1, 320, "GAE"))
 CURVES_CMA_GENERATIONS = 3
+# the graphs phase: fused cycles timed each way, grad steps of the
+# profiled chunk and of the timed train chunk
+GRAPH_TIMED_CYCLES, GRAPH_PROFILED_STEPS, GRAPH_CHUNK = 2, 100, 500
 # the bench phase: timed fused cycles, the Atari step's presampled steps,
 # quality cycles of seed 0; the serving bench's apps and seconds
 BENCH_CYCLES, BENCH_ATARI_STEPS, BENCH_QUALITY_CYCLES = 2, 128, 2
@@ -503,13 +520,17 @@ class SiteCounter:
     """Attributes K1 launches to their sites by diffing the launch
     counters around the trainer's three return-sweep callables: per site
     the calls and the launches they made. The ingest sweep counts
-    under `ingest_site`, which the main path sets per phase."""
+    under `ingest_site`, which the main path sets per phase. A captured
+    sweep calls the wrapper once, at its capture: both dicts are
+    counters that each replay advances as it does K1's."""
 
     def __init__(self, trainer, rk):
+        from smarties_tpu_torch.runtime import graphs as cg
         self.rk = rk
         self.ingest_site = "ingest"
         self.sites = {}
         self.calls = {}
+        cg.COUNTERS.extend((self.sites, self.calls))
         for attr, site in (("_fix_returns", "ingest"),
                            ("_init_stats", "initialize_stats"),
                            ("_refresh", "refresh")):
@@ -664,7 +685,7 @@ def phase_main_path():
 
     t_build = time.perf_counter()
     tr = main_path_trainer(0, "cuda")
-    assert tr.replay.rewards.shape == (MAIN_E, MAIN_L1)
+    assert tr.replay.rewards.shape == (MAIN_E, MAIN_L1) and tr.graphs
     sites = SiteCounter(tr, rk)
     torch.cuda.synchronize()
     print(f"main: trainer built in {time.perf_counter() - t_build:.2f} s "
@@ -725,8 +746,158 @@ def phase_main_path():
           f"grad steps {tr.n_grad_steps} | env steps {tr.n_env_steps}",
           flush=True)
     print(f"main: K1 launches {counts} by site {site_counts}, one per "
-          f"call of each site", flush=True)
+          f"call of each site (captured: {sorted(tr._sweep_graphs)}-sweep "
+          f"graphs, the step graph; pools "
+          f"{tr.graph_pool_bytes() / 2 ** 20:.1f} MiB)", flush=True)
     return {"cycle_ms": cycle_ms, "launches": counts, "sites": site_counts}
+
+
+def _state_tensors(x, name=""):
+    """(path, tensor) of every tensor in a tree of dicts, (named) tuples
+    and dataclasses."""
+    import dataclasses
+
+    import torch
+    if isinstance(x, torch.Tensor):
+        return [(name, x)]
+    if isinstance(x, dict):
+        return [p for k in sorted(x)
+                for p in _state_tensors(x[k], f"{name}.{k}")]
+    if isinstance(x, (list, tuple)):
+        keys = getattr(x, "_fields", range(len(x)))
+        return [p for k, v in zip(keys, x)
+                for p in _state_tensors(v, f"{name}.{k}")]
+    if dataclasses.is_dataclass(x):
+        return [p for f in dataclasses.fields(x)
+                for p in _state_tensors(getattr(x, f.name),
+                                        f"{name}.{f.name}")]
+    return []
+
+
+def phase_graphs():
+    """The main path captured against the main path eager, at full
+    width, from one state (phase 4b in the module docstring)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+    from smarties_tpu_torch.runtime import graphs as cg
+    from smarties_tpu_torch.runtime.profile_main import (main_path_trainer,
+                                                         profile_calls)
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_graphs_",
+                           dir=os.path.join(ROOT, "build"))
+    res, trainers = {}, {}
+    try:
+        for mode in ("captured", "eager"):
+            tr = main_path_trainer(0, "cuda",
+                                   graphs=None if mode == "captured"
+                                   else False)
+            assert tr.graphs == (mode == "captured"), (mode, tr.graphs)
+            sites = SiteCounter(tr, rk)
+            rk.reset_launches()
+            tr.warmup(chunk=16, blind_sweeps=16)
+
+            def cycle():
+                tr.train_fused(tr.n_envs, log_every=10 ** 9, flush=False)
+
+            # the graphs' eager warm-up calls, then their capture
+            for _ in range(cg.WARMUP_CALLS + 1):
+                cycle()
+            cycle_ms = []
+            for _ in range(GRAPH_TIMED_CYCLES):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                cycle()
+                e1.record()
+                e1.synchronize()
+                cycle_ms.append(e0.elapsed_time(e1))
+            path = os.path.join(tmp, f"{mode}.pt")
+            tr.save(path)
+            cycle()
+            tr.restore(path)
+            cycle()
+            torch.cuda.synchronize()
+            counts = dict(rk.launches)
+            sites.check_one_launch_per_call(
+                counts, ("ingest", "initialize_stats", "refresh"),
+                f"graphs {mode}")
+            if mode == "captured":
+                assert tr._step_graph.graph is not None
+                assert tr._sweep_graphs[1].graph is not None
+            res[mode] = {"fused_cycle_ms": cycle_ms, "k1": counts,
+                         "sites": dict(sites.sites),
+                         "pool_bytes": tr.graph_pool_bytes()}
+            tr._pending_logs.clear()
+            trainers[mode] = tr
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # one state: everything the graphs read and write, and the generators
+    cap, eag = trainers["captured"], trainers["eager"]
+
+    def state(tr):
+        return _state_tensors({"params": tr.params, "opt": tr.opt_state,
+                               "carry": tr.carry})
+
+    sc, se = state(cap), state(eag)
+    assert [k for k, _ in sc] == [k for k, _ in se]
+    for (k, x), (_, y) in zip(sc, se):
+        assert torch.equal(x, y), f"graphs: {k} differs captured vs eager"
+    for g in ("env", "act", "batch", "eval"):
+        assert torch.equal(getattr(cap, "gen_" + g).get_state(),
+                           getattr(eag, "gen_" + g).get_state()), g
+    assert cap.n_grad_steps == eag.n_grad_steps
+
+    # launches per grad step and per env sweep, and a train chunk's rate
+    for mode, tr in trainers.items():
+        step = profile_calls(
+            lambda: tr._train_chunk(GRAPH_PROFILED_STEPS), 1)
+        sweep = profile_calls(lambda: tr._sweep(1), 3)
+        tr._pending_logs.clear()
+        per_step = {k: step[k] / GRAPH_PROFILED_STEPS for k in
+                    ("launches", "graph_launches", "copies")}
+        per_step["device_busy_ms"] = step["busy_ms"] / GRAPH_PROFILED_STEPS
+        per_sweep = {k: sweep[k] for k in ("launches", "graph_launches",
+                                           "copies")}
+        per_sweep["device_busy_ms"] = sweep["busy_ms"]
+        tr._train_chunk(GRAPH_CHUNK)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        tr._train_chunk(GRAPH_CHUNK)
+        e1.record()
+        e1.synchronize()
+        chunk_ms = e0.elapsed_time(e1)
+        res[mode].update(per_grad_step=per_step, per_sweep=per_sweep,
+                         train_chunk_ms=chunk_ms,
+                         train_grad_steps_per_s=GRAPH_CHUNK / chunk_ms * 1e3)
+    c, e = res["captured"], res["eager"]
+    assert c["per_grad_step"]["graph_launches"] == 1, c["per_grad_step"]
+    assert c["per_grad_step"]["launches"] < 1, c["per_grad_step"]
+    assert e["per_grad_step"]["graph_launches"] == 0 and \
+        e["per_grad_step"]["launches"] > 100, e["per_grad_step"]
+    phase_s = time.perf_counter() - t_phase
+    for mode, r in res.items():
+        print(f"graphs [{mode}]: fused_cycle_ms "
+              f"{' / '.join(f'{x:.2f}' for x in r['fused_cycle_ms'])} "
+              f"(1 env sweep + 1024 grad steps, CUDA events) | per grad "
+              f"step {r['per_grad_step']} | per env sweep + ingest "
+              f"{r['per_sweep']} | train chunk of {GRAPH_CHUNK}: "
+              f"{r['train_chunk_ms']:.2f} ms, "
+              f"{r['train_grad_steps_per_s']:.1f} grad steps/s | K1 "
+              f"{r['k1']} by site {r['sites']}, one per call | graph "
+              f"pools {r['pool_bytes']} B", flush=True)
+    print(f"graphs: captured and eager torch.equal after warmup, "
+          f"{cg.WARMUP_CALLS + 1 + GRAPH_TIMED_CYCLES + 2} fused cycles, "
+          f"their refreshes and a save / restore ({len(sc)} tensors and "
+          f"4 generator states) | phase {phase_s:.2f} s", flush=True)
+    res["phase_s"] = phase_s
+    return {"graphs": res}
 
 
 def _small_cfg(recipe):
@@ -3416,8 +3587,9 @@ def phase_bench():
                       "serving": srv, "phase_s": phase_s}}
 
 
-# phases 8b and 17-23, by the names `--only` takes
-NEW_PHASES = {"bf16": phase_bf16, "glider": phase_glider,
+# phases 4b, 8b and 17-23, by the names `--only` takes
+NEW_PHASES = {"graphs": phase_graphs, "bf16": phase_bf16,
+              "glider": phase_glider,
               "predator_prey": phase_predator_prey,
               "multitrainer": phase_multitrainer, "logs": phase_logs,
               "multichip": phase_multichip, "curves": phase_curves,
@@ -3448,6 +3620,7 @@ def main(argv=None):
     kern = phase_kernels()
     phase_reference()
     main_res = phase_main_path()
+    graphs = phase_graphs()["graphs"]
     learners = phase_learners()
     learners.update(phase_on_policy())
     learners.update(phase_recurrent())
@@ -3554,6 +3727,7 @@ def main(argv=None):
         "glider_env_step": learners["glider"]["env_step"],
         "multitrainer_rolls": learners["multitrainer"]["rolls"],
         "logs": logs,
+        "graphs": graphs,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

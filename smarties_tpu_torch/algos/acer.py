@@ -47,8 +47,8 @@ from smarties_tpu_torch.algos.base import (Learner, backprop, check_ported,
 from smarties_tpu_torch.core.mdp import MDPSpec
 from smarties_tpu_torch.models.net import NetSpec, apply_net, init_params
 from smarties_tpu_torch.models.optim import (AdamConfig, AdamState,
-                                             adam_init, adam_step,
-                                             update_target)
+                                             adam_advance_, adam_init,
+                                             adam_update_, update_target)
 from smarties_tpu_torch.ops import continuous_policy as cp
 from smarties_tpu_torch.ops.retrace_kernel import affine_suffix_scan
 from smarties_tpu_torch.replay import buffer as rb
@@ -331,11 +331,11 @@ class ACER(Learner):
                              {k: opt_state.m2[k] for k in keys},
                              opt_state.beta_t_1, opt_state.beta_t_2,
                              opt_state.step)
-            _, stepped = adam_step({k: net[k] for k in keys},
-                                   {k: grads[k] for k in keys}, half, acfg,
-                                   1.0 / cfg.batchSize)
-        new_opt = AdamState(opt_state.m1, opt_state.m2, stepped.beta_t_1,
-                            stepped.beta_t_2, stepped.step)
+            adam_update_({k: net[k] for k in keys},
+                         {k: grads[k] for k in keys}, half, acfg,
+                         1.0 / cfg.batchSize)
+        # the shared scalars advance once, by the critics' betas
+        new_opt = adam_advance_(opt_state, self.critic_adam)
         # target actor: Polyak from targetDelay, at the new step
         update_target(net["actor"], tgt_actor, cfg.targetDelay, new_opt.step)
 

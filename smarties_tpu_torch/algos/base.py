@@ -191,9 +191,14 @@ class Learner:
     returns_mode. An `on_policy` learner (PPO) is driven by the trainer's
     horizon cycle instead of the obsPerStep pacing. `presample`: the
     trainer may draw a chunk's uniform minibatch indices up front (every
-    learner of the JAX package but RACER-ES)."""
+    learner of the JAX package but RACER-ES). `capturable`: the trainer
+    may capture the learner's train step on presampled indices, and the
+    env sweep that feeds it, as CUDA graphs (runtime/graphs.py): the step
+    reads no device value back, keeps its shapes and updates every state
+    tensor in its own storage."""
     on_policy = False
     presample = True
+    capturable = False
     # appended past observations in the minibatch gather: set from the MDP
     # by the learners that stack frames (RACER family, DQN)
     n_appended = 0
@@ -329,9 +334,10 @@ def post_step_processing(rs: rb.ReplayState, cfg, opt_step, delta_q,
                          mesh=None):
     """Per-grad-step memory processing (Learner::processMemoryBuffer,
     Learner.cpp:74-100): anneal CmaxRet, ReF-ER beta fixed point,
-    maxAbsError EMA. Returns (rs, frac_off_policy). Under a mesh the
-    stored and far-policy counts are global (one collective) and the
-    batch's largest error is the largest on any rank (one more)."""
+    maxAbsError EMA, each written into its scalar in place. Returns (rs,
+    frac_off_policy). Under a mesh the stored and far-policy counts are
+    global (one collective) and the batch's largest error is the largest
+    on any rank (one more)."""
     n_step = opt_step.to(F32)
     rs = rb.update_cmax(rs, n_step, cfg.clipImpWeight, cfg.epsAnneal)
     counts = rb.stored_and_far(rs, mesh)
@@ -343,8 +349,7 @@ def post_step_processing(rs: rb.ReplayState, cfg, opt_step, delta_q,
         pmax_(mesh, batch_max_err)
     learn_r = 0.1 * cfg.batchSize / torch.clamp(
         n_stored, min=float(cfg.maxTotObsNum))
-    rs.max_abs_error = rs.max_abs_error + learn_r * (batch_max_err
-                                                     - rs.max_abs_error)
+    rs.max_abs_error.add_(learn_r * (batch_max_err - rs.max_abs_error))
     return rs, frac_off
 
 
@@ -360,7 +365,9 @@ def grad_stats(grads):
 def default_metrics(dkl, rho, is_far, frac_off, beta, delta_q, v_val,
                     mesh=None):
     """The step's metrics; under a mesh each per-step mean is the mean
-    over ranks (one collective), taken before the sqrt of rmse."""
+    over ranks (one collective), taken before the sqrt of rmse. `beta`
+    is the replay's scalar, which the next step updates in place: the
+    metric keeps a copy."""
     means = torch.stack([torch.mean(dkl), torch.mean(rho),
                          torch.mean(is_far.to(F32)),
                          torch.mean(delta_q * delta_q), torch.mean(v_val)])
@@ -371,7 +378,7 @@ def default_metrics(dkl, rho, is_far, frac_off, beta, delta_q, v_val,
         "avg_rho": means[1],
         "frac_far_batch": means[2],
         "frac_far_data": frac_off,
-        "beta": beta,
+        "beta": beta.clone(),
         "rmse": torch.sqrt(means[3]),
         "avg_v": means[4],
     }

@@ -44,8 +44,8 @@ from smarties_tpu_torch.models.net import (NetSpec, apply_net, init_carry,
                                            init_params, join, tree_leaves,
                                            tree_map)
 from smarties_tpu_torch.models.optim import (AdamConfig, AdamState,
-                                             adam_init, adam_step,
-                                             update_target)
+                                             adam_advance_, adam_init,
+                                             adam_update_, update_target)
 from smarties_tpu_torch.ops import continuous_policy as cp
 from smarties_tpu_torch.replay import buffer as rb
 from smarties_tpu_torch.utils.config import HyperParameters
@@ -62,11 +62,12 @@ def split_adam_step(net, grads, opt: AdamState, part_cfgs, grad_factor):
     for name, keys in groups.items():
         sub = lambda tree: {k: tree[k] for k in keys}
         # every part reads the same old scalars; the moments move in place
-        _, st = adam_step(sub(net), sub(grads),
-                          AdamState(sub(opt.m1), sub(opt.m2), opt.beta_t_1,
-                                    opt.beta_t_2, opt.step),
-                          part_cfgs[name], grad_factor)
-    return AdamState(opt.m1, opt.m2, st.beta_t_1, st.beta_t_2, st.step)
+        adam_update_(sub(net), sub(grads),
+                     AdamState(sub(opt.m1), sub(opt.m2), opt.beta_t_1,
+                               opt.beta_t_2, opt.step),
+                     part_cfgs[name], grad_factor)
+    # then the shared scalars advance once, by the last part's betas
+    return adam_advance_(opt, part_cfgs[name])
 
 
 def shared_encoder(mdp, cfg):

@@ -179,12 +179,14 @@ class RacerES(VRacer):
                              noise=opt_state.noise, step=opt_state.step + 1)
         new_pop, new_opt = self._resample(new_mean, new_opt, gen, z)
 
-        # write-backs with the MEAN member's statistics
+        # write-backs with the MEAN member's statistics; the batch's
+        # far-policy flags against the Cmax of this step, which
+        # post_step_processing anneals in place
+        far0 = rb.is_far_policy(rhos[0], cmax, cinv)
         delta = advs[0] - avals[0]
         rs = write_back(rs, mb, rhos[0], dkls[0], delta, vvals[0], avals[0])
         rs, frac_off = post_step_processing(rs, cfg, new_opt.step, delta,
                                             mesh)
-        metrics = default_metrics(dkls[0], rhos[0],
-                                  rb.is_far_policy(rhos[0], cmax, cinv),
-                                  frac_off, rs.beta, delta, vvals[0], mesh)
+        metrics = default_metrics(dkls[0], rhos[0], far0, frac_off, rs.beta,
+                                  delta, vvals[0], mesh)
         return {"pop": new_pop}, new_opt, rs, metrics

@@ -7,7 +7,9 @@
 The twin of the JAX package's bench.py, built from the port's own
 pieces: the main path's trainer (runtime/profile_main.main_path_trainer:
 1024 envs, 4096 slots x 501 steps, [128, 128], batch 256, obsPerStep 1,
-minTotObsNum 16384), the Atari setup and its FLOP count
+minTotObsNum 16384; on a card its env sweep and grad step run as
+captured CUDA graphs, runtime/graphs.py, as users run it), the Atari
+setup and its FLOP count
 (profile_main.atari_setup, step_flops) and the card's line
 (runtime/bench_retrace.card_line). The phases run in order:
 
@@ -18,8 +20,10 @@ minTotObsNum 16384), the Atari setup and its FLOP count
             synchronize at the end: combined env and grad steps/s and
             fused_cycle_ms over the whole window (bench.py's sense), and
             the per-cycle min / median / max.
-  steady    64 rollout sweeps, then a train chunk of 500 steps; each run
-            once untimed and once timed between synchronizes.
+  steady    64 rollout sweeps (the eager rollout without the ingest
+            sweep, as bench.py's), then a train chunk of 500 steps (the
+            step graph replayed); each run once untimed and once timed
+            between synchronizes.
   atari     RACER-discrete over the Mnih stack (84x84x4, [512], batch
             128) on a uint8 replay of 512 x 129 random frames, 1024
             presampled grad steps, best of 2 timed runs. Its FLOPs count
@@ -297,8 +301,7 @@ def quality_seed(seed: int, sizes: Sizes, cycles: int, device,
         ring, count, ovf = fold(ring, count, logs[0].reshape(-1),
                                 logs[2].reshape(-1))
         # the reference's every-1000-grad-steps refresh, once a cycle
-        tr.carry = tr.carry._replace(replay=tr._refresh(
-            tr.replay, float((i + 1) * n_train)))
+        tr._update_replay(tr._refresh, float((i + 1) * n_train))
         cnts.append(count)
         means.append(ring.mean())
         ovfs.append(ovf)

@@ -61,6 +61,7 @@ cotangents are cast to bf16 for the transposed products and back.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -194,6 +195,28 @@ def tree_map(fn, tree, *rest):
         return type(tree)(tree_map(fn, x, *(r[i] for r in rest))
                           for i, x in enumerate(tree))
     return fn(tree, *rest)
+
+
+@torch.no_grad()
+def tree_copy_(dst, src):
+    """Copy every tensor of `src` into the tensor at the same place of
+    `dst`, which keeps its storage; returns dst. Trees of dicts, lists,
+    tuples, named tuples and dataclasses (the replay state); a tensor
+    that is already dst's is skipped, and so are the leaves that are not
+    tensors (generators)."""
+    if isinstance(dst, torch.Tensor):
+        if src is not dst:
+            dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k in dst:
+            tree_copy_(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        for d, s in zip(dst, src, strict=True):
+            tree_copy_(d, s)
+    elif dataclasses.is_dataclass(dst):
+        for f in dataclasses.fields(dst):
+            tree_copy_(getattr(dst, f.name), getattr(src, f.name))
+    return dst
 
 
 def tree_leaves(tree) -> list:

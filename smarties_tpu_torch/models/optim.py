@@ -8,9 +8,10 @@ SMARTIES_NESTEROV_ADAM (lookahead numerator) and SMARTIES_ADAMW
 param += eta * step: the learners produce ascent directions.
 torch.optim.Adam implements none of these and is not used.
 
-The port updates the parameter leaves and the moments IN PLACE (the JAX
-package rebuilds them); the scalars beta_t_1, beta_t_2 and step are 0-d
-device tensors, so a step never synchronises with the host.
+The port updates the parameter leaves, the moments and the 0-d device
+scalars beta_t_1, beta_t_2 and step IN PLACE (the JAX package rebuilds
+them): a step never synchronises with the host, and a CUDA graph of it
+(runtime/graphs.py) reads and writes the same storage at every replay.
 """
 from __future__ import annotations
 
@@ -53,14 +54,13 @@ def adam_init(params) -> AdamState:
 
 
 @torch.no_grad()
-def adam_step(params, grads, state: AdamState, cfg: AdamConfig,
-              grad_factor):
-    """One Adam ascent step, in place. `grads` are summed ascent
-    gradients with the params' structure; the reference divides by
-    batchSize via `grad_factor` (Optimizer.cpp:130).
-
-    Returns (params, new_state): the same parameter and moment tensors,
-    updated, and new 0-d scalars."""
+def adam_update_(params, grads, state: AdamState, cfg: AdamConfig,
+                 grad_factor):
+    """The moments and parameters of one Adam ascent step, in place, with
+    the bias correction of `state`'s scalars, which it leaves as they
+    are (adam_advance_ moves them). `grads` are summed ascent gradients
+    with the params' structure; the reference divides by batchSize via
+    `grad_factor` (Optimizer.cpp:130)."""
     b1, b2 = cfg.beta1, cfg.beta2
     eta = cfg.eta
     if cfg.anneal_lr:
@@ -77,12 +77,26 @@ def adam_step(params, grads, state: AdamState, cfg: AdamConfig,
         ret = numer / (NN_EPS + torch.sqrt(m2))
         penal = -w * cfg.lambda_                    # AdamW decoupled decay
         w.add_(eta_t * (ret + penal))
-    # beta_t *= beta, floored to 0 below nnEPS (Optimizer.cpp:156-160)
-    bt1 = state.beta_t_1 * b1
-    bt1 = torch.where(bt1 < NN_EPS, torch.zeros_like(bt1), bt1)
-    bt2 = state.beta_t_2 * b2
-    bt2 = torch.where(bt2 < NN_EPS, torch.zeros_like(bt2), bt2)
-    return params, AdamState(state.m1, state.m2, bt1, bt2, state.step + 1)
+
+
+@torch.no_grad()
+def adam_advance_(state: AdamState, cfg: AdamConfig) -> AdamState:
+    """The end of a step, in place: beta_t *= beta, floored to 0 below
+    nnEPS (Optimizer.cpp:156-160), and step + 1."""
+    for bt, b in ((state.beta_t_1, cfg.beta1), (state.beta_t_2, cfg.beta2)):
+        bt.mul_(b).masked_fill_(bt < NN_EPS, 0.0)
+    state.step.add_(1)
+    return state
+
+
+def adam_step(params, grads, state: AdamState, cfg: AdamConfig,
+              grad_factor):
+    """One Adam ascent step, in place: adam_update_, then adam_advance_.
+
+    Returns (params, state): the same parameter, moment and scalar
+    tensors, updated."""
+    adam_update_(params, grads, state, cfg, grad_factor)
+    return params, adam_advance_(state, cfg)
 
 
 @torch.no_grad()

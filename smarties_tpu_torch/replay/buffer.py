@@ -20,10 +20,13 @@ The public field views (`rewards`, `actions`, `mus`, `qret`, `rho`, `kl`,
 `ep_id` and `terminal` are the per-slot [E] tensors.
 
 IN PLACE. Where the JAX package rebuilt arrays, the port writes the
-stored tensors in place (index_put_, copy_, index_add_); each function
-still returns the state so call sites read like the JAX ones. Small
-scalars (beta, stats, counters) are 0-d device tensors replaced by
-assignment. Nothing here reads a device value back to the host.
+stored tensors in place (index_put_, copy_, index_add_), the small
+scalars (beta, alpha, Cmax, the statistics, the counters: 0-d device
+tensors) and the sampling cache included; each function still returns
+the state so call sites read like the JAX ones. No field is ever
+rebound, so a CUDA graph of the step or the env sweep
+(runtime/graphs.py) reads and writes the storage it captured. Nothing
+here reads a device value back to the host.
 
 Array layout (state-indexed time axis, see ops/returns.py):
   t in [0, T]   : states; V/A/Qret; rho/kl/delta (rho[T] == 0)
@@ -251,9 +254,8 @@ def rebuild_sample_cache(rs: ReplayState) -> ReplayState:
     (after every change of lengths/validity: commit and prune)."""
     lens = torch.where(rs.valid_slots(), rs.slot_len,
                        torch.zeros_like(rs.slot_len))
-    csum = torch.cumsum(lens, 0, dtype=I32)
-    rs.samp_csum = csum
-    rs.samp_start = csum - lens
+    torch.cumsum(lens, 0, dtype=I32, out=rs.samp_csum)
+    torch.sub(rs.samp_csum, lens, out=rs.samp_start)
     return rs
 
 
@@ -385,10 +387,10 @@ def commit_episodes(rs: ReplayState, ep_states, ep_actions, ep_mus,
     put(rs.qret_stale, torch.ones((V,), dtype=torch.bool,
                                   device=done_mask.device))
     put(rs.v_trunc, v_at_T)
-    rs.n_seen_eps = rs.n_seen_eps + n_done.to(I32)
-    rs.n_seen_steps = rs.n_seen_steps + torch.sum(
+    rs.n_seen_eps.add_(n_done.to(I32))
+    rs.n_seen_steps.add_(torch.sum(
         torch.where(done_mask, ep_length, torch.zeros_like(ep_length))
-    ).to(I32)
+    ).to(I32))
     return prune_to_capacity(rs, max_tot_obs, filter_algo)
 
 
@@ -415,7 +417,7 @@ def prune_to_capacity(rs: ReplayState, max_tot_obs: int, filter_algo: str):
                                  torch.full_like(rs.slot_id, -1)))
     rs.far_count.copy_(torch.where(keep, rs.far_count,
                                    torch.zeros_like(rs.far_count)))
-    rs.n_pruned_eps = rs.n_pruned_eps + pruned.to(I32)
+    rs.n_pruned_eps.add_(pruned.to(I32))
     return rebuild_sample_cache(rs)
 
 
@@ -624,8 +626,9 @@ def update_beta_alpha(rs: ReplayState, batch_size: int, max_tot_obs: int,
         to1 = (1 - lr) * val + torch.minimum(learn_r, 1 - val)
         return torch.where(go_to_0, to0, to1)
 
-    rs.beta = fix_point(rs.beta, frac_off > penal_tol)
-    rs.alpha = fix_point(rs.alpha, torch.abs(penal_tol - frac_off) < 1e-3)
+    rs.beta.copy_(fix_point(rs.beta, frac_off > penal_tol))
+    rs.alpha.copy_(fix_point(rs.alpha,
+                             torch.abs(penal_tol - frac_off) < 1e-3))
     return rs, frac_off
 
 
@@ -634,8 +637,8 @@ def update_cmax(rs: ReplayState, n_grad_steps, clip_imp_weight: float,
     """CmaxRet = 1 + annealRate(C, step, epsAnneal)
     (updateTrainingStatistics, MemoryProcessing.cpp:193-197)."""
     c = 1.0 + clip_imp_weight / (1.0 + n_grad_steps.to(F32) * eps_anneal)
-    rs.cmax_ret = c
-    rs.cinv_ret = 1.0 / c
+    rs.cmax_ret.copy_(c)
+    rs.cinv_ret.copy_(1.0 / c)
     return rs
 
 
@@ -701,22 +704,20 @@ def update_state_rew_stats(rs: ReplayState, learn_rate, b_init: bool = False,
     evar_r = sums[1] / count
     evar2_r = sums[2] / count
 
-    def upd(mean, std, lr, evar, evar2):
-        new_mean = mean + lr * evar
+    def upd_(mean, std, scale, lr, evar, evar2):
         var = evar2 - evar * evar * (2 * lr - lr * lr)
         var = torch.clamp(var, min=float(np.finfo(np.float32).eps))
-        new_std = std + lr * (torch.sqrt(var) - std)
-        return new_mean, new_std, 1.0 / new_std
+        mean.add_(lr * evar)
+        std.add_(lr * (torch.sqrt(var) - std))
+        torch.reciprocal(std, out=scale)
 
-    rs.rew_mean, rs.rew_std, rs.rew_scale = upd(
-        rs.rew_mean, rs.rew_std, wr, evar_r, evar2_r)
+    upd_(rs.rew_mean, rs.rew_std, rs.rew_scale, wr, evar_r, evar2_r)
 
     D = sum_s.shape[0]
     scount = torch.clamp(sums[3], min=1.0)
     evar_s = sums[4:4 + D] / scount
     evar2_s = sums[4 + D:] / scount
-    rs.state_mean, rs.state_std, rs.state_scale = upd(
-        rs.state_mean, rs.state_std, ws, evar_s, evar2_s)
+    upd_(rs.state_mean, rs.state_std, rs.state_scale, ws, evar_s, evar2_s)
     return rs
 
 
@@ -821,11 +822,12 @@ def rebalance_shards(rs: ReplayState, mesh, k_max: int = 8,
     rs.far_count.masked_fill_(drop, 0.0)
 
     # receiver side: commit the neighbour's episodes as migrated
-    seen_eps, seen_steps = rs.n_seen_eps, rs.n_seen_steps
+    seen_eps, seen_steps = rs.n_seen_eps.clone(), rs.n_seen_steps.clone()
     rs = commit_episodes(
         rs, sent["states"], sent["actions"], sent["mus"], sent["rewards"],
         sent["value"], sent["advantage"], sent["qret"], sent["rho"],
         sent["length"], sent["terminal"], sent["ship"], max_tot_obs,
         filter_algo)
-    rs.n_seen_eps, rs.n_seen_steps = seen_eps, seen_steps
+    rs.n_seen_eps.copy_(seen_eps)
+    rs.n_seen_steps.copy_(seen_steps)
     return rs

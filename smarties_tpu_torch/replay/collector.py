@@ -13,7 +13,10 @@ time-major [L+1, V, ...] like the replay, with a step cursor per lane,
 written in place. `rollout_chunk` is a Python loop over `one_step`; no
 step reads a device value back to the host. The learner's per-env acting
 carry (`rnn`: the Ornstein-Uhlenbeck state of DPG and NAF) rides in the
-carry and is zeroed for each lane whose episode ends.
+carry and is zeroed for each lane whose episode ends. A chunk leaves
+every tensor of the carry in its own storage (the env state and the
+acting carry are written back at its end), so a CUDA graph of a sweep
+(runtime/graphs.py) advances the storage it captured.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from smarties_tpu_torch.models.net import tree_map
+from smarties_tpu_torch.models.net import tree_copy_, tree_map
 from smarties_tpu_torch.replay.buffer import ReplayState, commit_episodes
 
 F32 = torch.float32
@@ -56,14 +59,13 @@ def init_inprogress(n_envs: int, max_len: int, dim_obs: int,
 
 
 def _reset_lanes(ip: InProgress, mask) -> InProgress:
-    """Zero the finished lanes (in place for the buffers)."""
+    """Zero the finished lanes, in place."""
     for x in (ip.states, ip.actions, ip.mus, ip.rewards, ip.value,
               ip.advantage):
         x.masked_fill_(mask.view((1, -1) + (1,) * (x.dim() - 2)), 0)
-    return ip._replace(t=torch.where(mask, torch.zeros_like(ip.t), ip.t),
-                       cum_reward=torch.where(mask,
-                                              torch.zeros_like(ip.cum_reward),
-                                              ip.cum_reward))
+    ip.t.masked_fill_(mask, 0)
+    ip.cum_reward.masked_fill_(mask, 0.0)
+    return ip
 
 
 class RolloutGens(NamedTuple):
@@ -129,8 +131,11 @@ def make_rollout_chunk(env_module, mdp, act_fn: Callable, max_tot_obs: int,
         # force-truncate episodes hitting the storage cap (MAX_SEQ_LEN)
         done = done | (tnew >= L1 - 1)
         ip.rewards[tnew, lane] = reward
-        ip = ip._replace(cum_reward=ip.cum_reward + reward,
-                         t=tnew.to(I32))
+        # the cursor and the return in place; the log keeps their values
+        # before the finished lanes are reset
+        t_log, ret_log = tnew.to(I32), ip.cum_reward + reward
+        ip.t.copy_(t_log)
+        ip.cum_reward.copy_(ret_log)
         # the final state of finished lanes; V(s_T) stays 0 at ingest like
         # the reference (Episode::finalize; refreshed by training)
         obs2 = mdp.observed(env_module.observe(es2))
@@ -148,7 +153,7 @@ def make_rollout_chunk(env_module, mdp, act_fn: Callable, max_tot_obs: int,
             ip.advantage.t(), torch.zeros_like(rho_ep), rho_ep, ip.t,
             terminal, done, max_tot_obs, filter_algo)
 
-        log = (done, ip.t, ip.cum_reward)
+        log = (done, t_log, ret_log)
         if record_obs:
             # the row of the state served this step (the reward carried
             # into it; rewards[0] == 0) and, for lanes that finished, a
@@ -167,10 +172,13 @@ def make_rollout_chunk(env_module, mdp, act_fn: Callable, max_tot_obs: int,
         return RolloutCarry(rs, ip, es2, gens, rnn), log
 
     def rollout_chunk(params, carry: RolloutCarry, n_steps: int):
+        es0, rnn0 = carry.env_state, carry.rnn
         logs = []
         for _ in range(n_steps):
             carry, log = one_step(params, carry)
             logs.append(log)
+        carry = carry._replace(env_state=tree_copy_(es0, carry.env_state),
+                               rnn=tree_copy_(rnn0, carry.rnn))
         return carry, tuple(torch.stack(x) for x in zip(*logs))
 
     return rollout_chunk

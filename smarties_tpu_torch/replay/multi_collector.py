@@ -92,8 +92,11 @@ def make_multi_rollout_chunk(env_module, mdps: Sequence,
             tnew = tcurs[a] + 1
             done_a = done[:, a] | (tnew >= L1 - 1)
             ip.rewards[tnew, lane] = reward[:, a]
-            ip = ip._replace(cum_reward=ip.cum_reward + reward[:, a],
-                             t=tnew.to(I32))
+            # in place, as the collector's; the logs keep the values from
+            # before the finished lanes are reset
+            t_log, ret_log = tnew.to(I32), ip.cum_reward + reward[:, a]
+            ip.t.copy_(t_log)
+            ip.cum_reward.copy_(ret_log)
             obs2 = mdps[a].observed(obs2_env[:, a])
             ip.states[tnew, lane] = torch.where(done_a[:, None],
                                                 obs2.to(ip.states.dtype),
@@ -106,8 +109,8 @@ def make_multi_rollout_chunk(env_module, mdps: Sequence,
                 torch.zeros_like(rho_ep), rho_ep, ip.t, terminal[:, a],
                 done_a, max_tot_obs, filter_algo)
             logs_done.append(done_a)
-            logs_len.append(ip.t)
-            logs_ret.append(ip.cum_reward)
+            logs_len.append(t_log)
+            logs_ret.append(ret_log)
             new_ip.append(_reset_lanes(ip, done_a))
             new_rs.append(rs)
             new_rnn[a] = tree_map(lambda h: torch.where(

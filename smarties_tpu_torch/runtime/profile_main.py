@@ -22,7 +22,14 @@ runs one fused cycle, and then times each part of a cycle alone:
   ways in this one run: through the fused in-place sweep, one K1 launch
   per call, and through the composition it replaced (`composed_sweep_`:
   scaled rewards and the v_trunc substitution materialised, K1's plain
-  device loop, a where and a copy), with the kernel launches of each.
+  device loop, a where and a copy), with the kernel launches of each;
+- the compiled programs (runtime/graphs.py) against the eager loops, in
+  turns captured, eager, eager, captured: a train chunk of 100 grad
+  steps (ms per grad step) and an env sweep with its ingest, each with
+  the three times and the profile (kernel launches, graph launches and
+  copies per call), from two trainers built alike, one with
+  graphs=False; the chunk of 100 steps also as one graph of 100 steps
+  per launch, beside the step graph replayed 100 times.
 
     python3 -m smarties_tpu_torch.runtime.profile_main --path PPO RACER_RNN
 
@@ -71,18 +78,19 @@ from smarties_tpu_torch.utils.config import HyperParameters
 
 
 def main_path_trainer(seed: int = 0, device="cuda", n_envs: int = 1024,
-                      n_slots: int = 4096) -> Trainer:
+                      n_slots: int = 4096, graphs=None) -> Trainer:
     """The main path's V-RACER cart-pole trainer, the JAX package's
     bench.py::_build_trainer: [128, 128], batch 256, obsPerStep 1,
     minTotObsNum 16384, maxTotObsNum 262144, episodes up to 500 steps,
     episode logs held on the device. The bench, this profiler and
     chip_smoke.py build it here; the tests pass a smaller n_envs and
-    n_slots."""
+    n_slots. On a card it captures its sweep and step (Trainer's
+    `graphs`; False: the eager loops)."""
     cfg = HyperParameters(minTotObsNum=16384, maxTotObsNum=262144,
                           batchSize=256, obsPerStep=1.0,
                           nnLayerSizes=[128, 128], randSeed=seed)
     tr = Trainer(cartpole, cartpole.MDP, cfg, n_envs=n_envs, n_slots=n_slots,
-                 max_len=cartpole.MAX_STEPS, device=device)
+                 max_len=cartpole.MAX_STEPS, device=device, graphs=graphs)
     tr.log_flush_threshold = 10 ** 9
     return tr
 
@@ -122,13 +130,16 @@ def profile_calls(fn, n: int):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    launches = sum(1 for e in prof.events()
-                   if e.name.startswith("cudaLaunchKernel"))
+    names = [e.name for e in prof.events()]
+    launches = sum(1 for x in names if x.startswith("cudaLaunchKernel"))
     counts = {}
     for e in kernels:
         counts[e.name] = counts.get(e.name, 0) + 1
     return {"wall_ms": wall_ms / n, "busy_ms": busy_ms / n,
             "busy_share": busy_ms / wall_ms, "launches": launches / n,
+            "graph_launches": names.count("cudaGraphLaunch") / n,
+            "copies": sum(1 for x in names if x.startswith(
+                ("cudaMemcpy", "cudaMemset"))) / n,
             "device_kernels": len(kernels) / n,
             "top_kernels": [(k[:60], us / 1e3 / n) for k, us in top],
             "kernel_counts": counts}
@@ -183,7 +194,9 @@ def report_profile(name, fn, n):
     print(f"profile {name}: wall {p['wall_ms']:.3f} ms/call (profiled) "
           f"| device busy {p['busy_ms']:.3f} ms/call | busy share "
           f"{p['busy_share']:.4f} | kernel launches/call "
-          f"{p['launches']:.1f} | device kernels/call "
+          f"{p['launches']:.1f} | graph launches/call "
+          f"{p['graph_launches']:.1f} | memcpy/memset calls/call "
+          f"{p['copies']:.1f} | device kernels/call "
           f"{p['device_kernels']:.1f} (n={n}) | longest device kernels, "
           f"ms/call: " + "; ".join(f"{k} {ms:.3f}"
                                    for k, ms in p["top_kernels"]),
@@ -413,6 +426,60 @@ def main(argv=None):
                 report_profile(f"{name} [{way}]", fn, 10)
         finally:
             rb._sweep_returns_ = fused
+    compare_graphs(tr)
+
+
+def compare_graphs(tr: Trainer, steps: int = 100):
+    """The captured main path (`tr`) against an eager trainer built alike,
+    in turns: a train chunk of `steps` grad steps and an env sweep with
+    its ingest, three times and a profile each; then the chunk as one
+    graph of `steps` grad steps per launch (the step program captured
+    `steps` times over), timed beside the step graph."""
+    from smarties_tpu_torch.runtime import graphs as cg
+    te = main_path_trainer(graphs=False)
+    te.warmup(chunk=16, blind_sweeps=16)
+    te.train_fused(te.n_envs, log_every=10 ** 9, flush=False)
+    for label, t in (("captured", tr), ("eager", te), ("eager", te),
+                     ("captured", tr)):
+        chunk = f"train chunk of {steps} grad steps [{label}]"
+        ev = report_times(chunk, lambda: t._train_chunk(steps), 3)
+        print(f"{chunk}: {ev / steps:.4f} ms per grad step (events)",
+              flush=True)
+        report_profile(chunk, lambda: t._train_chunk(steps), 2)
+        sweep = f"env sweep + ingest sweep [{label}]"
+        report_times(sweep, lambda: t._sweep(1), 10)
+        report_profile(sweep, lambda: t._sweep(1), 5)
+    te._pending_logs.clear()
+
+    # one graph launch per `steps` grad steps: the step program of `tr`
+    # captured `steps` times, on its own static rows
+    i = tr._step_rows[2]
+    one = tr._step_graph
+
+    def many(state):
+        for _ in range(steps):
+            state, _ = one.fn(state)
+        return state, None
+
+    chunk_graph = cg.Graph(many, one.state, device=tr.device)
+
+    def replay_chunk():
+        i.zero_()
+        chunk_graph()
+
+    for label, fn in (("step graph x %d" % steps,
+                       lambda: tr._train_chunk(steps)),
+                      (f"one graph of {steps} steps", replay_chunk),
+                      (f"one graph of {steps} steps", replay_chunk),
+                      ("step graph x %d" % steps,
+                       lambda: tr._train_chunk(steps))):
+        ev = report_times(f"{label} [captured]", fn, 5,
+                          warm=cg.WARMUP_CALLS + 1)
+        print(f"{label} [captured]: {ev / steps:.4f} ms per grad step "
+              f"(events)", flush=True)
+    print(f"graph pools: {tr.graph_pool_bytes() / 2 ** 20:.1f} MiB for "
+          f"the sweep and step graphs, {chunk_graph.pool_bytes / 2 ** 20:.1f}"
+          f" MiB for the {steps}-step graph", flush=True)
 
 
 if __name__ == "__main__":

@@ -12,12 +12,27 @@ epochs of minibatch updates, one statistics refresh, clear the replay.
 That loop reads the stored-step count back once per rollout chunk, as
 the JAX package's does; it is outside any fused cycle.
 
-PyTorch runs eagerly: a "program" of the JAX package is a Python loop
-issuing CUDA kernels on the current stream. Pacing reads only host
-counters; no cycle reads a device value back (no .item(), .cpu() or
-bool(tensor) in one_step, train_step, the ingest sweep or the refresh),
-so the host runs ahead of the card and a later CUDA-graph capture stays
-possible. Logs and metrics stay on the device until log time.
+THE COMPILED PROGRAMS (`graphs=`, runtime/graphs.py). The JAX package
+jits its programs; eagerly, a "program" is a Python loop issuing CUDA
+kernels on the current stream. On a card, without a mesh, for a learner
+that declares itself `capturable` (V-RACER's feed-forward step on
+uniform presampled minibatches: the main path), the Trainer captures two
+CUDA graphs and replays them: the env sweep (n_roll sweeps with their
+commits, then the at-ingest K1 sweep; one graph per n_roll) and one
+grad step, which reads its (ep, t) row of the chunk's presampled
+indices through a device counter and writes its metrics into a row of
+static [rows] buffers. A chunk presamples eagerly (the same draw as
+`train_chunk`), copies the indices into the static buffer and replays
+the step graph once per step; `train()`'s chunks replay the same graph.
+The refresh, initialize_stats and restore stay eager and write into the
+captured storage (tree_copy_), never rebinding it. Logs and metrics are
+copied out of the graphs' buffers after each replay. `graphs=False` runs
+the eager loops on the card (jax.disable_jit's counterpart); on the CPU
+`graphs=True` runs the static-buffer form uncaptured (the tests).
+Pacing reads only host counters; no cycle reads a device value back
+(no .item(), .cpu() or bool(tensor) in one_step, train_step, the ingest
+sweep or the refresh), so the host runs ahead of the card. Logs and
+metrics stay on the device until log time.
 
 Randomness comes from explicit torch.Generators on the device: one for
 env resets, one for acting noise, one for minibatch draws and one for
@@ -72,13 +87,14 @@ import torch
 
 from smarties_tpu_torch.algos.base import local_batch, presample_uniform
 from smarties_tpu_torch.core.mdp import MDPSpec
-from smarties_tpu_torch.models.net import tree_map
+from smarties_tpu_torch.models.net import tree_copy_, tree_map
 from smarties_tpu_torch.parallel import mesh as pm
 from smarties_tpu_torch.replay import buffer as rb
 from smarties_tpu_torch.replay.collector import (InProgress, RolloutCarry,
                                                  RolloutGens,
                                                  init_inprogress,
                                                  make_rollout_chunk)
+from smarties_tpu_torch.runtime import graphs as cg
 from smarties_tpu_torch.utils.config import HyperParameters
 from smarties_tpu_torch.utils.profiler import Profiler
 
@@ -159,20 +175,28 @@ def can_presample(algo, cfg: HyperParameters, mesh=None) -> bool:
             and cfg.dataSamplingAlgo in ("uniform", "default"))
 
 
+def presample_chunk(algo, cfg: HyperParameters, gen: torch.Generator,
+                    rs: rb.ReplayState, n: int, mesh=None):
+    """A chunk's (ep [n, B], t [n, B]) indices drawn up front: the
+    learner's `presample_fn`, else uniform (under a mesh always uniform,
+    batchSize // K per rank)."""
+    fn = (presample_uniform if mesh is not None
+          else getattr(algo, "presample_fn", presample_uniform))
+    return fn(gen, rs, local_batch(cfg, mesh), n)
+
+
 def train_chunk(algo, cfg: HyperParameters, params, opt_state,
                 rs: rb.ReplayState, gen: torch.Generator, n: int,
                 pre=None, mesh=None):
     """n gradient steps -> (params, opt_state, rs, metrics stacked [n]
-    per key, on the device). The indices are drawn up front (the
-    learner's `presample_fn`, else uniform) when the learner can
-    presample, else by each step itself. pre: the chunk's (ep [n, B],
-    t [n, B]) indices, given instead of drawn (a test's pinned
-    samples). The Trainer and the Engine's learners share this chunk.
-    mesh: the learner rank's mesh; each rank draws batchSize // K."""
+    per key, on the device). The indices are drawn up front
+    (`presample_chunk`) when the learner can presample, else by each
+    step itself. pre: the chunk's (ep [n, B], t [n, B]) indices, given
+    instead of drawn (a test's pinned samples). The Trainer's eager path
+    and the Engine's learners share this chunk. mesh: the learner rank's
+    mesh; each rank draws batchSize // K."""
     if pre is None and can_presample(algo, cfg, mesh):
-        fn = (presample_uniform if mesh is not None
-              else getattr(algo, "presample_fn", presample_uniform))
-        pre = fn(gen, rs, local_batch(cfg, mesh), n)
+        pre = presample_chunk(algo, cfg, gen, rs, n, mesh)
     ms = []
     for i in range(n):
         params, opt_state, rs, m = algo.train_step(
@@ -189,7 +213,8 @@ class Trainer:
                  n_envs: int = 64, n_slots: Optional[int] = None,
                  max_len: int = 512, *, device, run_dir: Optional[str] = None,
                  algo_cls=None, state_dtype=None, obs_log: bool = False,
-                 mesh: Optional[pm.LearnerMesh] = None):
+                 mesh: Optional[pm.LearnerMesh] = None,
+                 graphs: Optional[bool] = None):
         """device: where every tensor lives ("cuda", "cuda:1", "cpu"). It
         is required: nothing picks the CPU when a card is missing.
         state_dtype: storage type of the raw states in the replay and the
@@ -199,7 +224,15 @@ class Trainer:
         mesh: this process's learner rank (parallel/mesh.py). n_envs and
         n_slots are the totals over all ranks and must divide by the
         rank count; this rank holds n_envs / K lanes and n_slots / K
-        slots."""
+        slots.
+        graphs: run the env sweep and the grad step as CUDA graphs
+        (runtime/graphs.py; the module docstring). None, the default,
+        captures on a card without a mesh when the learner is
+        `capturable`; False runs the eager loops (on the card: the
+        counterpart of jax.disable_jit, to hold the two against each
+        other); True asks for the graphs and raises where the learner or
+        the mesh does not allow them, and on the CPU runs their
+        static-buffer form uncaptured."""
         # the learner first: one the port lacks is reported before any
         # settings check
         if algo_cls is None:
@@ -228,6 +261,18 @@ class Trainer:
                 f"and the replay slots ({n_slots})")
         # this rank's share (the totals without a mesh)
         self.n_local_envs, self.n_local_slots = n_envs // K, n_slots // K
+        capturable = mesh is None and self.algo.capturable
+        if graphs and not capturable:
+            raise ValueError(
+                f"graphs=True: learner {cfg.learner!r} with these settings "
+                f"(nnType {cfg.nnType!r}, dataSamplingAlgo "
+                f"{cfg.dataSamplingAlgo!r}{', a mesh' if mesh else ''}) "
+                f"has no captured step")
+        self.graphs = (self.device.type == "cuda" and capturable
+                       if graphs is None else graphs)
+        self._sweep_graphs = {}       # n_roll -> graphs.Graph
+        self._step_graph = None
+        self._step_rows = None        # static (ep, t, metrics) rows
         self.is_coordinator = rank == 0
         self.run_dir = run_dir
         self._rew_file = self._obs_file = self._grads_file = None
@@ -341,13 +386,43 @@ class Trainer:
             return self.algo.init_rnn(n, self.device)
         return ()
 
-    def _roll(self, n_steps: int):
-        with self.profiler("ROLL"):
-            self.carry, logs = self._rollout(self.params, self.carry,
-                                             n_steps)
-            # at-ingest Retrace for the episodes committed in the chunk
+    def _sweep(self, n: int):
+        """n env sweeps with their commits, then the at-ingest Retrace of
+        the episodes committed in them -> the sweeps' logs, on the
+        device. With graphs: one captured program per n, whose logs are
+        copied out."""
+        if not self.graphs:
+            self.carry, logs = self._rollout(self.params, self.carry, n)
             self.carry = self.carry._replace(
                 replay=self._fix_returns(self.carry.replay))
+            return logs
+        g = self._sweep_graphs.get(n)
+        if g is None:
+            def program(carry):
+                carry, logs = self._rollout(self.params, carry, n)
+                return carry._replace(
+                    replay=self._fix_returns(carry.replay)), logs
+
+            g = self._sweep_graphs[n] = cg.Graph(
+                program, self.carry, device=self.device,
+                generators=(self.gen_act, self.gen_env))
+        return tuple(x.clone() for x in g())
+
+    def _update_replay(self, fn, *args):
+        """An eager update of the carried replay (refresh,
+        initialize_stats), its result kept in the replay's own storage,
+        which the graphs read."""
+        tree_copy_(self.carry.replay, fn(self.carry.replay, *args))
+
+    def graph_pool_bytes(self) -> int:
+        """Device memory reserved by the private pools of the captured
+        programs."""
+        gs = [*self._sweep_graphs.values(), self._step_graph]
+        return sum(g.pool_bytes for g in gs if g is not None)
+
+    def _roll(self, n_steps: int):
+        with self.profiler("ROLL"):
+            logs = self._sweep(n_steps)
         self.n_env_steps += n_steps * self.n_envs
         # deferred transfer; counters captured now so the rows keep the
         # grad/env-step columns of their episodes (MemoryBuffer.cpp:491)
@@ -458,8 +533,7 @@ class Trainer:
                     max(remaining, self.n_envs) / self.n_envs))))
                 n = chunk if (n >= chunk or not adaptive) else 1
                 self._roll(n)
-        self.carry = self.carry._replace(
-            replay=self._init_stats(self.carry.replay))
+        self._update_replay(self._init_stats)
         self._initialized = True
 
     # ------------------------------------------------------------------
@@ -500,25 +574,78 @@ class Trainer:
     def _can_presample(self) -> bool:
         return can_presample(self.algo, self.cfg)
 
-    def _train_chunk(self, n: int):
-        """n gradient steps (`train_chunk`) on the carried replay; metrics
-        stacked [n] per key, on the device."""
-        self.params, self.opt_state, rs, metrics = train_chunk(
-            self.algo, self.cfg, self.params, self.opt_state,
-            self.carry.replay, self.gen_batch, n, mesh=self.mesh)
-        self.carry = self.carry._replace(replay=rs)
-        return metrics
+    def _train_chunk(self, n: int, pre=None):
+        """n gradient steps on the carried replay; metrics stacked [n] per
+        key, on the device. Eagerly `train_chunk`; with graphs the same
+        draw of the chunk's indices (or `pre`, pinned (ep, t) [n, B]),
+        then one replay of the step graph per step. The static buffers
+        hold max(n_envs / obsPerStep, 100) rows, the fused cycle's and
+        train()'s chunks: a longer chunk runs in pieces of that many."""
+        if not self.graphs:
+            self.params, self.opt_state, rs, metrics = train_chunk(
+                self.algo, self.cfg, self.params, self.opt_state,
+                self.carry.replay, self.gen_batch, n, pre=pre,
+                mesh=self.mesh)
+            self.carry = self.carry._replace(replay=rs)
+            return metrics
+        if pre is None:
+            pre = presample_chunk(self.algo, self.cfg, self.gen_batch,
+                                  self.replay, n)
+        if self._step_graph is None:
+            self._build_step_graph(pre[0].shape[1])
+        ep_rows, t_rows, i, m_rows = self._step_rows
+        pieces = []
+        for lo in range(0, n, ep_rows.shape[0]):
+            k = min(n - lo, ep_rows.shape[0])
+            ep_rows[:k].copy_(pre[0][lo:lo + k])
+            t_rows[:k].copy_(pre[1][lo:lo + k])
+            i.zero_()
+            for _ in range(k):
+                self._step_graph()
+            pieces.append({key: b[:k].clone() for key, b in m_rows.items()})
+        if len(pieces) == 1:
+            return pieces[0]
+        return {key: torch.cat([p[key] for p in pieces]) for key in pieces[0]}
+
+    def _build_step_graph(self, batch: int):
+        """The captured grad step: row i of the static (ep, t) buffers
+        [rows, B] through the device counter i, the learner's train step,
+        its metrics into row i of [rows] buffers (made at the first,
+        eager call), then i + 1."""
+        rows = max(int(round(self.n_envs / self.cfg.obsPerStep)), 100)
+        dev = self.device
+        ep_rows = torch.zeros((rows, batch), dtype=torch.int32, device=dev)
+        t_rows = torch.zeros((rows, batch), dtype=torch.int32, device=dev)
+        i = torch.zeros((1,), dtype=torch.int64, device=dev)
+        m_rows = {}
+        self._step_rows = (ep_rows, t_rows, i, m_rows)
+
+        def program(state):
+            params, opt_state, rs = state
+            params, opt_state, rs, m = self.algo.train_step(
+                params, opt_state, rs, gen=self.gen_batch,
+                sample_override=(ep_rows.index_select(0, i)[0],
+                                 t_rows.index_select(0, i)[0]))
+            for key, v in m.items():
+                if key not in m_rows:
+                    m_rows[key] = torch.empty((rows,) + tuple(v.shape),
+                                              dtype=v.dtype, device=dev)
+                m_rows[key].index_copy_(0, i, v[None])
+            i.add_(1)
+            return (params, opt_state, rs), None
+
+        self._step_graph = cg.Graph(
+            program, (self.params, self.opt_state, self.carry.replay),
+            device=dev)
 
     def _fused_cycle(self, n_roll: int, n_train: int):
         """[n_roll env sweeps + at-ingest returns + n_train grad steps]:
-        the JAX package's fused program as one host call. The ingest
+        the JAX package's fused program, as two replayed graphs with
+        graphs (the sweep's, and the step's once per step). The ingest
         sweep runs K1 here too (the JAX package could not co-compile its
         kernel with lax.scan and used an associative scan instead)."""
         with self.profiler("ROLL"):
-            self.carry, logs = self._rollout(self.params, self.carry,
-                                             n_roll)
-            self.carry = self.carry._replace(
-                replay=self._fix_returns(self.carry.replay))
+            logs = self._sweep(n_roll)
         with self.profiler("TRAIN"):
             return self._train_chunk(n_train), logs
 
@@ -554,9 +681,8 @@ class Trainer:
             if self.n_grad_steps // 1000 > self._last_refresh // 1000:
                 self._last_refresh = self.n_grad_steps
                 with self.profiler("REFRESH"):
-                    self.carry = self.carry._replace(
-                        replay=self._refresh(self.carry.replay,
-                                             float(self.n_grad_steps)))
+                    self._update_replay(self._refresh,
+                                        float(self.n_grad_steps))
             if (self.n_grad_steps - self._last_log) >= log_every:
                 self._last_log = self.n_grad_steps
                 self.log_status()
@@ -592,9 +718,8 @@ class Trainer:
             if self.n_grad_steps // 1000 > self._last_refresh // 1000:
                 self._last_refresh = self.n_grad_steps
                 with self.profiler("REFRESH"):
-                    self.carry = self.carry._replace(
-                        replay=self._refresh(self.carry.replay,
-                                             float(self.n_grad_steps)))
+                    self._update_replay(self._refresh,
+                                        float(self.n_grad_steps))
             if not self.block_data():
                 roll_n = max(1, min(64, int(np.ceil(
                     Q * self.cfg.obsPerStep / self.n_envs))))
@@ -631,8 +756,7 @@ class Trainer:
                     < horizon:
                 self._roll(roll_n)
             if not self._initialized:
-                self.carry = self.carry._replace(
-                    replay=self._init_stats(self.carry.replay))
+                self._update_replay(self._init_stats)
                 self._initialized = True
             done_in_cycle = 0
             while done_in_cycle < updates_per_cycle:
@@ -643,15 +767,12 @@ class Trainer:
                 if self.cfg.debugNaN:
                     self._check_nan()
             # once per data pass: reward/state stats (PPO.cpp:100-104)
-            self.carry = self.carry._replace(
-                replay=self._refresh(self.carry.replay,
-                                     float(self.n_grad_steps)))
+            self._update_replay(self._refresh, float(self.n_grad_steps))
             if (self.n_grad_steps - self._last_log) >= log_every:
                 self._last_log = self.n_grad_steps
                 self.log_status()
             # epoch over: discard the data (PPO.cpp:105-112)
-            self.carry = self.carry._replace(
-                replay=rb.clear_all(self.carry.replay))
+            self._update_replay(rb.clear_all)
         self._flush_logs()
 
     # ------------------------------------------------------------------
@@ -815,11 +936,14 @@ class Trainer:
         os.replace(tmp, path)  # write-then-rename atomicity
 
     def restore(self, path: str):
-        """Load a checkpoint of this configuration: the params are copied
-        into the existing leaves (nested {"net", "tgt"} trees included),
-        the optimiser state and acting carry are rebuilt in the structure
-        of the current ones (AdamState, MixedPGOptState, PPOOptState; the
-        carry's nested tuples, LSTM (h, c) pairs included).
+        """Load a checkpoint of this configuration. Every tensor is copied
+        into the storage of the one it replaces, which the graphs read:
+        the params (nested {"net", "tgt"} trees included), the optimiser
+        state and acting carry read in the structure of the current ones
+        (AdamState, MixedPGOptState, PPOOptState; the carry's nested
+        tuples, LSTM (h, c) pairs included), the replay, the in-progress
+        episodes and the env state; the generators take their saved
+        states.
 
         Under a mesh each rank takes its block of the slots and lanes, and
         the generators of its rank where the checkpoint has as many ranks
@@ -830,17 +954,16 @@ class Trainer:
         if n_saved != self.n_slots:
             raise ValueError(f"the checkpoint holds {n_saved} replay slots, "
                              f"this trainer {self.n_slots}")
-        with torch.no_grad():
-            tree_map(lambda dst, src: dst.copy_(src), self.params,
-                     state["params"])
-        self.opt_state = _restructure(self.opt_state, state["opt_state"])
+        tree_copy_(self.params, state["params"])
+        tree_copy_(self.opt_state,
+                   _restructure(self.opt_state, state["opt_state"]))
         dims = pm.shard_fields(self.carry.replay)
         rs = rb.ReplayState(**{
             f: self._split(x, dims[f]) if f in dims else x
             for f, x in state["replay"].items()})
         if self.mesh is not None:
             rs = rb.rebuild_sample_cache(rs)
-        self.carry = RolloutCarry(
+        tree_copy_(self.carry, RolloutCarry(
             rs,
             InProgress(**{k: self._split(v, _inprog_lane_dim(v))
                           for k, v in state["inprog"].items()}),
@@ -848,7 +971,7 @@ class Trainer:
                 k: self._split(v, 0) for k, v in state["env_state"].items()}),
             self.carry.gens,
             tree_map(lambda x: self._split(x, 0),
-                     _restructure(self.carry.rnn, state["rnn"])))
+                     _restructure(self.carry.rnn, state["rnn"]))))
         K = self.mesh.size if self.mesh is not None else 1
         gens = state["gens"] if K == 1 else None
         if self.mesh is not None and len(state.get("rank_gens", ())) == K:

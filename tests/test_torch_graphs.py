@@ -1,0 +1,263 @@
+"""The main path's captured programs (runtime/graphs.py) at a small size.
+
+The Trainer captures V-RACER's env sweep (with its commit and the
+at-ingest K1 sweep) and its grad step as CUDA graphs on a card. A graph
+replays the addresses it captured, so what it needs of the code is held
+here on the CPU, at tests/test_fused.py's sizes (16 envs, 64 slots):
+
+(a) one train step, one sweep with its ingest, the 1000-step refresh and
+    a save / restore round trip leave every tensor of the params, the
+    Adam state, the replay, the in-progress episodes, the env state and
+    the acting carry in its own storage;
+(b) no host-reading op in a grad step or a sweep (a TorchDispatchMode
+    over them): no .item(), nonzero, masked_select, unique, and no
+    indexing by a bool mask;
+(c) the static-buffer form of the cycle that the card captures, run
+    uncaptured on the CPU (Trainer(graphs=True)), equals the eager loop
+    (graphs=False) bit for bit: two fused cycles, one on pinned
+    presamples, with the refresh, and a chunk longer than the static
+    buffers;
+(d) marked `cuda`: on the card the captured cycle equals the eager one
+    (torch.equal), K1 counts one launch per ingest replay, and a step is
+    one graph launch.
+
+Which learners the Trainer captures is a property of the learner; the
+others raise when graphs are asked for.
+
+This file imports neither jax nor the JAX package, so the `cuda` test
+runs on a machine without them:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda \
+        tests/test_torch_graphs.py
+"""
+import dataclasses
+
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from smarties_tpu_torch import launch
+from smarties_tpu_torch.envs import cartpole
+from smarties_tpu_torch.runtime.trainer import Trainer
+from smarties_tpu_torch.utils.config import HyperParameters
+
+torch.set_num_threads(1)
+
+N_ENVS, N_SLOTS, MAX_LEN = 16, 64, 64
+CFG = dict(minTotObsNum=256, maxTotObsNum=2048, batchSize=32,
+           nnLayerSizes=[16, 16], obsPerStep=1.0, randSeed=0)
+GENS = ("env", "act", "batch", "eval")
+
+
+def _trainer(device="cpu", graphs=None, **kw):
+    return Trainer(cartpole, cartpole.MDP, HyperParameters(**dict(CFG, **kw)),
+                   n_envs=N_ENVS, n_slots=N_SLOTS, max_len=MAX_LEN,
+                   device=device, graphs=graphs)
+
+
+def _tensors(x, name=""):
+    """(path, tensor) of every tensor in a tree of dicts, (named) tuples
+    and dataclasses."""
+    if isinstance(x, torch.Tensor):
+        return [(name, x)]
+    if isinstance(x, dict):
+        return [p for k in sorted(x) for p in _tensors(x[k], f"{name}.{k}")]
+    if isinstance(x, (list, tuple)):
+        keys = getattr(x, "_fields", range(len(x)))
+        return [p for k, v in zip(keys, x) for p in _tensors(v, f"{name}.{k}")]
+    if dataclasses.is_dataclass(x):
+        return [p for f in dataclasses.fields(x)
+                for p in _tensors(getattr(x, f.name), f"{name}.{f.name}")]
+    return []
+
+
+def _state(tr):
+    """Every tensor a captured program reads and writes, by path."""
+    return [(k[1:], x) for k, x in _tensors(
+        {"params": tr.params, "opt": tr.opt_state, "carry": tr.carry})]
+
+
+def _assert_same_state(a, b):
+    sa, sb = _state(a), _state(b)
+    assert [k for k, _ in sa] == [k for k, _ in sb]
+    for (k, x), (_, y) in zip(sa, sb):
+        assert torch.equal(x.detach().cpu(), y.detach().cpu()), k
+    for g in GENS:
+        assert torch.equal(getattr(a, "gen_" + g).get_state(),
+                           getattr(b, "gen_" + g).get_state()), g
+
+
+@pytest.mark.parametrize("what", ["train_step", "sweep", "refresh",
+                                  "restore"])
+def test_state_keeps_its_storage(what, tmp_path):
+    tr = _trainer(graphs=False)
+    tr.warmup(chunk=16)
+    if what == "refresh":
+        tr._sweep(8)              # data the statistics have not seen
+    before = [(k, x.data_ptr(), x.detach().clone()) for k, x in _state(tr)]
+    if what == "train_step":
+        tr.params, tr.opt_state, rs, _ = tr.algo.train_step(
+            tr.params, tr.opt_state, tr.replay, gen=tr.gen_batch)
+        tr.carry = tr.carry._replace(replay=rs)
+        changed = ("params.layers.0.W", "opt.m1.layers.0.W", "opt.step",
+                   "opt.beta_t_1", "carry.replay.beta",
+                   "carry.replay.max_abs_error", "carry.replay.rho_tm")
+    elif what == "sweep":
+        tr._sweep(1)
+        changed = ("carry.inprog.t", "carry.inprog.cum_reward",
+                   "carry.inprog.states", "carry.env_state.u",
+                   "carry.env_state.step")
+    elif what == "refresh":
+        tr.carry = tr.carry._replace(replay=tr._refresh(tr.replay, 1000.0))
+        changed = ("carry.replay.rew_mean", "carry.replay.state_mean",
+                   "carry.replay.state_scale")
+    else:
+        path = str(tmp_path / "ckpt.pt")
+        tr.save(path)
+        tr.restore(path)
+        changed = ()
+    after = {k: x for k, x in _state(tr)}
+    assert list(after) == [k for k, _, _ in before]
+    for k, ptr, old in before:
+        assert after[k].data_ptr() == ptr, f"{what} rebound {k}"
+        if k in changed:
+            assert not torch.equal(after[k].detach(), old), \
+                f"{what} left {k} as it was"
+        elif what == "restore":
+            assert torch.equal(after[k].detach(), old), k
+
+
+# ops that read a device value back to the host (a synchronisation, and
+# no capture), and the indexing ops, which do so for a bool index
+HOST_READS = ("aten::_local_scalar_dense", "aten::is_nonzero", "aten::equal",
+              "aten::nonzero", "aten::masked_select", "aten::unique",
+              "aten::_unique", "aten::unique_consecutive")
+INDEXING = ("aten::index.Tensor", "aten::index_put", "aten::index_put_",
+            "aten::_index_put_impl_")
+
+
+class _HostReads(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.name()
+        if name.startswith(HOST_READS):
+            self.seen.append(name)
+        if name.startswith(INDEXING) and any(
+                isinstance(i, torch.Tensor) and i.dtype == torch.bool
+                for i in args[1] if i is not None):
+            self.seen.append(f"{name} with a bool index")
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("what, app", [
+    ("train_step", "cartpole"), ("sweep", "cartpole"), ("sweep", "pendulum"),
+    ("sweep", "mountaincar"), ("sweep", "predator_prey"), ("sweep", "glider"),
+])
+def test_no_host_reads(what, app):
+    """The main path's step and sweep, and the sweep of every built-in
+    env with continuous actions, where V-RACER is captured too."""
+    env = launch.env_module(app)
+    tr = Trainer(env, env.MDP, HyperParameters(**CFG), n_envs=N_ENVS,
+                 n_slots=N_SLOTS, max_len=MAX_LEN, device="cpu",
+                 graphs=True)
+    tr.warmup(chunk=16, blind_sweeps=16)
+    tr._train_chunk(2)            # the static buffers and their first use
+    mode = _HostReads()
+    with mode:
+        if what == "train_step":
+            tr._train_chunk(1)
+        else:
+            tr._sweep(1)
+    assert not mode.seen, mode.seen
+
+
+def _cycle(tr, n_train, pre=None):
+    logs = tr._sweep(1)
+    return tr._train_chunk(n_train, pre=pre), logs
+
+
+@pytest.mark.parametrize("what", ["fused", "long_chunk"])
+def test_static_cycle_equals_eager_loop(what):
+    eager, static = _trainer(graphs=False), _trainer(graphs=True)
+    outs = []
+    for tr in (eager, static):
+        tr.warmup(chunk=16)
+        if what == "fused":
+            g = torch.Generator().manual_seed(7)
+            lens = tr.replay.slot_len.clone()
+            ep = torch.randint(0, N_SLOTS, (N_ENVS, CFG["batchSize"]),
+                               generator=g, dtype=torch.int32)
+            ep = torch.where(tr.replay.slot_id[ep.long()] >= 0, ep,
+                             torch.argmax(lens).to(torch.int32))
+            t = (torch.rand(ep.shape, generator=g)
+                 * lens[ep.long()]).to(torch.int32)
+            outs.append([_cycle(tr, N_ENVS, pre=(ep, t)),
+                         _cycle(tr, N_ENVS)])
+            tr._update_replay(tr._refresh, 1000.0)
+            outs[-1].append(_cycle(tr, N_ENVS))
+        else:
+            outs.append([(tr._train_chunk(250), ())])
+    _assert_same_state(eager, static)
+    for (ma, la), (mb, lb) in zip(*outs, strict=True):
+        assert list(ma) == list(mb)
+        for k in ma:
+            assert ma[k].shape == (250 if what == "long_chunk" else N_ENVS,)
+            assert torch.equal(ma[k], mb[k]), k
+        for x, y in zip(la, lb, strict=True):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(learner="RACER"),
+    dict(dataSamplingAlgo="PERrank"),
+    dict(nnType="LSTM", nnBPTTseq=4),
+])
+def test_graphs_only_for_capturable_learners(kw):
+    assert not _trainer(**kw).graphs
+    assert not _trainer().graphs          # the CPU captures nothing
+    with pytest.raises(ValueError, match="no captured step"):
+        _trainer(graphs=True, **kw)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_captured_cycle_equals_eager_on_card(cuda, tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    from smarties_tpu_torch.ops import retrace_kernel as rk
+    from smarties_tpu_torch.runtime import graphs as cg
+
+    eager, captured = _trainer(cuda, False), _trainer(cuda)
+    assert captured.graphs and not eager.graphs
+    n_cycles = cg.WARMUP_CALLS + 2
+    for tr in (eager, captured):
+        tr.warmup(chunk=16)
+        rk.reset_launches()
+        for _ in range(n_cycles):
+            _cycle(tr, N_ENVS)
+        tr._update_replay(tr._refresh, 1000.0)
+        assert rk.launches["retrace_sweep"] == n_cycles + 1
+        path = str(tmp_path / f"{tr.graphs}.pt")
+        tr.save(path)
+        _cycle(tr, N_ENVS)
+        tr.restore(path)
+        _cycle(tr, N_ENVS)
+    _assert_same_state(eager, captured)
+    assert captured._step_graph.graph is not None
+    assert captured._sweep_graphs[1].graph is not None
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        captured._train_chunk(8)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert names.count("cudaGraphLaunch") == 8
+    assert names.count("cudaLaunchKernel") < 8 * 4
