@@ -36,17 +36,23 @@ Phases, each reported on its own line:
    finiteness, the stored-step count, and that every call of K1's four
    sites made exactly one sweep launch (a graph's replays count what its
    capture launched).
-4b. graphs: the main path's captured programs against its eager loops
-   (Trainer(graphs=False), the counterpart of jax.disable_jit), at full
-   width, from one state: warmup, the graphs' warm-up cycles and their
-   capture, 2 fused cycles timed by CUDA events, a save, a cycle, a
-   restore and a cycle (the 1000-step refresh after each cycle that
-   crosses one). Params, Adam state, replay, in-progress episodes, env
-   state and generator states must be torch.equal; K1 one sweep launch
-   per site call, counted over replays, on both. Prints fused_cycle_ms
-   both ways, launches per grad step and per env sweep both ways
-   (torch.profiler: kernel launches, graph launches, copies), a train
-   chunk's grad steps/s both ways, and the graph pools' bytes.
+4b. graphs: the captured programs against the eager loops
+   (Trainer(graphs=False), the counterpart of jax.disable_jit), each
+   path from one state: the main path, then RACER, RACER-discrete, DQN,
+   NAF, DPG and MixedPG at their recipes' widths with 1024 envs (phase
+   5's settings), then V-RACER under PERrank + farpolfrac (phase 9's,
+   the draw inside the captured step). Per path: warmup, the graphs'
+   warm-up calls and their capture in short fused cycles (1 sweep + 8
+   grad steps), 2 fused cycles timed by CUDA events, a save, a short
+   cycle, a restore and a short cycle (the 1000-step refresh after each
+   timed cycle). Params (target nets included), optimiser state, replay,
+   in-progress episodes, env state, acting carry and the four generator
+   states must be torch.equal; K1 one sweep launch per site call,
+   counted over replays, on both (none on DQN's 1-step path). Prints
+   fused_cycle_ms both ways, launches per grad step and per env sweep
+   both ways (torch.profiler: kernel launches, graph launches, copies;
+   one graph launch a captured step), a train chunk's ms per grad step
+   both ways, and the graph pools' bytes.
 5. learners: RACER, RACER-discrete, DQN, NAF, DPG and MixedPG, each
    through the launcher (smarties_tpu_torch.launch.run) at its recipe's
    published widths and batch with 1024 envs: warmup, train(1000) timed
@@ -55,7 +61,8 @@ Phases, each reported on its own line:
    initialize_stats and refresh on every Retrace path (DQN's recipe has
    no Retrace sweep: its 0 is measured and printed); then the port on
    the card against the port on the CPU at a small size (4 pinned train
-   steps and a refresh).
+   steps and a refresh). Each runs captured (Trainer's default), its ms
+   per grad step printed beside the eager figure of PERF.md §5.
 6. on-policy: PPO on cartpole and on cartpole_discrete through the
    launcher at the recipe's widths (encoder [64] + heads [64], batch 64,
    horizon 2048, 10 epochs) with the launcher's default 64 envs (at
@@ -108,9 +115,9 @@ Phases, each reported on its own line:
    ERoldSeqFilter farpolfrac: warmup, train_fused(1024), one fused cycle
    with the draw inside every step (the 1000-step refresh at its end),
    and train(100), every step drawing from the TD errors the steps
-   before wrote; then PERrank, PERerr and PERseq draws on the card
-   against the CPU on a copy of the replay for the same injected
-   uniforms (equal).
+   before wrote, captured with the draw inside the step graph; then
+   PERrank, PERerr and PERseq draws on the card against the CPU on a
+   copy of the replay for the same injected uniforms (equal).
 10. learning: the port learns on the card. V-RACER on cartpole with the
    settings of tests/test_torch_e2e.py (32 envs, 512 slots, batch 128,
    learnrate 1e-4, randSeed 1): a deterministic eval of 16 episodes
@@ -355,9 +362,14 @@ MC_TIMEOUT_S, MC_RTOL, MC_ATOL, MC_SINGLE_STEPS = 300.0, 2e-5, 2e-6, 50
 CURVES_RUNS = (("vracer_cma_cartpole", 2048, 2048, "retrace"),
                ("ppo_std_cartpole", 1, 320, "GAE"))
 CURVES_CMA_GENERATIONS = 3
-# the graphs phase: fused cycles timed each way, grad steps of the
-# profiled chunk and of the timed train chunk
-GRAPH_TIMED_CYCLES, GRAPH_PROFILED_STEPS, GRAPH_CHUNK = 2, 100, 500
+# the graphs phase: fused cycles timed each way, grad steps of a short
+# cycle, of the profiled chunk and of the timed train chunk
+GRAPH_TIMED_CYCLES, GRAPH_SHORT_STEPS = 2, 8
+GRAPH_PROFILED_STEPS, GRAPH_CHUNK = 20, 100
+# the eager grad step of each learner path as PERF.md §5 has it
+# (profile_main --path on an NVIDIA H100 80GB HBM3 at 700 W), ms
+EAGER_STEP_MS = {"racer": 12.525, "racer_discrete": 8.696, "dqn": 6.995,
+                 "naf": 10.262, "dpg": 9.742, "mixedpg": 11.825}
 # the bench phase: timed fused cycles, the Atari step's presampled steps,
 # quality cycles of seed 0; the serving bench's apps and seconds
 BENCH_CYCLES, BENCH_ATARI_STEPS, BENCH_QUALITY_CYCLES = 2, 128, 2
@@ -774,68 +786,101 @@ def _state_tensors(x, name=""):
     return []
 
 
-def phase_graphs():
-    """The main path captured against the main path eager, at full
-    width, from one state (phase 4b in the module docstring)."""
-    import shutil
-    import tempfile
+def _per_trainer(graphs=None):
+    """The samplers phase's trainer: the main path's V-RACER under
+    PERrank + farpolfrac (4096 x 501 slots, 1024 envs)."""
+    from smarties_tpu_torch.envs import cartpole
+    from smarties_tpu_torch.runtime.trainer import Trainer
+    from smarties_tpu_torch.utils.config import HyperParameters
+
+    cfg = HyperParameters(minTotObsNum=16384, maxTotObsNum=262144,
+                          batchSize=256, obsPerStep=1.0,
+                          nnLayerSizes=[128, 128], randSeed=0,
+                          dataSamplingAlgo="PERrank",
+                          ERoldSeqFilter="farpolfrac")
+    tr = Trainer(cartpole, cartpole.MDP, cfg, n_envs=1024, n_slots=MAIN_E,
+                 max_len=cartpole.MAX_STEPS, device="cuda", graphs=graphs)
+    tr.log_flush_threshold = 10 ** 9
+    return tr
+
+
+def _learner_trainer(app, recipe, graphs=None):
+    """A learners-phase path's trainer as the launcher builds it (the
+    recipe's settings, 1024 envs, the default replay), without a run
+    directory."""
+    from smarties_tpu_torch import launch
+    from smarties_tpu_torch.runtime.trainer import Trainer
+
+    env = launch.env_module(app)
+    tr = Trainer(env, env.MDP, launch.load_recipe(recipe, 0),
+                 n_envs=LEARNER_ENVS, max_len=env.MAX_STEPS, device="cuda",
+                 graphs=graphs)
+    tr.log_flush_threshold = 10 ** 9
+    return tr
+
+
+def _graphs_path(name, make, tmp):
+    """One path of phase 4b: `make(graphs)` builds its trainer; captured
+    and eager from one state -> results by mode."""
+    import gc
 
     import torch
     from smarties_tpu_torch.ops import retrace_kernel as rk
     from smarties_tpu_torch.runtime import graphs as cg
-    from smarties_tpu_torch.runtime.profile_main import (main_path_trainer,
-                                                         profile_calls)
+    from smarties_tpu_torch.runtime.profile_main import profile_calls
 
-    t_phase = time.perf_counter()
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_graphs_",
-                           dir=os.path.join(ROOT, "build"))
+    t_path = time.perf_counter()
     res, trainers = {}, {}
-    try:
-        for mode in ("captured", "eager"):
-            tr = main_path_trainer(0, "cuda",
-                                   graphs=None if mode == "captured"
-                                   else False)
-            assert tr.graphs == (mode == "captured"), (mode, tr.graphs)
-            sites = SiteCounter(tr, rk)
-            rk.reset_launches()
-            tr.warmup(chunk=16, blind_sweeps=16)
+    for mode in ("captured", "eager"):
+        tr = make(None if mode == "captured" else False)
+        assert tr.graphs == (mode == "captured"), (name, mode, tr.graphs)
+        sites = SiteCounter(tr, rk)
+        rk.reset_launches()
+        t0 = time.perf_counter()
+        tr.warmup(chunk=16)
+        torch.cuda.synchronize()
+        stages = {"warmup_s": time.perf_counter() - t0}
 
-            def cycle():
-                tr.train_fused(tr.n_envs, log_every=10 ** 9, flush=False)
+        def short_cycle():
+            tr._fused_cycle(1, GRAPH_SHORT_STEPS)
 
-            # the graphs' eager warm-up calls, then their capture
-            for _ in range(cg.WARMUP_CALLS + 1):
-                cycle()
-            cycle_ms = []
-            for _ in range(GRAPH_TIMED_CYCLES):
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-                cycle()
-                e1.record()
-                e1.synchronize()
-                cycle_ms.append(e0.elapsed_time(e1))
-            path = os.path.join(tmp, f"{mode}.pt")
-            tr.save(path)
-            cycle()
-            tr.restore(path)
-            cycle()
-            torch.cuda.synchronize()
-            counts = dict(rk.launches)
+        # the graphs' eager warm-up calls, then their capture
+        for _ in range(cg.WARMUP_CALLS + 1):
+            short_cycle()
+        cycle_ms = []
+        for _ in range(GRAPH_TIMED_CYCLES):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            tr.train_fused(tr.n_envs, log_every=10 ** 9, flush=False)
+            e1.record()
+            e1.synchronize()
+            cycle_ms.append(e0.elapsed_time(e1))
+        ckpt = os.path.join(tmp, f"{name}_{mode}.pt")
+        t0 = time.perf_counter()
+        tr.save(ckpt)
+        short_cycle()
+        tr.restore(ckpt)
+        short_cycle()
+        os.remove(ckpt)
+        torch.cuda.synchronize()
+        stages["save_restore_s"] = time.perf_counter() - t0
+        counts = dict(rk.launches)
+        if tr.algo.returns_mode == "none":
+            assert sum(counts.values()) == 0 == sum(sites.sites.values()), \
+                (name, mode, counts, sites.sites)
+        else:
             sites.check_one_launch_per_call(
                 counts, ("ingest", "initialize_stats", "refresh"),
-                f"graphs {mode}")
-            if mode == "captured":
-                assert tr._step_graph.graph is not None
-                assert tr._sweep_graphs[1].graph is not None
-            res[mode] = {"fused_cycle_ms": cycle_ms, "k1": counts,
-                         "sites": dict(sites.sites),
-                         "pool_bytes": tr.graph_pool_bytes()}
-            tr._pending_logs.clear()
-            trainers[mode] = tr
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+                f"graphs {name} {mode}")
+        if mode == "captured":
+            assert all(g.graph is not None for g in tr._step_graphs.values())
+            assert tr._step_graphs and tr._sweep_graphs[1].graph is not None
+        res[mode] = {"fused_cycle_ms": cycle_ms,
+                     "k1": counts.get("retrace_sweep", 0),
+                     "sites": dict(sites.sites), "stages": stages}
+        tr._pending_logs.clear()
+        trainers[mode] = tr
 
     # one state: everything the graphs read and write, and the generators
     cap, eag = trainers["captured"], trainers["eager"]
@@ -844,28 +889,29 @@ def phase_graphs():
         return _state_tensors({"params": tr.params, "opt": tr.opt_state,
                                "carry": tr.carry})
 
+    cap_presamples = cap._can_presample
     sc, se = state(cap), state(eag)
     assert [k for k, _ in sc] == [k for k, _ in se]
     for (k, x), (_, y) in zip(sc, se):
-        assert torch.equal(x, y), f"graphs: {k} differs captured vs eager"
+        assert torch.equal(x, y), f"graphs {name}: {k} differs captured " \
+            f"vs eager"
     for g in ("env", "act", "batch", "eval"):
         assert torch.equal(getattr(cap, "gen_" + g).get_state(),
-                           getattr(eag, "gen_" + g).get_state()), g
+                           getattr(eag, "gen_" + g).get_state()), (name, g)
     assert cap.n_grad_steps == eag.n_grad_steps
 
-    # launches per grad step and per env sweep, and a train chunk's rate
+    # launches per grad step and per env sweep, and a train chunk's time
     for mode, tr in trainers.items():
+        t0 = time.perf_counter()
         step = profile_calls(
             lambda: tr._train_chunk(GRAPH_PROFILED_STEPS), 1)
         sweep = profile_calls(lambda: tr._sweep(1), 3)
-        tr._pending_logs.clear()
         per_step = {k: step[k] / GRAPH_PROFILED_STEPS for k in
                     ("launches", "graph_launches", "copies")}
         per_step["device_busy_ms"] = step["busy_ms"] / GRAPH_PROFILED_STEPS
         per_sweep = {k: sweep[k] for k in ("launches", "graph_launches",
                                            "copies")}
         per_sweep["device_busy_ms"] = sweep["busy_ms"]
-        tr._train_chunk(GRAPH_CHUNK)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -873,30 +919,68 @@ def phase_graphs():
         e1.record()
         e1.synchronize()
         chunk_ms = e0.elapsed_time(e1)
+        res[mode]["stages"]["profile_s"] = time.perf_counter() - t0
         res[mode].update(per_grad_step=per_step, per_sweep=per_sweep,
                          train_chunk_ms=chunk_ms,
-                         train_grad_steps_per_s=GRAPH_CHUNK / chunk_ms * 1e3)
+                         ms_per_grad_step=chunk_ms / GRAPH_CHUNK,
+                         pool_bytes=tr.graph_pool_bytes())
     c, e = res["captured"], res["eager"]
-    assert c["per_grad_step"]["graph_launches"] == 1, c["per_grad_step"]
-    assert c["per_grad_step"]["launches"] < 1, c["per_grad_step"]
+    assert c["per_grad_step"]["graph_launches"] == 1, (name, c)
+    # a replay launches 2 kernels (its seed and offset) per generator the
+    # graph registers: gen_batch where the step draws its own minibatch
+    in_step_draw = not cap_presamples
+    assert c["per_grad_step"]["launches"] < 1 + 2 * in_step_draw, (name, c)
     assert e["per_grad_step"]["graph_launches"] == 0 and \
-        e["per_grad_step"]["launches"] > 100, e["per_grad_step"]
-    phase_s = time.perf_counter() - t_phase
+        e["per_grad_step"]["launches"] > 100, (name, e)
+    algo, n_tensors = type(cap.algo).__name__, len(sc)
+    del cap, eag, trainers, tr, sc, se
+    gc.collect()
+    torch.cuda.empty_cache()
     for mode, r in res.items():
-        print(f"graphs [{mode}]: fused_cycle_ms "
+        print(f"graphs {name} ({algo}) [{mode}]: fused_cycle_ms "
               f"{' / '.join(f'{x:.2f}' for x in r['fused_cycle_ms'])} "
-              f"(1 env sweep + 1024 grad steps, CUDA events) | per grad "
-              f"step {r['per_grad_step']} | per env sweep + ingest "
-              f"{r['per_sweep']} | train chunk of {GRAPH_CHUNK}: "
-              f"{r['train_chunk_ms']:.2f} ms, "
-              f"{r['train_grad_steps_per_s']:.1f} grad steps/s | K1 "
-              f"{r['k1']} by site {r['sites']}, one per call | graph "
-              f"pools {r['pool_bytes']} B", flush=True)
-    print(f"graphs: captured and eager torch.equal after warmup, "
+              f"(1 env sweep + 1024 grad steps, CUDA events) | "
+              f"{r['ms_per_grad_step']:.4f} ms per grad step (a chunk of "
+              f"{GRAPH_CHUNK}) | per grad step {r['per_grad_step']} | per "
+              f"env sweep + ingest {r['per_sweep']} | K1 {r['k1']} sweep "
+              f"launches by site {r['sites']}, one per call | graph pools "
+              f"{r['pool_bytes']} B | s "
+              + ", ".join(f"{k} {v:.2f}" for k, v in r["stages"].items()),
+              flush=True)
+    res["tensors"] = n_tensors
+    res["path_s"] = time.perf_counter() - t_path
+    print(f"graphs {name}: captured and eager torch.equal after warmup, "
           f"{cg.WARMUP_CALLS + 1 + GRAPH_TIMED_CYCLES + 2} fused cycles, "
-          f"their refreshes and a save / restore ({len(sc)} tensors and "
-          f"4 generator states) | phase {phase_s:.2f} s", flush=True)
-    res["phase_s"] = phase_s
+          f"their refreshes and a save / restore ({n_tensors} tensors and 4 "
+          f"generator states) | {res['path_s']:.2f} s", flush=True)
+    return res
+
+
+def phase_graphs():
+    """Every captured path against its eager loops, from one state
+    (phase 4b in the module docstring)."""
+    import functools
+    import shutil
+    import tempfile
+
+    from smarties_tpu_torch.runtime.profile_main import main_path_trainer
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_graphs_",
+                           dir=os.path.join(ROOT, "build"))
+    paths = {"vracer_main": lambda g: main_path_trainer(0, "cuda", graphs=g)}
+    for name, app, recipe in LEARNER_PATHS:
+        paths[name] = functools.partial(_learner_trainer, app, recipe)
+    paths["vracer_perrank"] = _per_trainer
+    try:
+        res = {name: _graphs_path(name, make, tmp)
+               for name, make in paths.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"graphs: {len(paths)} paths captured and eager torch.equal | "
+          f"phase {res['phase_s']:.2f} s", flush=True)
     return {"graphs": res}
 
 
@@ -955,6 +1039,7 @@ def phase_learners():
         t0 = time.perf_counter()
         tr = launch.run(args, prepare=prepare)
         torch.cuda.synchronize()
+        assert tr.graphs, f"{name}: not captured"
         run_s = time.perf_counter() - t0
         counts, sites = dict(rk.launches), dict(hooks["sites"].sites)
         rets = tr.evaluate(8, max_steps=200)
@@ -984,9 +1069,10 @@ def phase_learners():
         ms_step = hooks["train_ms"] / hooks["steps"]
         print(f"learners: {name} ({type(tr.algo).__name__}, {app}, "
               f"{widths}, batch {cfg.batchSize}, {LEARNER_ENVS} envs, "
-              f"returns {mode}): train({LEARNER_STEPS}) "
+              f"returns {mode}, captured): train({LEARNER_STEPS}) "
               f"{hooks['train_ms']:.1f} ms by events "
-              f"({ms_step:.3f} ms/grad step, host wall "
+              f"({ms_step:.3f} ms/grad step with its sweeps; eager "
+              f"train_step {EAGER_STEP_MS[name]} ms in PERF.md §5; host wall "
               f"{hooks['train_wall_s']:.2f} s) | launch.run {run_s:.2f} s | "
               f"evaluate(8, 200) mean return {float(np.mean(rets)):.2f} | "
               f"{k1} | card vs CPU max |diff| "
@@ -1518,22 +1604,14 @@ def phase_samplers():
     prioritized sampler's draw on the card against the CPU."""
     import numpy as np
     import torch
-    from smarties_tpu_torch.envs import cartpole
     from smarties_tpu_torch.models import convert
     from smarties_tpu_torch.ops import retrace_kernel as rk
     from smarties_tpu_torch.replay import buffer as rb
-    from smarties_tpu_torch.runtime.trainer import Trainer
-    from smarties_tpu_torch.utils.config import HyperParameters
 
     name = "vracer_perrank"
-    cfg = HyperParameters(minTotObsNum=16384, maxTotObsNum=262144,
-                          batchSize=256, obsPerStep=1.0,
-                          nnLayerSizes=[128, 128], randSeed=0,
-                          dataSamplingAlgo="PERrank",
-                          ERoldSeqFilter="farpolfrac")
-    tr = Trainer(cartpole, cartpole.MDP, cfg, n_envs=1024, n_slots=MAIN_E,
-                 max_len=cartpole.MAX_STEPS, device="cuda")
-    tr.log_flush_threshold = 10 ** 9
+    tr = _per_trainer()
+    cfg = tr.cfg
+    assert tr.graphs
     sites = SiteCounter(tr, rk)
     rk.reset_launches()
     tr.warmup(chunk=16, blind_sweeps=16)
@@ -1582,7 +1660,7 @@ def phase_samplers():
     print(f"samplers: {name} (VRacer, cartpole, [128, 128], batch 256, 1024 "
           f"envs, {MAIN_E} x {MAIN_L1} slots, PERrank + farpolfrac): "
           f"train_fused({tr.n_envs}), one fused cycle with the draws in "
-          f"the steps: {ms[0]:.3f} ms/grad step by events, "
+          f"the captured steps: {ms[0]:.3f} ms/grad step by events, "
           f"train({PER_STEPS}) {ms[1]:.3f} | stored "
           f"steps {int(rs.n_stored_steps())} | evaluate(8, 200) mean return "
           f"{float(np.mean(rets)):.2f} | K1 sweep launches by site "
@@ -3692,6 +3770,7 @@ def main(argv=None):
         acer_scan, bound_by="bytes", library_ms=None,
         launches=learners["acer"]["launches"])
     sweep = entry_points["retrace_sweep"]
+    graph_paths = [k for k, v in graphs.items() if isinstance(v, dict)]
     print(json.dumps({"kernels": [{
         "name": "retrace_suffix_scan",
         "route": "cuda",
@@ -3713,12 +3792,17 @@ def main(argv=None):
         "build_s": kern["build_s"],
         "sites": {"vracer_main": main_res["sites"],
                   **{k: v["sites"] for k, v in learners.items()
-                     if "sites" in v}},
+                     if "sites" in v},
+                  **{f"graphs_{k}_{m}": graphs[k][m]["sites"]
+                     for k in graph_paths for m in ("captured", "eager")}},
         "launches_by_path": {"vracer_main": launches["retrace_sweep"],
                              **{k: v["launches"]
                                 for k, v in learners.items()},
                              **{k: sum(c.values())
-                                for k, c in engine_paths.items()}},
+                                for k, c in engine_paths.items()},
+                             **{f"graphs_{k}_{m}": graphs[k][m]["k1"]
+                                for k in graph_paths
+                                for m in ("captured", "eager")}},
         "engine_launches_by_path": engine_paths,
         "modes_by_path": {k: v["modes"] for k, v in learners.items()
                           if "modes" in v},

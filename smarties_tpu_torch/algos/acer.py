@@ -80,6 +80,8 @@ class ACER(Learner):
     # each step draws its own, as in the JAX package (whose sharded chunk
     # checks `presample` only, parallel/mesh.py:91-92)
     presample = False
+    # its window draw and recursions run eagerly (not held under capture)
+    capturable = False
 
     def __init__(self, mdp: MDPSpec, cfg: HyperParameters):
         if mdp.is_discrete:

@@ -192,16 +192,24 @@ class Learner:
     horizon cycle instead of the obsPerStep pacing. `presample`: the
     trainer may draw a chunk's uniform minibatch indices up front (every
     learner of the JAX package but RACER-ES). `capturable`: the trainer
-    may capture the learner's train step on presampled indices, and the
-    env sweep that feeds it, as CUDA graphs (runtime/graphs.py): the step
-    reads no device value back, keeps its shapes and updates every state
-    tensor in its own storage."""
+    may capture the learner's train step, on presampled indices or with
+    the prioritized draw inside it, and the env sweep that feeds it, as
+    CUDA graphs (runtime/graphs.py): the step reads no device value back,
+    keeps its shapes and updates every state tensor in its own storage.
+    Every off-policy learner with a feed-forward net is, under any
+    sampler of `rb.sample`; the recurrent nets and PPO are not, and a
+    learner whose step is not held under capture says so (ACER,
+    RACER-ES)."""
     on_policy = False
     presample = True
-    capturable = False
     # appended past observations in the minibatch gather: set from the MDP
     # by the learners that stack frames (RACER family, DQN)
     n_appended = 0
+
+    @property
+    def capturable(self) -> bool:
+        return (not self.on_policy
+                and self.cfg.nnType not in ("LSTM", "GRU", "RNN"))
 
     def sample_minibatch(self, rs: rb.ReplayState, gen, sample_override,
                          mesh=None):

@@ -104,8 +104,8 @@ class DQN(Learner):
         def act(params, obs_std, gen, rnn=(), noise=None):
             qs, rnn = apply_net(params["net"], spec, obs_std, rnn)
             if self.eps_greedy:
-                greedy = torch.nn.functional.one_hot(
-                    torch.argmax(qs, dim=-1), nA).to(qs.dtype)
+                greedy = dpol.one_hot(torch.argmax(qs, dim=-1), nA,
+                                      qs.dtype)
                 probs = eps / nA + (1.0 - eps) * greedy
             else:
                 _, _, probs = dpol.probs_of(qs, fn="exp")
@@ -161,8 +161,7 @@ class DQN(Learner):
                     cfg.gamma * boot)
                 td_error = target - q_a
             v_next = exp_val(q_hat_next, q_hat_next)
-            g = torch.nn.functional.one_hot(opt, self.n_opts).to(qs.dtype) \
-                * td_error[:, None]
+            g = dpol.one_hot(opt, self.n_opts, qs.dtype) * td_error[:, None]
             if self.eps_greedy:
                 # the non-policy branch writes rho = 1, dkl = 0 and skips
                 # ReF-ER (DQN.cpp:204-205)

@@ -10,7 +10,8 @@ gating; ReF-ER beta-mixes the KL penalty.
 
 In place: the Adam step updates the leaves, so the bootstrap V(s_{t+1})
 written back is computed before the step, from the pre-step weights the
-JAX package reads.
+JAX package reads; the two adaptive factors are updated in their own
+storage too, as a captured step (runtime/graphs.py) needs.
 """
 from __future__ import annotations
 
@@ -201,22 +202,20 @@ class MixedPG(Learner):
             p.grad = None
         objective.backward()
         grads = psum_grads_(tree_map(lambda p: p.grad, params), mesh)
-        _, new_adam = adam_step(params, grads, opt_state.adam, self.adam_cfg,
-                                1.0 / cfg.batchSize)
+        adam_step(params, grads, opt_state.adam, self.adam_cfg,
+                  1.0 / cfg.batchSize)
 
         with torch.no_grad():
-            # adaptive DPG weight EMA (MixedPGstats::update)
+            # adaptive DPG weight EMA (MixedPGstats::update), in place
             lr = cfg.learnrate
             std_spg = torch.sqrt(torch.clamp(
                 torch.mean(spg_m ** 2, 0) - torch.mean(spg_m, 0) ** 2,
                 min=0.0))
             rms_dpg = torch.sqrt(torch.mean(dpg_n ** 2, 0) + NN_EPS)
-            opt_state = MixedPGOptState(
-                adam=new_adam,
-                dpg_factor=opt_state.dpg_factor + lr * (
-                    0.2 * std_spg / rms_dpg - opt_state.dpg_factor),
-                err_q_factor=opt_state.err_q_factor + lr * (
-                    torch.mean(dq * dq) - opt_state.err_q_factor))
+            opt_state.dpg_factor.add_(
+                lr * (0.2 * std_spg / rms_dpg - opt_state.dpg_factor))
+            opt_state.err_q_factor.add_(
+                lr * (torch.mean(dq * dq) - opt_state.err_q_factor))
 
             delta = a_ret - a_est
             rs = write_back_with_next(rs, mb, rho, dkl, delta, v_est, a_est,

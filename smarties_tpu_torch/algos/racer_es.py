@@ -57,6 +57,9 @@ class ESOptState(NamedTuple):
 class RacerES(VRacer):
     """params == {"pop": [P, n] flat weight vectors} (member 0 = mean)."""
     presample = False
+    # its population draw inside the step runs eagerly (not held under
+    # capture)
+    capturable = False
 
     def __init__(self, mdp: MDPSpec, cfg: HyperParameters,
                  adv_kind: str | None = None):

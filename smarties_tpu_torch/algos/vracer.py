@@ -95,17 +95,6 @@ class VRacer(Learner):
                                    eps_anneal=cfg.epsAnneal)
         self.returns_mode = returns_mode_of(cfg, "retrace")
 
-    @property
-    def capturable(self) -> bool:
-        """V-RACER's feed-forward step on uniform minibatches drawn up
-        front, the main path, is captured (algos/base.py::Learner). The
-        other configurations of this class (RACER, the discrete rewrite,
-        the recurrent nets, the prioritized samplers, RACER-ES) still
-        run eagerly."""
-        return (self.adv_kind == "zero" and not self.spec.is_recurrent
-                and self.presample
-                and self.cfg.dataSamplingAlgo in ("uniform", "default"))
-
     # ------------------------------------------------------------------
     def init(self, gen: torch.Generator, device=None):
         params = init_params(gen, self.spec, device)

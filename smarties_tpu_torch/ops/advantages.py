@@ -15,7 +15,6 @@ inputs that require grad.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from smarties_tpu_torch.ops.softplus import softplus
@@ -80,7 +79,12 @@ def gaussian_advantage(adv_out, action, pol_mean, pol_var,
     p_side = torch.where(d > 0, p_hi, p_lo)
     shape = -0.5 * torch.sum(d * d / p_side, dim=-1)
     mix = (torch.sqrt(p_hi / (p_hi + v)) + torch.sqrt(p_lo / (p_lo + v))) / 2
-    ratio = torch.prod(mix, dim=-1)
+    # the product over the action dims as a chain of multiplies: on a card
+    # torch.prod's backward reads back whether an input is zero, which no
+    # captured step may do (runtime/graphs.py)
+    ratio = mix[..., 0]
+    for i in range(1, nA):
+        ratio = ratio * mix[..., i]
     return coef * (torch.exp(shape) - ratio)
 
 
@@ -97,7 +101,9 @@ def quadratic_n_outputs(n_act: int) -> int:
 def _build_L(l_out, n_act: int):
     """Pack the tril entries in row-major tril order; diagonal through
     SoftPlus (Quadratic_term.h extract_L)."""
-    rows, cols = np.tril_indices(n_act)
+    # made on the device: host index arrays would be copied there at every
+    # call, which no captured step may do
+    rows, cols = torch.tril_indices(n_act, n_act, device=l_out.device)
     L = l_out.new_zeros(tuple(l_out.shape[:-1]) + (n_act, n_act))
     L[..., rows, cols] = l_out
     diag = softplus(torch.diagonal(L, dim1=-2, dim2=-1))

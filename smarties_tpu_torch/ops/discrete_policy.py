@@ -27,6 +27,14 @@ def _at(x, option):
     return torch.gather(x, -1, option.long()[..., None])[..., 0]
 
 
+def one_hot(option, n: int, dtype):
+    """1{i == option} [..., n] by a comparison with the option axis:
+    F.one_hot checks the labels' range with a read back to the host (on
+    the CPU), which no captured step may make."""
+    return (option.long()[..., None] == torch.arange(
+        n, device=option.device)).to(dtype)
+
+
 def probs_of(outputs, fn="softplus"):
     """Net outputs -> (unnorm, norm, probs) (extract_unnorm/compute_norm/
     extract_probabilities, Discrete_policy.h:56-77). For "exp" the row max
@@ -68,8 +76,7 @@ def pol_grad(option, outputs, unnorm, norm, probs, coef, fn="softplus"):
     """Analytic d(coef * log pi(option)) / d(net outputs) [..., nO]
     (policyGradient, Discrete_policy.h:126-137):
     g_i = f'(o_i) * coef * (1{i==option} / f(o_option) - 1/norm)."""
-    onehot = torch.nn.functional.one_hot(option.long(), probs.shape[-1]
-                                         ).to(probs.dtype)
+    onehot = one_hot(option, probs.shape[-1], probs.dtype)
     un_opt = torch.gather(unnorm, -1, option.long()[..., None])
     g = coef[..., None] * (onehot / un_opt - 1.0 / norm)
     return g * _fn_diff(outputs, unnorm, fn)

@@ -34,18 +34,24 @@ Random draws: the generators fn draws from are registered with the graph
 (CUDAGraph.register_generator_state), so a replay draws from each
 generator's current offset what an eager call would, and advances it as
 much; a restored generator state (Generator.set_state) is what the next
-replay reads.
+replay reads. A replay writes each registered generator's seed and
+offset with two small kernels of its own before the graph.
 
 Launch counters: the dicts of ints in COUNTERS (ops/retrace_kernel.py's
 launches and launch_modes, and any a caller adds) count device launches.
 What a capture adds to them is taken back, and added again at every
 replay.
 
+The garbage collector runs before a capture and not during it: freeing
+another graph (a dropped trainer's) while a stream captures voids the
+capture.
+
 A capture that fails raises: nothing runs eagerly in its place.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 from typing import Callable, Sequence
 
 import torch
@@ -108,6 +114,10 @@ class Graph:
         for gen in self.generators:
             graph.register_generator_state(gen)
         before = [dict(c) for c in COUNTERS]
+        # a graph that the collector frees during a capture (a dropped
+        # trainer's, in a reference cycle) would void it: collect first,
+        # and not during the capture
+        gc.collect()
         reserved = torch.cuda.memory_reserved(self.device)
 
         def capture():
@@ -122,7 +132,13 @@ class Graph:
             graph.capture_end()
             return out
 
-        out = self._on_side_stream(capture)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            out = self._on_side_stream(capture)
+        finally:
+            if collecting:
+                gc.enable()
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         # what the capture counted is counted by the replays instead
         self._deltas = []

@@ -42,7 +42,19 @@ on cartpole, RACER_glider on the glider and VRACER on predator-prey's
 1024 lanes) with the same columns: the three times per call, then the
 profiled wall, device busy time, busy share, kernel launches and device
 kernels per call. The step's minibatch is drawn once, as the trainer
-draws it (ACER: its episode and window-start draw).
+draws it (ACER: its episode and window-start draw), or by each step where
+the trainer draws inside the step (VRACER_PERrank: the main path's
+V-RACER under PERrank + farpolfrac).
+
+    python3 -m smarties_tpu_torch.runtime.profile_main --graphs --path \
+        RACER DQN VRACER_PERrank
+
+compares each named path's compiled programs (runtime/graphs.py) with its
+eager loops instead, as the main path's report does: two trainers built
+alike, their graphs captured, then in turns captured, eager, eager,
+captured a train chunk of 100 grad steps (ms per grad step) and an env
+sweep with its ingest, the three times and the profile (kernel launches,
+graph launches and copies per call) each, and the pools' bytes.
 
     python3 -m smarties_tpu_torch.runtime.profile_main --path RACER_atari
 
@@ -60,6 +72,8 @@ Needs a CUDA card (exits 2 without one). Imports no JAX.
 from __future__ import annotations
 
 import argparse
+import gc
+import json
 import subprocess
 import sys
 import time
@@ -176,6 +190,12 @@ PATHS = {
     "VRACER_CMA": ("cartpole", "VRACER_CMA", 1024, None, None),
     "RACER_glider": ("glider", "RACER_glider", 1024, None, None),
     "VRACER_predator_prey": ("predator_prey", "VRACER", 1024, None, None),
+    # the main path's V-RACER under PERrank + farpolfrac (chip_smoke.py's
+    # samplers phase)
+    "VRACER_PERrank": ("cartpole", json.dumps(
+        {"learner": "VRACER", "batchSize": 256, "nnLayerSizes": [128, 128],
+         "dataSamplingAlgo": "PERrank", "ERoldSeqFilter": "farpolfrac"}),
+        1024, 4096, 16384),
 }
 
 
@@ -291,18 +311,27 @@ def profile_atari(n: int = 30, warm: int = 10):
     report_profile(what, roll, 10)
 
 
-def profile_path(name: str):
-    """One grad step and one env sweep of a named path, on data gathered
-    as its trainer gathers it (an off-policy warmup, or a filled PPO
-    horizon with initialize_stats done)."""
+def path_trainer(name: str, graphs=None) -> Trainer:
+    """The Trainer of a named path (`PATHS`), as its phase builds it."""
     app, recipe, n_envs, n_slots, min_obs = PATHS[name]
     env = launch.env_module(app)
     cfg = launch.load_recipe(recipe, 0)
     if min_obs is not None:
         cfg.minTotObsNum = min_obs
     tr = Trainer(env, env.MDP, cfg, n_envs=n_envs, n_slots=n_slots,
-                 max_len=env.MAX_STEPS, device="cuda")
+                 max_len=env.MAX_STEPS, device="cuda", graphs=graphs)
     tr.log_flush_threshold = 10 ** 9
+    return tr
+
+
+def profile_path(name: str):
+    """One grad step and one env sweep of a named path, on data gathered
+    as its trainer gathers it (an off-policy warmup, or a filled PPO
+    horizon with initialize_stats done), eagerly. The step's minibatch is
+    drawn once, as the trainer draws it up front, or by the step itself
+    where the trainer cannot presample (the prioritized samplers)."""
+    tr = path_trainer(name, graphs=False)
+    cfg = tr.cfg
     if tr.on_policy:
         while int(tr.replay.n_stored_steps()) < tr.algo.n_horizon:
             tr._roll(4)
@@ -310,7 +339,9 @@ def profile_path(name: str):
     else:
         tr.warmup()
     draw = getattr(tr.algo, "presample_fn", presample_uniform)
-    eps, ts = draw(tr.gen_batch, tr.replay, cfg.batchSize, 1)
+    pinned = (tuple(x[0] for x in draw(tr.gen_batch, tr.replay,
+                                       cfg.batchSize, 1))
+              if tr._can_presample else None)
 
     def roll():
         tr.carry, _ = tr._rollout(tr.params, tr.carry, 1)
@@ -318,17 +349,38 @@ def profile_path(name: str):
     def train_step():
         tr.params, tr.opt_state, rs, _ = tr.algo.train_step(
             tr.params, tr.opt_state, tr.replay, gen=tr.gen_batch,
-            sample_override=(eps[0], ts[0]))
+            sample_override=pinned)
         tr.carry = tr.carry._replace(replay=rs)
 
-    what = (f"{name} ({type(tr.algo).__name__}, {app}, {cfg.nnType} "
-            f"{cfg.nnLayerSizes}, batch {cfg.batchSize}, {n_envs} envs)")
+    what = (f"{name} ({type(tr.algo).__name__}, {PATHS[name][0]}, "
+            f"{cfg.nnType} {cfg.nnLayerSizes}, batch {cfg.batchSize}, "
+            f"{tr.n_envs} envs)")
     # the step first: the sweeps would commit episodes under the sample.
     # 10 calls first: the first ones pay cuBLAS's and the allocator's set-up
     for part, fn, n in (("train_step", train_step, 30),
                         ("env sweep", roll, 10)):
         report_times(f"{what} {part}", fn, n, warm=10)
         report_profile(f"{what} {part}", fn, n)
+
+
+def compare_path_graphs(name: str, steps: int = 100):
+    """A named path's compiled programs against its eager loops: two
+    trainers built alike, warmed up, their graphs captured in
+    WARMUP_CALLS + 1 short fused cycles (1 sweep + 8 grad steps; the
+    eager one takes the same), then compare_turns."""
+    from smarties_tpu_torch.runtime import graphs as cg
+    pair = []
+    for graphs in (None, False):
+        tr = path_trainer(name, graphs)
+        assert tr.graphs == (graphs is None), (name, tr.graphs)
+        tr.warmup()
+        for _ in range(cg.WARMUP_CALLS + 1):
+            tr._fused_cycle(1, 8)
+        pair.append(tr)
+    compare_turns(name, *pair, steps)
+    del pair, tr
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main(argv=None):
@@ -340,7 +392,13 @@ def main(argv=None):
                         "paths (RACER_atari: the conv grad step on a "
                         "synthetic replay) instead of the V-RACER main "
                         "path's report")
+    p.add_argument("--graphs", action="store_true",
+                   help="with --path: compare each path's captured grad "
+                        "step and env sweep with its eager loops "
+                        "(compare_turns) instead of profiling it eagerly")
     args = p.parse_args(argv)
+    if args.graphs and (not args.path or "RACER_atari" in args.path):
+        p.error("--graphs needs --path, without RACER_atari")
     if not torch.cuda.is_available():
         print("profile_main: needs a CUDA card", file=sys.stderr)
         sys.exit(2)
@@ -350,7 +408,9 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0], flush=True)
     for name in args.path:
-        if name == "RACER_atari":
+        if args.graphs:
+            compare_path_graphs(name)
+        elif name == "RACER_atari":
             profile_atari()
         else:
             profile_path(name)
@@ -429,32 +489,41 @@ def main(argv=None):
     compare_graphs(tr)
 
 
-def compare_graphs(tr: Trainer, steps: int = 100):
-    """The captured main path (`tr`) against an eager trainer built alike,
-    in turns: a train chunk of `steps` grad steps and an env sweep with
-    its ingest, three times and a profile each; then the chunk as one
-    graph of `steps` grad steps per launch (the step program captured
-    `steps` times over), timed beside the step graph."""
-    from smarties_tpu_torch.runtime import graphs as cg
-    te = main_path_trainer(graphs=False)
-    te.warmup(chunk=16, blind_sweeps=16)
-    te.train_fused(te.n_envs, log_every=10 ** 9, flush=False)
-    for label, t in (("captured", tr), ("eager", te), ("eager", te),
-                     ("captured", tr)):
-        chunk = f"train chunk of {steps} grad steps [{label}]"
+def compare_turns(name: str, cap: Trainer, eag: Trainer, steps: int = 100):
+    """A captured trainer against an eager one built alike, in turns
+    captured, eager, eager, captured: a train chunk of `steps` grad steps
+    and an env sweep with its ingest, three times and a profile each
+    (kernel launches, graph launches and copies per call); then the
+    captured programs' pool bytes."""
+    for label, t in (("captured", cap), ("eager", eag), ("eager", eag),
+                     ("captured", cap)):
+        chunk = f"{name} train chunk of {steps} grad steps [{label}]"
         ev = report_times(chunk, lambda: t._train_chunk(steps), 3)
         print(f"{chunk}: {ev / steps:.4f} ms per grad step (events)",
               flush=True)
         report_profile(chunk, lambda: t._train_chunk(steps), 2)
-        sweep = f"env sweep + ingest sweep [{label}]"
+        sweep = f"{name} env sweep + ingest sweep [{label}]"
         report_times(sweep, lambda: t._sweep(1), 10)
         report_profile(sweep, lambda: t._sweep(1), 5)
-    te._pending_logs.clear()
+    eag._pending_logs.clear()
+    print(f"{name} graph pools: {cap.graph_pool_bytes()} B", flush=True)
+
+
+def compare_graphs(tr: Trainer, steps: int = 100):
+    """The captured main path (`tr`) against an eager trainer built alike
+    (compare_turns); then the chunk as one graph of `steps` grad steps
+    per launch (the step program captured `steps` times over), timed
+    beside the step graph."""
+    from smarties_tpu_torch.runtime import graphs as cg
+    te = main_path_trainer(graphs=False)
+    te.warmup(chunk=16, blind_sweeps=16)
+    te.train_fused(te.n_envs, log_every=10 ** 9, flush=False)
+    compare_turns("main path", tr, te, steps)
 
     # one graph launch per `steps` grad steps: the step program of `tr`
     # captured `steps` times, on its own static rows
-    i = tr._step_rows[2]
-    one = tr._step_graph
+    i = tr._step_rows[1]
+    one = tr._step_graphs[True]
 
     def many(state):
         for _ in range(steps):

@@ -15,19 +15,24 @@ the JAX package's does; it is outside any fused cycle.
 THE COMPILED PROGRAMS (`graphs=`, runtime/graphs.py). The JAX package
 jits its programs; eagerly, a "program" is a Python loop issuing CUDA
 kernels on the current stream. On a card, without a mesh, for a learner
-that declares itself `capturable` (V-RACER's feed-forward step on
-uniform presampled minibatches: the main path), the Trainer captures two
-CUDA graphs and replays them: the env sweep (n_roll sweeps with their
-commits, then the at-ingest K1 sweep; one graph per n_roll) and one
-grad step, which reads its (ep, t) row of the chunk's presampled
-indices through a device counter and writes its metrics into a row of
-static [rows] buffers. A chunk presamples eagerly (the same draw as
-`train_chunk`), copies the indices into the static buffer and replays
-the step graph once per step; `train()`'s chunks replay the same graph.
-The refresh, initialize_stats and restore stay eager and write into the
-captured storage (tree_copy_), never rebinding it. Logs and metrics are
-copied out of the graphs' buffers after each replay. `graphs=False` runs
-the eager loops on the card (jax.disable_jit's counterpart); on the CPU
+that is `capturable` (every off-policy learner with a feed-forward net:
+V-RACER, RACER, RACER-discrete, DQN, NAF, DPG and MixedPG, under any
+sampler; not the recurrent nets, PPO, ACER or RACER-ES), the Trainer
+captures two kinds of CUDA graph and replays them: the env sweep (n_roll
+sweeps with their commits, then the at-ingest K1 sweep; one graph per
+n_roll) and one grad step, which writes its metrics into a row of static
+[rows] buffers through a device counter. On uniform minibatches the step
+reads its (ep, t) row of the chunk's presampled indices: a chunk
+presamples eagerly (the same draw as `train_chunk`), copies the indices
+into the static buffer and replays the step graph once per step. Under
+a prioritized sampler (PERrank, PERerr, PERseq) the step draws its
+minibatch inside the graph from `gen_batch`, which the graph registers,
+as the JAX package's in-step draw (`_train_scan`'s second body).
+`train()`'s chunks replay the same graphs. The refresh,
+initialize_stats and restore stay eager and write into the captured
+storage (tree_copy_), never rebinding it. Logs and metrics are copied
+out of the graphs' buffers after each replay. `graphs=False` runs the
+eager loops on the card (jax.disable_jit's counterpart); on the CPU
 `graphs=True` runs the static-buffer form uncaptured (the tests).
 Pacing reads only host counters; no cycle reads a device value back
 (no .item(), .cpu() or bool(tensor) in one_step, train_step, the ingest
@@ -228,11 +233,13 @@ class Trainer:
         graphs: run the env sweep and the grad step as CUDA graphs
         (runtime/graphs.py; the module docstring). None, the default,
         captures on a card without a mesh when the learner is
-        `capturable`; False runs the eager loops (on the card: the
+        `capturable` (the off-policy learners with a feed-forward net,
+        under any sampler); False runs the eager loops (on the card: the
         counterpart of jax.disable_jit, to hold the two against each
         other); True asks for the graphs and raises where the learner or
-        the mesh does not allow them, and on the CPU runs their
-        static-buffer form uncaptured."""
+        the mesh does not allow them (the recurrent nets, PPO, ACER,
+        RACER-ES, a mesh), and on the CPU runs their static-buffer form
+        uncaptured."""
         # the learner first: one the port lacks is reported before any
         # settings check
         if algo_cls is None:
@@ -271,8 +278,9 @@ class Trainer:
         self.graphs = (self.device.type == "cuda" and capturable
                        if graphs is None else graphs)
         self._sweep_graphs = {}       # n_roll -> graphs.Graph
-        self._step_graph = None
-        self._step_rows = None        # static (ep, t, metrics) rows
+        self._step_graphs = {}        # pinned (ep, t) rows? -> graphs.Graph
+        # (rows, row counter, metric rows by key, static (ep, t) rows)
+        self._step_rows = None
         self.is_coordinator = rank == 0
         self.run_dir = run_dir
         self._rew_file = self._obs_file = self._grads_file = None
@@ -417,8 +425,8 @@ class Trainer:
     def graph_pool_bytes(self) -> int:
         """Device memory reserved by the private pools of the captured
         programs."""
-        gs = [*self._sweep_graphs.values(), self._step_graph]
-        return sum(g.pool_bytes for g in gs if g is not None)
+        gs = [*self._sweep_graphs.values(), *self._step_graphs.values()]
+        return sum(g.pool_bytes for g in gs)
 
     def _roll(self, n_steps: int):
         with self.profiler("ROLL"):
@@ -577,10 +585,13 @@ class Trainer:
     def _train_chunk(self, n: int, pre=None):
         """n gradient steps on the carried replay; metrics stacked [n] per
         key, on the device. Eagerly `train_chunk`; with graphs the same
-        draw of the chunk's indices (or `pre`, pinned (ep, t) [n, B]),
-        then one replay of the step graph per step. The static buffers
-        hold max(n_envs / obsPerStep, 100) rows, the fused cycle's and
-        train()'s chunks: a longer chunk runs in pieces of that many."""
+        draw of the chunk's indices where the learner can presample (or
+        `pre`, pinned (ep, t) [n, B]) and one replay per step of the step
+        graph that reads them, else one replay per step of the step graph
+        that draws its own minibatch from `gen_batch` (the prioritized
+        samplers). The static buffers hold max(n_envs / obsPerStep, 100)
+        rows, the fused cycle's and train()'s chunks: a longer chunk runs
+        in pieces of that many."""
         if not self.graphs:
             self.params, self.opt_state, rs, metrics = train_chunk(
                 self.algo, self.cfg, self.params, self.opt_state,
@@ -588,44 +599,52 @@ class Trainer:
                 mesh=self.mesh)
             self.carry = self.carry._replace(replay=rs)
             return metrics
-        if pre is None:
+        if pre is None and self._can_presample:
             pre = presample_chunk(self.algo, self.cfg, self.gen_batch,
                                   self.replay, n)
-        if self._step_graph is None:
-            self._build_step_graph(pre[0].shape[1])
-        ep_rows, t_rows, i, m_rows = self._step_rows
+        pinned = pre is not None
+        graph = self._step_graphs.get(pinned)
+        if graph is None:
+            graph = self._step_graphs[pinned] = self._build_step_graph(
+                pinned)
+        rows, i, m_rows, pins = self._step_rows
         pieces = []
-        for lo in range(0, n, ep_rows.shape[0]):
-            k = min(n - lo, ep_rows.shape[0])
-            ep_rows[:k].copy_(pre[0][lo:lo + k])
-            t_rows[:k].copy_(pre[1][lo:lo + k])
+        for lo in range(0, n, rows):
+            k = min(n - lo, rows)
+            if pinned:
+                pins[0][:k].copy_(pre[0][lo:lo + k])
+                pins[1][:k].copy_(pre[1][lo:lo + k])
             i.zero_()
             for _ in range(k):
-                self._step_graph()
+                graph()
             pieces.append({key: b[:k].clone() for key, b in m_rows.items()})
         if len(pieces) == 1:
             return pieces[0]
         return {key: torch.cat([p[key] for p in pieces]) for key in pieces[0]}
 
-    def _build_step_graph(self, batch: int):
-        """The captured grad step: row i of the static (ep, t) buffers
-        [rows, B] through the device counter i, the learner's train step,
-        its metrics into row i of [rows] buffers (made at the first,
-        eager call), then i + 1."""
-        rows = max(int(round(self.n_envs / self.cfg.obsPerStep)), 100)
+    def _build_step_graph(self, pinned: bool):
+        """The captured grad step: the learner's train step on row i of
+        the static (ep, t) buffers [rows, batchSize] (`pinned`), or on its
+        own draw from `gen_batch`, which the graph then registers; its
+        metrics into row i of [rows] buffers (made at the first, eager
+        call); then i + 1. Both forms share the buffers and the counter."""
         dev = self.device
-        ep_rows = torch.zeros((rows, batch), dtype=torch.int32, device=dev)
-        t_rows = torch.zeros((rows, batch), dtype=torch.int32, device=dev)
-        i = torch.zeros((1,), dtype=torch.int64, device=dev)
-        m_rows = {}
-        self._step_rows = (ep_rows, t_rows, i, m_rows)
+        if self._step_rows is None:
+            rows = max(int(round(self.n_envs / self.cfg.obsPerStep)), 100)
+            self._step_rows = (
+                rows, torch.zeros((1,), dtype=torch.int64, device=dev), {},
+                tuple(torch.zeros((rows, self.cfg.batchSize),
+                                  dtype=torch.int32, device=dev)
+                      for _ in range(2)))
+        rows, i, m_rows, pins = self._step_rows
 
         def program(state):
             params, opt_state, rs = state
+            row = (tuple(x.index_select(0, i)[0] for x in pins) if pinned
+                   else None)
             params, opt_state, rs, m = self.algo.train_step(
                 params, opt_state, rs, gen=self.gen_batch,
-                sample_override=(ep_rows.index_select(0, i)[0],
-                                 t_rows.index_select(0, i)[0]))
+                sample_override=row)
             for key, v in m.items():
                 if key not in m_rows:
                     m_rows[key] = torch.empty((rows,) + tuple(v.shape),
@@ -634,9 +653,9 @@ class Trainer:
             i.add_(1)
             return (params, opt_state, rs), None
 
-        self._step_graph = cg.Graph(
+        return cg.Graph(
             program, (self.params, self.opt_state, self.carry.replay),
-            device=dev)
+            device=dev, generators=() if pinned else (self.gen_batch,))
 
     def _fused_cycle(self, n_roll: int, n_train: int):
         """[n_roll env sweeps + at-ingest returns + n_train grad steps]:

@@ -242,25 +242,38 @@ FF_CASES = sorted(k for k, (_, d) in CASES.items() if "nnType" not in d)
 RNN_CASES = sorted(k for k, (_, d) in CASES.items() if "nnType" in d)
 
 
-def check_four_train_steps(name):
+def direct_steps(tl, tp, to, tr, pinned):
+    """The port's train steps on the pinned (ep, t) samples, train_step
+    called on each -> (params, opt state, replay, last step's metrics)."""
+    for ep, t in pinned:
+        tp, to, tr, tm = tl.train_step(
+            tp, to, tr, sample_override=(tt(ep, torch.int32),
+                                         tt(t, torch.int32)))
+    return tp, to, tr, tm
+
+
+def check_four_train_steps(name, port_steps=direct_steps, draw=None):
+    """`port_steps(tl, tp, to, tr, pinned)`: how the port takes its steps
+    from the converted state (the learner's train_step by default).
+    `draw(rs)`: the pinned (ep, t) steps made from the JAX replay
+    instead of the default four (a sampler's draw)."""
     jl, tl, params, opt, rs = _setup(name)
     tp = convert.params_from_jax(jax.device_get(params))
     to = convert.opt_state_from_jax(jax.device_get(opt))
     tr = convert.replay_from_jax(jax_replay_views(rs))
     jp, jo, jr = params, opt, rs
-    for ep, t in _pinned(rs, 2, 4):
+    pinned = _pinned(rs, 2, 4) if draw is None else draw(rs)
+    for ep, t in pinned:
         jp, jo, jr, jm = jl.train_step(
             jp, jo, jr, jax.random.PRNGKey(0),
             sample_override=(jnp.asarray(ep), jnp.asarray(t)))
-        tp, to, tr, tm = tl.train_step(
-            tp, to, tr, sample_override=(tt(ep, torch.int32),
-                                         tt(t, torch.int32)))
+    tp, to, tr, tm = port_steps(tl, tp, to, tr, pinned)
     assert_tree_close(tp, jax.device_get(jp), **PARAM_TOL)
     (ja, jx), (ta, tx) = _opt_parts(jo), _opt_parts(to)
     moment_tol = MOMENT_TOL if jl.cfg.nnType == "FFNN" else MOMENT_TOL_RNN
     assert_tree_close(ta.m1, jax.device_get(ja.m1), **moment_tol)
     assert_tree_close(ta.m2, jax.device_get(ja.m2), **moment_tol)
-    assert int(ta.step) == int(ja.step) == 4
+    assert int(ta.step) == int(ja.step) == len(pinned)
     np.testing.assert_allclose(float(ta.beta_t_1), float(ja.beta_t_1),
                                rtol=1e-6)
     assert_tree_close(tx, jax.device_get(jx), **MOMENT_TOL)
@@ -275,7 +288,7 @@ def check_four_train_steps(name):
     assert_replay_close(jr, tr, fields=("beta", "alpha", "cmax_ret"),
                         rtol=1e-5, atol=1e-7)
     # V(s_T) was refreshed for the truncated slots that were sampled
-    assert (tn(tr.v_trunc) != np.asarray(rs.v_trunc)).any()
+    assert draw or (tn(tr.v_trunc) != np.asarray(rs.v_trunc)).any()
     assert sorted(tm) == sorted(jm)
     for k in jm:
         tol = value_tol if k in ("avg_v", "rmse") else dict(rtol=1e-4,
