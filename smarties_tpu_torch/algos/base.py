@@ -202,6 +202,10 @@ class Learner:
     RACER-ES)."""
     on_policy = False
     presample = True
+    # the phases a traced train step stamps (`train_step(..., stamp=)`;
+    # runtime/trainer.py): () for a learner whose step records only its
+    # whole replay
+    step_phases = ()
     # appended past observations in the minibatch gather: set from the MDP
     # by the learners that stack frames (RACER family, DQN)
     n_appended = 0

@@ -165,9 +165,12 @@ class VRacer(Learner):
         return act
 
     # ------------------------------------------------------------------
+    # the phases of a traced step, stamped at their ends by `stamp`
+    step_phases = ("gather", "forward", "backward", "adam", "writeback")
+
     def train_step(self, params, opt_state: AdamState, rs: rb.ReplayState,
                    gen: torch.Generator | None = None, sample_override=None,
-                   mesh=None):
+                   mesh=None, stamp=None):
         """One gradient step (RACER_train.cpp:14-67). Updates params, Adam
         moments and the replay in place; returns (params, opt_state, rs,
         metrics) with metrics as 0-d device tensors.
@@ -180,9 +183,15 @@ class VRacer(Learner):
         batchSize // K samples from its replay shard, the gradient is
         summed across ranks before Adam (the reference's MPI_Iallreduce,
         Optimizer.cpp:110-119), and the ReF-ER counts and metrics are
-        global."""
+        global.
+
+        stamp: the traced step's phase stamps (runtime/trainer.py):
+        stamp(k) marks the end of step_phases[k - 1] in stream order; the
+        caller stamps the start (0) and the end of the last phase."""
         cfg, spec = self.cfg, self.spec
         mb = self.sample_minibatch(rs, gen, sample_override, mesh)
+        if stamp is not None:
+            stamp(1)
         a_t, mu_t, qret_t = mb.action, mb.mu, mb.qret
 
         if spec.is_recurrent:
@@ -265,9 +274,15 @@ class VRacer(Learner):
             # invalid (empty-replay) samples contribute no gradient
             g = torch.where(mb.valid[:, None], g, torch.zeros_like(g))
 
+        if stamp is not None:
+            stamp(2)
         grads = psum_grads_(pullback(g), mesh)
+        if stamp is not None:
+            stamp(3)
         params, opt_state = adam_step(params, grads, opt_state,
                                       self.adam_cfg, 1.0 / cfg.batchSize)
+        if stamp is not None:
+            stamp(4)
 
         with torch.no_grad():
             v_next = scale_net2v(out_next[..., 0])

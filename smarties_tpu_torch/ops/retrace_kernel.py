@@ -93,32 +93,41 @@ def _nvcc() -> str:
     return path
 
 
+def compile_library(sources, flags, stem: str, info: dict) -> ctypes.CDLL:
+    """nvcc `sources` with `flags` into build/smarties_tpu_torch/lib<stem>_
+    <hash of sources and flags>.so, unless that library is already
+    there, and load it. Fills `info` (path, nvcc seconds, nvcc's
+    output), as `build_info`."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    so = os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
+    info.update(path=so, seconds=None, log="")
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.tmp{os.getpid()}"
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, *sources],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)   # atomic: a concurrent loader sees all or none
+        info.update(seconds=time.perf_counter() - t0,
+                    log=proc.stdout + proc.stderr)
+    return ctypes.CDLL(so)
+
+
 def build(defines=()) -> ctypes.CDLL:
     """Compile csrc/retrace.cu (unless a library of the same source,
     flags and `defines` is already there) and load it. `defines` are -D
     options: the pipeline's producer warps, tile depth and stages
     (SMT_PRODUCERS, SMT_STEPS, SMT_STAGES), for runtime/bench_retrace.py's
     comparison of shapes. Fills `build_info`."""
-    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
-    h = hashlib.sha256(" ".join(flags).encode())
-    for src in SOURCES:
-        with open(src, "rb") as f:
-            h.update(f.read())
-    so = os.path.join(BUILD_DIR, f"libsmt_retrace_{h.hexdigest()[:16]}.so")
-    build_info.update(path=so, seconds=None, log="")
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.tmp{os.getpid()}"
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, *SOURCES],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)   # atomic: a concurrent loader sees all or none
-        build_info.update(seconds=time.perf_counter() - t0,
-                          log=proc.stdout + proc.stderr)
-    lib = ctypes.CDLL(so)
+    lib = compile_library(SOURCES,
+                          (*NVCC_FLAGS, *(f"-D{d}" for d in defines)),
+                          "smt_retrace", build_info)
     P, I, LL, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
     lib.smt_affine_suffix_scan.argtypes = [P, P, P, I, I, LL, LL, I, P]

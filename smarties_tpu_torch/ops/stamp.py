@@ -1,0 +1,83 @@
+"""Phase stamps: a timestamp written into a row of a device buffer, in
+stream order, from inside a captured program.
+
+`stamp_(buf, row, col)` sets buf[row[0], col] to the time at which the
+stream reaches it: on a CUDA device one single-thread launch of
+csrc/stamp.cu, which reads the card's global timer (%globaltimer, ns);
+on the CPU, where every op has finished when the next one starts,
+time.perf_counter_ns(). `row` is a 0-based device counter ([1] int64),
+read by the kernel, so a replayed graph stamps a new row each step; None
+stamps row 0. utils/profiler.py maps the card's timer onto the host's
+clock. The library is built at first use, never at import, as K1's is
+(ops/retrace_kernel.py::compile_library).
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import time
+
+import torch
+
+from smarties_tpu_torch.ops import retrace_kernel as rk
+
+SOURCES = (os.path.join(os.path.dirname(rk.SOURCES[0]), "stamp.cu"),)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+build_info = {"path": None, "seconds": None, "log": ""}
+_lib = None
+
+
+def library() -> ctypes.CDLL:
+    """Build (if needed) and load the stamp library; cached per process."""
+    global _lib
+    if _lib is None:
+        lib = rk.compile_library(SOURCES, NVCC_FLAGS, "smt_stamp",
+                                 build_info)
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.smt_stamp.argtypes = [P, P, I, I, P]
+        lib.smt_timer_ticks.argtypes = [P, I, P]
+        lib.smt_stamp.restype = lib.smt_timer_ticks.restype = I
+        _lib = lib
+    return _lib
+
+
+def stamp_(buf: torch.Tensor, row, col: int) -> torch.Tensor:
+    """buf[row[0], col] = now (row None: row 0), in stream order; buf is a
+    contiguous int64 [rows, n_cols] tensor and row an int64 [1] tensor on
+    its device. Returns buf."""
+    if buf.dtype != torch.int64 or buf.dim() != 2 or not buf.is_contiguous():
+        raise ValueError(f"stamp_: expected a contiguous int64 [rows, "
+                         f"n_cols] buffer, got {tuple(buf.shape)} "
+                         f"{buf.dtype}")
+    if buf.device.type == "cpu":
+        if row is None:
+            buf[0, col] = time.perf_counter_ns()
+        else:
+            buf[:, col].index_fill_(0, row, time.perf_counter_ns())
+        return buf
+    if row is not None and (row.device != buf.device
+                            or row.dtype != torch.int64):
+        raise ValueError(f"stamp_: row must be int64 on {buf.device}")
+    with torch.cuda.device(buf.device):
+        err = library().smt_stamp(
+            buf.data_ptr(), None if row is None else row.data_ptr(),
+            buf.shape[1], col,
+            torch.cuda.current_stream(buf.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stamp_: CUDA launch failed with error {err}")
+    return buf
+
+
+def timer_ticks_ns(device, n: int = 64) -> list:
+    """The card's timer resolution: the differences (ns) of n successive
+    distinct readings of %globaltimer. A synchronisation."""
+    device = torch.device(device)
+    out = torch.zeros((n,), dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        err = library().smt_timer_ticks(
+            out.data_ptr(), n, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"timer_ticks_ns: CUDA launch failed with "
+                           f"error {err}")
+    return out.tolist()

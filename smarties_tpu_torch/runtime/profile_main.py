@@ -67,6 +67,25 @@ one step counted from the shapes (`step_flops`) and the rate they make
 over the events' time; then one env sweep of `catch` at 1024 envs with
 the recipe's learner.
 
+    python3 -m smarties_tpu_torch.runtime.profile_main --trace 60 \
+        --trace-out main.trace.json
+
+runs the main path with the phase profiler tracing (utils/profiler.py)
+from the Trainer's construction instead: the replay filled by 256
+sweeps, then fused cycles for 60 s, and one JSON line per cycle from its
+span records: the median STEP replay's device ms, the median ms of each
+of its stamped phases (gather, forward, backward, Adam, write-back) and
+their sum, the TRAIN span's device ms per grad step, PRESAMPLE's device
+ms and the share of the cycle's window the card was idle between the
+program's spans. Then the cost of tracing, in turns plain, traced,
+traced, plain of 3 cycles each: TRAIN ms per grad step, and the host's
+µs per replay of 64 replays launched on an idle card; the card timer's
+resolution and the mapping's measured error; and the Chrome trace of
+one more traced cycle at --trace-out. `--trace-after S` runs S seconds
+of plain cycles first (each one's TRAIN ms per grad step printed) and
+turns tracing on after them (the traced step graph is then captured
+late).
+
 Needs a CUDA card (exits 2 without one). Imports no JAX.
 """
 from __future__ import annotations
@@ -396,6 +415,16 @@ def main(argv=None):
                    help="with --path: compare each path's captured grad "
                         "step and env sweep with its eager loops "
                         "(compare_turns) instead of profiling it eagerly")
+    p.add_argument("--trace", type=float, default=None, metavar="SECONDS",
+                   help="run the main path's fused cycles traced for this "
+                        "long and report their spans and phases "
+                        "(trace_main) instead")
+    p.add_argument("--trace-after", type=float, default=0.0,
+                   metavar="SECONDS",
+                   help="with --trace: plain cycles for this long first")
+    p.add_argument("--trace-out", default=None,
+                   help="with --trace: write the Chrome trace of one traced "
+                        "cycle here")
     args = p.parse_args(argv)
     if args.graphs and (not args.path or "RACER_atari" in args.path):
         p.error("--graphs needs --path, without RACER_atari")
@@ -414,6 +443,9 @@ def main(argv=None):
             profile_atari()
         else:
             profile_path(name)
+    if args.trace is not None:
+        trace_main(args.trace, args.trace_after, args.trace_out)
+        return
     if args.path:
         return
     tr = main_path_trainer()
@@ -549,6 +581,102 @@ def compare_graphs(tr: Trainer, steps: int = 100):
     print(f"graph pools: {tr.graph_pool_bytes() / 2 ** 20:.1f} MiB for "
           f"the sweep and step graphs, {chunk_graph.pool_bytes / 2 ** 20:.1f}"
           f" MiB for the {steps}-step graph", flush=True)
+
+
+def trace_main(seconds: float, plain_s: float = 0.0, out=None,
+               device="cuda", n_envs: int = 1024, n_slots: int = 4096,
+               fill_sweeps: int = 256):
+    """The main path's fused cycles with the profiler tracing (the module
+    docstring, --trace): from the Trainer's construction, or after
+    `plain_s` seconds of plain cycles (each one's TRAIN ms per grad
+    step printed). Prints JSON lines; returns the
+    per-cycle rows. The tests pass the CPU (the graphs' static-buffer
+    form) and smaller sizes."""
+    from smarties_tpu_torch.ops.stamp import timer_ticks_ns
+    tr = main_path_trainer(device=device, n_envs=n_envs, n_slots=n_slots,
+                           graphs=True)
+    prof = tr.profiler
+    cuda = tr.device.type == "cuda"
+    if not plain_s:
+        prof.trace()
+    tr.warmup(chunk=1, blind_sweeps=fill_sweeps)
+    n_train = tr.n_envs
+
+    def cycles(s):
+        """Fused cycles for s seconds -> [(cycle index, host s)]."""
+        done, h0 = [], time.perf_counter()
+        while not done or time.perf_counter() - h0 < s:
+            done.append((prof.cycle + 1, time.perf_counter() - t0))
+            tr.train_fused(n_train, log_every=10 ** 12, flush=False)
+        return done
+
+    t0 = time.perf_counter()
+    h = time.perf_counter()
+    while time.perf_counter() - h < plain_s:
+        # each plain cycle's TRAIN device ms per grad step
+        prof.reset()
+        c, t = cycles(0.0)[0]
+        prof.table()
+        print(json.dumps({"cycle": c, "t_s": t, "plain_train_ms_per_step":
+                          prof.totals["TRAIN"] * 1e3 / n_train}), flush=True)
+    if plain_s:
+        prof.trace()
+    rows = []
+    for c, t in cycles(seconds):
+        sm = prof.summary(cycles=[c])
+        train = [r for r in prof.records if r.cycle == c
+                 and r.name == "TRAIN"]
+        ph = sm["phases_ms"]
+        row = {"cycle": c, "t_s": t, "step_ms": sm["step_ms"],
+               "phases_ms": ph, "phase_sum_ms": sum(ph.values()),
+               "train_ms_per_step": sum(r.dev1 - r.dev0 for r in train)
+               / 1e6 / n_train,
+               "presample_ms": sm["presample_ms"],
+               "device_gap_share": sm["device_gap_share"]}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    # the cost of tracing: TRAIN ms per grad step in turns, and the
+    # host's time per replay on an idle card
+    i = tr._step_rows[1]
+    prof.trace(False)
+    cycles(0.0)                       # the plain step graph captured
+    for traced in (False, True, True, False):
+        prof.trace(traced)
+        prof.reset()
+        cycles(0.0)
+        cycles(0.0)
+        cycles(0.0)
+        prof.table()
+        per_step = prof.totals["TRAIN"] / prof.counts["TRAIN"] / n_train
+        graph = tr._step_graphs[(True, "traced") if traced else True]
+        if cuda:
+            torch.cuda.synchronize()
+        i.zero_()
+        h0 = time.perf_counter_ns()
+        for _ in range(64):
+            if traced:
+                span = prof.begin("STEP")
+                graph()
+                prof.end(span)
+            else:
+                graph()
+        host_us = (time.perf_counter_ns() - h0) / 1e3 / 64
+        print(json.dumps({"traced": traced,
+                          "train_ms_per_step": per_step * 1e3,
+                          "host_us_per_replay": host_us}), flush=True)
+    prof.trace()
+    prof.reset()
+    cycles(0.0)
+    info = {"mapping_error_us": prof.mapping_error_ns() / 1e3,
+            "timer_ticks_ns": timer_ticks_ns(tr.device)[:16] if cuda
+            else None,
+            "graph_pool_bytes": tr.graph_pool_bytes()}
+    if out:
+        prof.export_chrome_trace(out)
+        info["trace"] = out
+    print(json.dumps(info), flush=True)
+    return rows
 
 
 if __name__ == "__main__":

@@ -75,7 +75,11 @@ reward]), and at each log_status the gradient moments grads_rank00.raw
 (f32 rows [grad_step, grad_norm, grad_max]). log_status(full=True) adds
 the replay's stats table, the importance-weight histogram and the phase
 profiler's table (utils/profiler.py: ROLL, TRAIN, REFRESH and HOST timed
-by CUDA events on the card, read only there).
+by CUDA events on the card, read only there). `profiler.trace()` turns
+on its span records: besides the four phases, PRESAMPLE, STEP (one per
+step replay) and METRICS inside TRAIN and LOGS inside ROLL, and the
+phases of a V-RACER / RACER step, stamped on the card by a second step
+graph; `profiler.export_chrome_trace` writes them.
 
 Left out of the JAX trainer: the TPU-worker crash retry of train_fused,
 SMT_PACK_STATES and the single-controller shard addressing
@@ -99,6 +103,7 @@ from smarties_tpu_torch.replay.collector import (InProgress, RolloutCarry,
                                                  RolloutGens,
                                                  init_inprogress,
                                                  make_rollout_chunk)
+from smarties_tpu_torch.ops.stamp import stamp_
 from smarties_tpu_torch.runtime import graphs as cg
 from smarties_tpu_torch.utils.config import HyperParameters
 from smarties_tpu_torch.utils.profiler import Profiler
@@ -278,9 +283,12 @@ class Trainer:
         self.graphs = (self.device.type == "cuda" and capturable
                        if graphs is None else graphs)
         self._sweep_graphs = {}       # n_roll -> graphs.Graph
-        self._step_graphs = {}        # pinned (ep, t) rows? -> graphs.Graph
+        # pinned (ep, t) rows? -> graphs.Graph; (pinned, "traced") -> the
+        # step graph that stamps its phases
+        self._step_graphs = {}
         # (rows, row counter, metric rows by key, static (ep, t) rows)
         self._step_rows = None
+        self._stamp_rows = None       # the traced step's [rows, stamps]
         self.is_coordinator = rank == 0
         self.run_dir = run_dir
         self._rew_file = self._obs_file = self._grads_file = None
@@ -414,7 +422,9 @@ class Trainer:
             g = self._sweep_graphs[n] = cg.Graph(
                 program, self.carry, device=self.device,
                 generators=(self.gen_act, self.gen_env))
-        return tuple(x.clone() for x in g())
+        out = g()
+        with self.profiler.span("LOGS"):
+            return tuple(x.clone() for x in out)
 
     def _update_replay(self, fn, *args):
         """An eager update of the carried replay (refresh,
@@ -591,7 +601,10 @@ class Trainer:
         that draws its own minibatch from `gen_batch` (the prioritized
         samplers). The static buffers hold max(n_envs / obsPerStep, 100)
         rows, the fused cycle's and train()'s chunks: a longer chunk runs
-        in pieces of that many."""
+        in pieces of that many. While the profiler traces, the chunk's
+        PRESAMPLE, STEP (each replay) and METRICS spans are recorded, and
+        a learner with `step_phases` replays a second step graph that
+        stamps them (the plain graph keeps its nodes)."""
         if not self.graphs:
             self.params, self.opt_state, rs, metrics = train_chunk(
                 self.algo, self.cfg, self.params, self.opt_state,
@@ -599,35 +612,56 @@ class Trainer:
                 mesh=self.mesh)
             self.carry = self.carry._replace(replay=rs)
             return metrics
+        prof = self.profiler
         if pre is None and self._can_presample:
-            pre = presample_chunk(self.algo, self.cfg, self.gen_batch,
-                                  self.replay, n)
+            with prof.span("PRESAMPLE"):
+                pre = presample_chunk(self.algo, self.cfg, self.gen_batch,
+                                      self.replay, n)
         pinned = pre is not None
-        graph = self._step_graphs.get(pinned)
+        traced = prof.tracing and bool(self.algo.step_phases)
+        gkey = (pinned, "traced") if traced else pinned
+        graph = self._step_graphs.get(gkey)
         if graph is None:
-            graph = self._step_graphs[pinned] = self._build_step_graph(
-                pinned)
+            graph = self._step_graphs[gkey] = self._build_step_graph(
+                pinned, traced)
         rows, i, m_rows, pins = self._step_rows
         pieces = []
         for lo in range(0, n, rows):
             k = min(n - lo, rows)
             if pinned:
-                pins[0][:k].copy_(pre[0][lo:lo + k])
-                pins[1][:k].copy_(pre[1][lo:lo + k])
+                with prof.span("PRESAMPLE"):
+                    pins[0][:k].copy_(pre[0][lo:lo + k])
+                    pins[1][:k].copy_(pre[1][lo:lo + k])
             i.zero_()
-            for _ in range(k):
-                graph()
-            pieces.append({key: b[:k].clone() for key, b in m_rows.items()})
+            if prof.tracing:
+                steps = []
+                for _ in range(k):
+                    steps.append(prof.begin("STEP"))
+                    graph()
+                    prof.end(steps[-1])
+            else:
+                for _ in range(k):
+                    graph()
+            with prof.span("METRICS"):
+                pieces.append({key: b[:k].clone()
+                               for key, b in m_rows.items()})
+                if traced:
+                    prof.add_stamps(steps, self.algo.step_phases,
+                                    self._stamp_rows[:k].clone())
         if len(pieces) == 1:
             return pieces[0]
         return {key: torch.cat([p[key] for p in pieces]) for key in pieces[0]}
 
-    def _build_step_graph(self, pinned: bool):
+    def _build_step_graph(self, pinned: bool, traced: bool = False):
         """The captured grad step: the learner's train step on row i of
         the static (ep, t) buffers [rows, batchSize] (`pinned`), or on its
         own draw from `gen_batch`, which the graph then registers; its
         metrics into row i of [rows] buffers (made at the first, eager
-        call); then i + 1. Both forms share the buffers and the counter."""
+        call); then i + 1. Every form shares the buffers and the counter.
+        `traced`: the step also stamps the start, the end of each of the
+        learner's `step_phases` and the end of the metric copies into row
+        i of the static [rows, len(step_phases) + 1] stamp buffer
+        (ops/stamp.py: the card's timer, in stream order)."""
         dev = self.device
         if self._step_rows is None:
             rows = max(int(round(self.n_envs / self.cfg.obsPerStep)), 100)
@@ -637,19 +671,35 @@ class Trainer:
                                   dtype=torch.int32, device=dev)
                       for _ in range(2)))
         rows, i, m_rows, pins = self._step_rows
+        stamp, kw = None, {}
+        if traced:
+            n_phases = len(self.algo.step_phases)
+            if self._stamp_rows is None:
+                self._stamp_rows = torch.zeros((rows, n_phases + 1),
+                                               dtype=torch.int64, device=dev)
+            buf = self._stamp_rows
+
+            def stamp(k):
+                stamp_(buf, i, k)
+
+            kw = {"stamp": stamp}
 
         def program(state):
             params, opt_state, rs = state
+            if stamp is not None:
+                stamp(0)
             row = (tuple(x.index_select(0, i)[0] for x in pins) if pinned
                    else None)
             params, opt_state, rs, m = self.algo.train_step(
                 params, opt_state, rs, gen=self.gen_batch,
-                sample_override=row)
+                sample_override=row, **kw)
             for key, v in m.items():
                 if key not in m_rows:
                     m_rows[key] = torch.empty((rows,) + tuple(v.shape),
                                               dtype=v.dtype, device=dev)
                 m_rows[key].index_copy_(0, i, v[None])
+            if stamp is not None:
+                stamp(n_phases)
             i.add_(1)
             return (params, opt_state, rs), None
 
@@ -663,6 +713,7 @@ class Trainer:
         graphs (the sweep's, and the step's once per step). The ingest
         sweep runs K1 here too (the JAX package could not co-compile its
         kernel with lax.scan and used an associative scan instead)."""
+        self.profiler.cycle += 1
         with self.profiler("ROLL"):
             logs = self._sweep(n_roll)
         with self.profiler("TRAIN"):
@@ -724,6 +775,7 @@ class Trainer:
         t0 = time.time()
         Q = 100
         while self._keep_going(target, t0, max_wall_s):
+            self.profiler.cycle += 1
             allowed = int(self._n_loc_train_steps() / self.cfg.obsPerStep
                           ) - self.n_grad_steps
             allowed = min(allowed, target - self.n_grad_steps)
