@@ -25,6 +25,18 @@ Phases, each reported on its own line:
    [16912, 501] and predator-prey's [20971, 201] (the Trainer's and each
    MultiTrainer learner's), where the kernel is also held against its
    plain version.
+2b. adam: builds the Adam kernel (csrc/adam.cu) and holds it against the
+   loop it replaces (models/optim.py::adam_update_plain_,
+   adam_advance_plain_) on the card: 200 steps at the main path's 7
+   leaves and at 150 leaves (three update launches), torch.equal on the
+   params, both moments, beta_t and step; then the update's time, and
+   the update's with the advance, at the main path's leaves (200 calls
+   replayed in one CUDA graph, warm L2) beside the bound of its bytes
+   (w, g, m1, m2 read, w, m1, m2 written: 28 B a parameter at 3.35 TB/s)
+   and the loop's time taken the same way. Phases 4, 4b, 5, 6 and 11
+   count the kernel's launches against the optimiser's step counter: one
+   update per part (two for DPG, PPO and ACER) and one advance a step,
+   a graph's replays included.
 3. reference: the port on the card against the port on the CPU at a
    small size, from one state (8 train steps and a refresh, so K1 runs
    inside the pipeline against its plain version).
@@ -41,10 +53,11 @@ Phases, each reported on its own line:
    path from one state: the main path, then RACER, RACER-discrete, DQN,
    NAF, DPG and MixedPG at their recipes' widths with 1024 envs (phase
    5's settings), then V-RACER under PERrank + farpolfrac (phase 9's,
-   the draw inside the captured step). Per path: warmup, the graphs'
-   warm-up calls and their capture in short fused cycles (1 sweep + 8
-   grad steps), 2 fused cycles timed by CUDA events, a save, a short
-   cycle, a restore and a short cycle (the 1000-step refresh after each
+   the draw inside the captured step). The captured side runs the Adam
+   kernel, the eager side the loop it replaces. Per path: warmup, the
+   graphs' warm-up calls and their capture in short fused cycles (1
+   sweep + 8 grad steps), 2 fused cycles timed by CUDA events, a save,
+   a short cycle, a restore and a short cycle (the 1000-step refresh after each
    timed cycle). Params (target nets included), optimiser state, replay,
    in-progress episodes, env state, acting carry and the four generator
    states must be torch.equal; K1 one sweep launch per site call,
@@ -237,9 +250,9 @@ Phases, each reported on its own line:
    steady and Atari phases. Then the serving bench
    (tools/serving_bench.py) for 3 s over 4 forked apps: served > 0.
    Prints the phase's time.
-`--only NAME ...` runs the device phase and the named phases of 4b, 8b
-and 17-23 alone (graphs, bf16, glider, predator_prey, multitrainer,
-logs, multichip, curves, bench).
+`--only NAME ...` runs the device phase and the named phases of 2b, 4b,
+8b and 17-23 alone (adam, graphs, bf16, glider, predator_prey,
+multitrainer, logs, multichip, curves, bench).
 Then one JSON line with the kernels' results and, last, the device line.
 
 The script imports no JAX and nothing of the JAX package. Any failed
@@ -370,6 +383,8 @@ GRAPH_PROFILED_STEPS, GRAPH_CHUNK = 20, 100
 # (profile_main --path on an NVIDIA H100 80GB HBM3 at 700 W), ms
 EAGER_STEP_MS = {"racer": 12.525, "racer_discrete": 8.696, "dqn": 6.995,
                  "naf": 10.262, "dpg": 9.742, "mixedpg": 11.825}
+# the Adam phase: steps held against the loop, launches timed in a graph
+ADAM_STEPS, ADAM_TIMED = 200, 200
 # the bench phase: timed fused cycles, the Atari step's presampled steps,
 # quality cycles of seed 0; the serving bench's apps and seconds
 BENCH_CYCLES, BENCH_ATARI_STEPS, BENCH_QUALITY_CYCLES = 2, 128, 2
@@ -577,6 +592,170 @@ class SiteCounter:
             == sum(counts.values()), (what, counts, self.sites)
 
 
+def _adam_parts(algo, params):
+    """Adam update launches per grad step: one per part with its own
+    config (DPG's and PPO's split step, ACER's actor and critics), else
+    one for all leaves (no learner has more leaves in a part than one
+    launch's table holds)."""
+    net = params.get("net", params)
+    parts = getattr(algo, "part_adam", None)
+    if parts is not None:
+        return len({k if k in parts else None for k in net})
+    return 2 if hasattr(algo, "critic_adam") else 1
+
+
+def _check_adam_launches(tr, what):
+    """The Adam kernel's launches since the last reset against the
+    optimiser's own step counter: one update per part and one advance a
+    grad step (a graph's replays count what its capture launched)."""
+    from smarties_tpu_torch.ops import adam_kernel
+    opt = tr.opt_state
+    steps = int((opt if hasattr(opt, "step") else opt.adam).step)
+    parts = _adam_parts(tr.algo, tr.params)
+    want = {"adam_update": parts * steps, "adam_advance": steps}
+    assert adam_kernel.launches == want, \
+        f"{what}: Adam launches {adam_kernel.launches} != {want}"
+    return dict(want, parts=parts)
+
+
+_ADAM_KERNEL = []
+
+
+def _use_plain_adam(plain):
+    """Send the card's Adam through models/optim.py's loop (plain True),
+    which the kernel is held against, or back through the kernel."""
+    from smarties_tpu_torch.models import optim
+    from smarties_tpu_torch.ops import adam_kernel as ak
+    if not _ADAM_KERNEL:
+        _ADAM_KERNEL.extend((ak.update_, ak.advance_))
+    if plain:
+        ak.update_ = (lambda ws, gs, m1s, m2s, st, cfg, gf, eps:
+                      optim.adam_update_plain_(
+                          ws, gs, st._replace(m1=m1s, m2=m2s), cfg, gf))
+        ak.advance_ = lambda st, cfg, eps: optim.adam_advance_plain_(st, cfg)
+    else:
+        ak.update_, ak.advance_ = _ADAM_KERNEL
+
+
+def _graph_ms(fn, n):
+    """Median ms of one fn() call: n calls captured in one CUDA graph,
+    replayed 5 times between CUDA events (no host time inside)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(5):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / n)
+    return statistics.median(times)
+
+
+def phase_adam():
+    """The Adam kernel against the loop it replaces, and its time (phase
+    2b in the module docstring)."""
+    import torch
+    from smarties_tpu_torch.models import net as tnet
+    from smarties_tpu_torch.models import optim
+    from smarties_tpu_torch.ops import adam_kernel
+    from smarties_tpu_torch.runtime import bench_retrace as bench
+    from smarties_tpu_torch.runtime.profile_main import main_path_trainer
+
+    t0 = time.perf_counter()
+    adam_kernel.library()
+    build_s = time.perf_counter() - t0
+    regs = [ln.strip() for ln in adam_kernel.build_info["log"].splitlines()
+            if "registers" in ln]
+    tr = main_path_trainer(0, "cuda", n_envs=16, n_slots=64)
+    cfg, gf = tr.algo.adam_cfg, 1.0 / tr.cfg.batchSize
+    sizes = [p.numel() for p in tnet.tree_leaves(tr.params)]
+    gen = torch.Generator("cuda").manual_seed(0)
+
+    def grads(params, k):
+        return tnet.tree_map(lambda p: torch.randn(
+            p.shape, generator=gen, device="cuda")
+            * (10.0 if k % 7 == 3 else 1.0), params)
+
+    def both(params, acfg, steps):
+        """steps through the kernel and the loop from one state ->
+        (launches, every tensor torch.equal)"""
+        kp = tnet.tree_map(lambda p: p.detach().clone(), params)
+        lp = tnet.tree_map(lambda p: p.detach().clone(), params)
+        ks, ls = optim.adam_init(kp), optim.adam_init(lp)
+        adam_kernel.reset_launches()
+        for k in range(steps):
+            g = grads(kp, k)
+            optim.adam_step(kp, g, ks, acfg, gf)
+            optim.adam_update_plain_(lp, g, ls, acfg, gf)
+            optim.adam_advance_plain_(ls, acfg)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(
+            tnet.tree_leaves([kp, list(ks)]),
+            tnet.tree_leaves([lp, list(ls)])))
+        return dict(adam_kernel.launches), equal
+
+    main_launches, main_equal = both(tr.params, cfg, ADAM_STEPS)
+    assert main_equal, "adam: kernel != loop at the main path's leaves"
+    assert main_launches == {"adam_update": ADAM_STEPS,
+                             "adam_advance": ADAM_STEPS}, main_launches
+    many = {f"l{i:03d}": torch.randn(n, generator=gen, device="cuda")
+            for i, n in enumerate(torch.randint(
+                1, 3000, (150,), generator=gen, device="cuda").tolist())}
+    many_cfg = optim.AdamConfig(eta=1e-3, lambda_=1e-3, eps_anneal=5e-3)
+    many_launches, many_equal = both(many, many_cfg, ADAM_STEPS)
+    assert many_equal, "adam: kernel != loop at 150 leaves"
+    assert many_launches["adam_update"] == 3 * ADAM_STEPS, many_launches
+
+    kp = tnet.tree_map(lambda p: p.detach().clone(), tr.params)
+    ks, g = optim.adam_init(kp), grads(kp, 0)
+    n_bytes = 28 * sum(sizes)
+    bound_ms = n_bytes / bench.HBM_BYTES_PER_S * 1e3
+    rows = {
+        "update": (_graph_ms(lambda: optim.adam_update_(kp, g, ks, cfg, gf),
+                             ADAM_TIMED),
+                   _graph_ms(lambda: optim.adam_update_plain_(
+                       kp, g, ks, cfg, gf), ADAM_TIMED // 10)),
+        "update + advance": (
+            _graph_ms(lambda: optim.adam_step(kp, g, ks, cfg, gf),
+                      ADAM_TIMED),
+            _graph_ms(lambda: (optim.adam_update_plain_(kp, g, ks, cfg, gf),
+                               optim.adam_advance_plain_(ks, cfg)),
+                      ADAM_TIMED // 10))}
+    adam_kernel.reset_launches()
+    del tr
+    torch.cuda.empty_cache()
+    ms, plain_ms = rows["update"]
+    print(f"adam: built in {build_s:.2f} s ({'; '.join(regs)}) | "
+          f"{ADAM_STEPS} steps at the main path's {len(sizes)} leaves "
+          f"({sum(sizes)} params) torch.equal to the loop (params, moments, "
+          f"beta_t, step), launches {main_launches}; at 150 leaves "
+          f"torch.equal, launches {many_launches}", flush=True)
+    for name, (k_ms, p_ms) in rows.items():
+        print(f"adam: {name} at the main path's leaves {k_ms * 1e3:.3f} us "
+              f"a call (kernel, {ADAM_TIMED} in one graph) | loop "
+              f"{p_ms * 1e3:.3f} us | bound {n_bytes} B -> "
+              f"{bound_ms * 1e3:.4f} us ({bound_ms / k_ms:.3f} of the "
+              f"kernel's time)", flush=True)
+    return {"build_s": build_s, "registers": regs, "bytes": n_bytes,
+            "bound_ms": bound_ms, "ms": ms, "plain_ms": plain_ms,
+            "share_of_bound": bound_ms / ms,
+            "step_ms": rows["update + advance"][0],
+            "plain_step_ms": rows["update + advance"][1],
+            "launches": main_launches, "many_leaves_launches": many_launches}
+
+
 def _leaves(tree, prefix=""):
     """(path, tensor) pairs of a nested dict/list of tensors."""
     if isinstance(tree, dict):
@@ -692,6 +871,7 @@ def phase_reference():
 def phase_main_path():
     import numpy as np
     import torch
+    from smarties_tpu_torch.ops import adam_kernel
     from smarties_tpu_torch.ops import retrace_kernel as rk
     from smarties_tpu_torch.runtime.profile_main import main_path_trainer
 
@@ -705,6 +885,7 @@ def phase_main_path():
           flush=True)
 
     rk.reset_launches()
+    adam_kernel.reset_launches()
     sites.ingest_site = "warmup_train_ingest"
     t0 = time.perf_counter()
     tr.warmup(chunk=16, blind_sweeps=16)
@@ -746,6 +927,7 @@ def phase_main_path():
     sites.check_one_launch_per_call(
         counts, ("warmup_train_ingest", "initialize_stats", "refresh",
                  "fused_cycle_ingest"), "main")
+    adam = _check_adam_launches(tr, "main")
 
     per_cycle = statistics.median(cycle_ms)
     print(f"main: fused cycle {cycle_ms[0]:.1f} / {cycle_ms[1]:.1f} ms "
@@ -760,8 +942,10 @@ def phase_main_path():
     print(f"main: K1 launches {counts} by site {site_counts}, one per "
           f"call of each site (captured: {sorted(tr._sweep_graphs)}-sweep "
           f"graphs, the step graph; pools "
-          f"{tr.graph_pool_bytes() / 2 ** 20:.1f} MiB)", flush=True)
-    return {"cycle_ms": cycle_ms, "launches": counts, "sites": site_counts}
+          f"{tr.graph_pool_bytes() / 2 ** 20:.1f} MiB) | Adam launches "
+          f"{adam}, one update and one advance a grad step", flush=True)
+    return {"cycle_ms": cycle_ms, "launches": counts, "sites": site_counts,
+            "adam": adam}
 
 
 def _state_tensors(x, name=""):
@@ -825,6 +1009,7 @@ def _graphs_path(name, make, tmp):
     import gc
 
     import torch
+    from smarties_tpu_torch.ops import adam_kernel
     from smarties_tpu_torch.ops import retrace_kernel as rk
     from smarties_tpu_torch.runtime import graphs as cg
     from smarties_tpu_torch.runtime.profile_main import profile_calls
@@ -832,10 +1017,13 @@ def _graphs_path(name, make, tmp):
     t_path = time.perf_counter()
     res, trainers = {}, {}
     for mode in ("captured", "eager"):
+        # captured: the Adam kernel; eager: the loop it replaces
+        _use_plain_adam(mode == "eager")
         tr = make(None if mode == "captured" else False)
         assert tr.graphs == (mode == "captured"), (name, mode, tr.graphs)
         sites = SiteCounter(tr, rk)
         rk.reset_launches()
+        adam_kernel.reset_launches()
         t0 = time.perf_counter()
         tr.warmup(chunk=16)
         torch.cuda.synchronize()
@@ -856,6 +1044,12 @@ def _graphs_path(name, make, tmp):
             e1.record()
             e1.synchronize()
             cycle_ms.append(e0.elapsed_time(e1))
+        if mode == "captured":
+            adam = _check_adam_launches(tr, f"graphs {name} {mode}")
+        else:
+            assert sum(adam_kernel.launches.values()) == 0, \
+                (name, adam_kernel.launches)
+            adam = dict(adam_kernel.launches)
         ckpt = os.path.join(tmp, f"{name}_{mode}.pt")
         t0 = time.perf_counter()
         tr.save(ckpt)
@@ -877,7 +1071,7 @@ def _graphs_path(name, make, tmp):
             assert all(g.graph is not None for g in tr._step_graphs.values())
             assert tr._step_graphs and tr._sweep_graphs[1].graph is not None
         res[mode] = {"fused_cycle_ms": cycle_ms,
-                     "k1": counts.get("retrace_sweep", 0),
+                     "k1": counts.get("retrace_sweep", 0), "adam": adam,
                      "sites": dict(sites.sites), "stages": stages}
         tr._pending_logs.clear()
         trainers[mode] = tr
@@ -902,6 +1096,7 @@ def _graphs_path(name, make, tmp):
 
     # launches per grad step and per env sweep, and a train chunk's time
     for mode, tr in trainers.items():
+        _use_plain_adam(mode == "eager")
         t0 = time.perf_counter()
         step = profile_calls(
             lambda: tr._train_chunk(GRAPH_PROFILED_STEPS), 1)
@@ -924,6 +1119,7 @@ def _graphs_path(name, make, tmp):
                          train_chunk_ms=chunk_ms,
                          ms_per_grad_step=chunk_ms / GRAPH_CHUNK,
                          pool_bytes=tr.graph_pool_bytes())
+    _use_plain_adam(False)
     c, e = res["captured"], res["eager"]
     assert c["per_grad_step"]["graph_launches"] == 1, (name, c)
     # a replay launches 2 kernels (its seed and offset) per generator the
@@ -943,13 +1139,15 @@ def _graphs_path(name, make, tmp):
               f"{r['ms_per_grad_step']:.4f} ms per grad step (a chunk of "
               f"{GRAPH_CHUNK}) | per grad step {r['per_grad_step']} | per "
               f"env sweep + ingest {r['per_sweep']} | K1 {r['k1']} sweep "
-              f"launches by site {r['sites']}, one per call | graph pools "
+              f"launches by site {r['sites']}, one per call | Adam kernel "
+              f"{r['adam']} | graph pools "
               f"{r['pool_bytes']} B | s "
               + ", ".join(f"{k} {v:.2f}" for k, v in r["stages"].items()),
               flush=True)
     res["tensors"] = n_tensors
     res["path_s"] = time.perf_counter() - t_path
-    print(f"graphs {name}: captured and eager torch.equal after warmup, "
+    print(f"graphs {name}: captured (Adam kernel) and eager (Adam loop) "
+          f"torch.equal after warmup, "
           f"{cg.WARMUP_CALLS + 1 + GRAPH_TIMED_CYCLES + 2} fused cycles, "
           f"their refreshes and a save / restore ({n_tensors} tensors and 4 "
           f"generator states) | {res['path_s']:.2f} s", flush=True)
@@ -1005,6 +1203,7 @@ def phase_learners():
     import numpy as np
     import torch
     from smarties_tpu_torch import launch
+    from smarties_tpu_torch.ops import adam_kernel
     from smarties_tpu_torch.ops import retrace_kernel as rk
 
     runs = os.path.join(ROOT, "build", "chip_smoke_runs")
@@ -1036,12 +1235,14 @@ def phase_learners():
             tr.train = timed_train
 
         rk.reset_launches()
+        adam_kernel.reset_launches()
         t0 = time.perf_counter()
         tr = launch.run(args, prepare=prepare)
         torch.cuda.synchronize()
         assert tr.graphs, f"{name}: not captured"
         run_s = time.perf_counter() - t0
         counts, sites = dict(rk.launches), dict(hooks["sites"].sites)
+        adam = _check_adam_launches(tr, name)
         rets = tr.evaluate(8, max_steps=200)
 
         for k, p in _leaves(tr.params):
@@ -1075,11 +1276,11 @@ def phase_learners():
               f"train_step {EAGER_STEP_MS[name]} ms in PERF.md §5; host wall "
               f"{hooks['train_wall_s']:.2f} s) | launch.run {run_s:.2f} s | "
               f"evaluate(8, 200) mean return {float(np.mean(rets)):.2f} | "
-              f"{k1} | card vs CPU max |diff| "
+              f"{k1} | Adam launches {adam} | card vs CPU max |diff| "
               + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()),
               flush=True)
         results[name] = {"sites": sites, "launches": counts["retrace_sweep"],
-                         "ms_per_grad_step": ms_step,
+                         "adam": adam, "ms_per_grad_step": ms_step,
                          "train_ms": hooks["train_ms"], "run_s": run_s,
                          "card_vs_cpu": worst}
     return results
@@ -1109,6 +1310,7 @@ def phase_on_policy():
     import numpy as np
     import torch
     from smarties_tpu_torch import launch
+    from smarties_tpu_torch.ops import adam_kernel
     from smarties_tpu_torch.ops import retrace_kernel as rk
 
     runs = os.path.join(ROOT, "build", "chip_smoke_runs")
@@ -1142,11 +1344,15 @@ def phase_on_policy():
             tr._train_chunk, tr._refresh = timed_chunk, watched_refresh
 
         rk.reset_launches()
+        adam_kernel.reset_launches()
         t0 = time.perf_counter()
         tr = launch.run(args, prepare=prepare)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         counts, modes = dict(rk.launches), dict(rk.launch_modes)
+        adam = _check_adam_launches(tr, name)
+        assert adam["parts"] == 2 and adam["adam_advance"] == PPO_STEPS, \
+            (name, adam)
         sites, calls = dict(hooks["sites"].sites), dict(hooks["sites"].calls)
         n_left = int(tr.replay.n_stored_steps())
         rets = tr.evaluate(8, max_steps=200)
@@ -1181,10 +1387,12 @@ def phase_on_policy():
               f"{run_s:.2f} s, {tr.n_env_steps} env steps, horizons held "
               f"{stored} steps, cleared to {n_left} | evaluate(8, 200) mean "
               f"return {float(np.mean(rets)):.2f} | K1 sweep launches by "
-              f"site {sites} of calls {calls}, by mode {modes} | card vs "
-              f"CPU max |diff| {_fmt_diffs(worst)}", flush=True)
+              f"site {sites} of calls {calls}, by mode {modes} | Adam "
+              f"launches {adam} | card vs CPU max |diff| "
+              f"{_fmt_diffs(worst)}", flush=True)
         results[name] = {"sites": sites, "launches": counts["retrace_sweep"],
-                         "modes": modes, "ms_per_grad_step": ms_step,
+                         "modes": modes, "adam": adam,
+                         "ms_per_grad_step": ms_step,
                          "run_s": run_s, "card_vs_cpu": worst}
     return results
 
@@ -1789,6 +1997,7 @@ def phase_acer():
     from smarties_tpu_torch import launch
     from smarties_tpu_torch.algos import acer
     from smarties_tpu_torch.envs import pendulum
+    from smarties_tpu_torch.ops import adam_kernel
     from smarties_tpu_torch.ops import retrace_kernel as rk
     from smarties_tpu_torch.ops import returns as ret
     from smarties_tpu_torch.runtime import bench_retrace as bench
@@ -1815,6 +2024,7 @@ def phase_acer():
     acer.affine_suffix_scan = recorded_scan
     try:
         rk.reset_launches()
+        adam_kernel.reset_launches()
         t0 = time.perf_counter()
         tr = launch.run(args, prepare=prepare)
         torch.cuda.synchronize()
@@ -1822,6 +2032,8 @@ def phase_acer():
         counts = dict(rk.launches)
     finally:
         acer.affine_suffix_scan = scan
+    adam = _check_adam_launches(tr, name)
+    assert adam["parts"] == 2, adam
     sites, calls = dict(hooks["sites"].sites), dict(hooks["sites"].calls)
     rets = tr.evaluate(8, max_steps=200)
     _check_finite(name, tr, rets, 8)
@@ -1870,6 +2082,7 @@ def phase_acer():
           f"stored steps {int(tr.replay.n_stored_steps())} | evaluate(8, "
           f"200) mean return {float(np.mean(rets)):.2f} | K1 launches "
           f"{counts} for {steps} grad steps (sweeps by site {sites}) | "
+          f"Adam launches {adam} | "
           f"affine_suffix_scan on the last step's [{2 * B}, {S}] "
           f"coefficients: max|kernel - plain| {err:.3e}"
           f"{' (bit-equal)' if bit_equal else ' (not bit-equal)'}, kernel "
@@ -1878,7 +2091,7 @@ def phase_acer():
           f"(batch 8 distinct episodes, S = 64, 4 steps + refresh) max "
           f"|diff| {_fmt_diffs(worst)}", flush=True)
     res = {"launches": steps, "ms_per_grad_step": ms_step, "run_s": run_s,
-           "card_vs_cpu": worst,
+           "card_vs_cpu": worst, "adam": adam,
            "scan": {"shape": [2 * B, S], "max_abs_err": err,
                     "bit_equal": bit_equal, "ms": ms, "plain_ms": plain_ms,
                     "bytes": n_bytes, "bound_ms": bound_ms}}
@@ -3666,7 +3879,8 @@ def phase_bench():
 
 
 # phases 4b, 8b and 17-23, by the names `--only` takes
-NEW_PHASES = {"graphs": phase_graphs, "bf16": phase_bf16,
+NEW_PHASES = {"adam": phase_adam, "graphs": phase_graphs,
+              "bf16": phase_bf16,
               "glider": phase_glider,
               "predator_prey": phase_predator_prey,
               "multitrainer": phase_multitrainer, "logs": phase_logs,
@@ -3696,6 +3910,7 @@ def main(argv=None):
             "count": torch.cuda.device_count()}}), flush=True)
         return
     kern = phase_kernels()
+    adam = phase_adam()
     phase_reference()
     main_res = phase_main_path()
     graphs = phase_graphs()["graphs"]
@@ -3812,6 +4027,25 @@ def main(argv=None):
         "multitrainer_rolls": learners["multitrainer"]["rolls"],
         "logs": logs,
         "graphs": graphs,
+    }, {
+        "name": "adam_step",
+        "route": "cuda",
+        "source": "smarties_tpu_torch/csrc/adam.cu",
+        "replaces": None,
+        "launches": main_res["adam"]["adam_update"],
+        "max_abs_err": 0.0,
+        "ms": adam["ms"],
+        "plain_ms": adam["plain_ms"],
+        "bound_ms": adam["bound_ms"],
+        "bound_by": "bytes",
+        "share_of_bound": adam["share_of_bound"],
+        "library_ms": None,
+        "phase": adam,
+        "launches_by_path": {
+            "vracer_main": main_res["adam"],
+            **{k: v["adam"] for k, v in learners.items() if "adam" in v},
+            **{f"graphs_{k}": graphs[k]["captured"]["adam"]
+               for k in graph_paths}},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,11 @@ The port updates the parameter leaves, the moments and the 0-d device
 scalars beta_t_1, beta_t_2 and step IN PLACE (the JAX package rebuilds
 them): a step never synchronises with the host, and a CUDA graph of it
 (runtime/graphs.py) reads and writes the same storage at every replay.
+
+adam_update_ and adam_advance_ dispatch on the leaves' device: CPU
+leaves take the plain loops (adam_update_plain_, adam_advance_plain_),
+CUDA leaves one launch each of csrc/adam.cu (ops/adam_kernel.py), which
+is bit-equal to the loops and raises on what it does not take.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from smarties_tpu_torch.models.net import tree_leaves, tree_map
+from smarties_tpu_torch.ops import adam_kernel
 from smarties_tpu_torch.utils.config import anneal_rate
 
 NN_EPS = float(np.finfo(np.float32).eps)  # nnEPS (Bund.h:118)
@@ -56,6 +62,19 @@ def adam_init(params) -> AdamState:
 @torch.no_grad()
 def adam_update_(params, grads, state: AdamState, cfg: AdamConfig,
                  grad_factor):
+    """adam_update_plain_ on CPU leaves; on CUDA leaves one launch of the
+    Adam kernel (ops/adam_kernel.py), bit-equal to it."""
+    ws = tree_leaves(params)
+    if ws[0].device.type == "cpu":
+        return adam_update_plain_(params, grads, state, cfg, grad_factor)
+    adam_kernel.update_(ws, tree_leaves(grads), tree_leaves(state.m1),
+                        tree_leaves(state.m2), state, cfg, grad_factor,
+                        NN_EPS)
+
+
+@torch.no_grad()
+def adam_update_plain_(params, grads, state: AdamState, cfg: AdamConfig,
+                       grad_factor):
     """The moments and parameters of one Adam ascent step, in place, with
     the bias correction of `state`'s scalars, which it leaves as they
     are (adam_advance_ moves them). `grads` are summed ascent gradients
@@ -81,6 +100,16 @@ def adam_update_(params, grads, state: AdamState, cfg: AdamConfig,
 
 @torch.no_grad()
 def adam_advance_(state: AdamState, cfg: AdamConfig) -> AdamState:
+    """adam_advance_plain_ on CPU scalars; on CUDA scalars one launch of
+    the Adam kernel's advance (ops/adam_kernel.py)."""
+    if state.step.device.type == "cpu":
+        return adam_advance_plain_(state, cfg)
+    adam_kernel.advance_(state, cfg, NN_EPS)
+    return state
+
+
+@torch.no_grad()
+def adam_advance_plain_(state: AdamState, cfg: AdamConfig) -> AdamState:
     """The end of a step, in place: beta_t *= beta, floored to 0 below
     nnEPS (Optimizer.cpp:156-160), and step + 1."""
     for bt, b in ((state.beta_t_1, cfg.beta1), (state.beta_t_2, cfg.beta2)):

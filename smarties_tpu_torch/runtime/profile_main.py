@@ -77,14 +77,15 @@ span records: the median STEP replay's device ms, the median ms of each
 of its stamped phases (gather, forward, backward, Adam, write-back) and
 their sum, the TRAIN span's device ms per grad step, PRESAMPLE's device
 ms and the share of the cycle's window the card was idle between the
-program's spans. Then the cost of tracing, in turns plain, traced,
-traced, plain of 3 cycles each: TRAIN ms per grad step, and the host's
-µs per replay of 64 replays launched on an idle card; the card timer's
-resolution and the mapping's measured error; and the Chrome trace of
-one more traced cycle at --trace-out. `--trace-after S` runs S seconds
-of plain cycles first (each one's TRAIN ms per grad step printed) and
-turns tracing on after them (the traced step graph is then captured
-late).
+program's spans; then each phase's kernels and their device µs in 8
+replays of the traced step graph under torch.profiler (CUPTI). Then the
+cost of tracing, in turns plain, traced, traced, plain of 3 cycles
+each: TRAIN ms per grad step, and the host's µs per replay of 64
+replays launched on an idle card; the card timer's resolution and the
+mapping's measured error; and the Chrome trace of one more traced cycle
+at --trace-out. `--trace-after S` runs S seconds of plain cycles first
+(each one's TRAIN ms per grad step printed) and turns tracing on after
+them (the traced step graph is then captured late).
 
 Needs a CUDA card (exits 2 without one). Imports no JAX.
 """
@@ -93,6 +94,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -583,6 +585,46 @@ def compare_graphs(tr: Trainer, steps: int = 100):
           f" MiB for the {steps}-step graph", flush=True)
 
 
+def phase_kernels(tr: Trainer, n: int = 8) -> dict:
+    """The device kernels of each stamped phase of the main path's traced
+    step graph over n replays, from CUPTI (torch.profiler): per phase the
+    kernels between the stamp that opens it and the one that closes it,
+    and their summed device µs, medians over the replays (memory copies
+    and sets not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+    graph = tr._step_graphs[(True, "traced")]
+    names = tr.algo.step_phases
+    tr._step_rows[1].zero_()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            graph()
+        torch.cuda.synchronize()
+    kernels = sorted(
+        (e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and not e.name.startswith(("Memcpy", "Memset"))),
+        key=lambda e: e.time_range.start)
+    marks = [j for j, e in enumerate(kernels) if "stamp_kernel" in e.name]
+    per = len(names) + 1
+    if len(marks) != n * per:
+        raise RuntimeError(f"phase_kernels: {len(marks)} stamps in {n} "
+                           f"replays, not {n * per}")
+    counts = {k: [] for k in names}
+    busy = {k: [] for k in names}
+    for r in range(n):
+        m = marks[r * per:(r + 1) * per]
+        for k, name in enumerate(names):
+            inside = kernels[m[k] + 1:m[k + 1]]
+            counts[name].append(len(inside))
+            busy[name].append(sum(e.time_range.elapsed_us()
+                                  for e in inside))
+    return {"kernels": {k: statistics.median(v) for k, v in counts.items()},
+            "busy_us": {k: statistics.median(v) for k, v in busy.items()},
+            "replays": n,
+            "kernels_per_replay": len(kernels) / n}
+
+
 def trace_main(seconds: float, plain_s: float = 0.0, out=None,
                device="cuda", n_envs: int = 1024, n_slots: int = 4096,
                fill_sweeps: int = 256):
@@ -635,6 +677,8 @@ def trace_main(seconds: float, plain_s: float = 0.0, out=None,
                "device_gap_share": sm["device_gap_share"]}
         rows.append(row)
         print(json.dumps(row), flush=True)
+    if cuda:
+        print(json.dumps({"phase_kernels": phase_kernels(tr)}), flush=True)
 
     # the cost of tracing: TRAIN ms per grad step in turns, and the
     # host's time per replay on an idle card
