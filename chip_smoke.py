@@ -101,8 +101,9 @@ Phases, each reported on its own line:
    events, a refresh, evaluate(8, 39). Prints the memory peak of the run
    and of initialize_stats alone (its chunked statistics must stay far
    below a second copy of the replay). Checks finiteness, the uint8
-   storage and one Retrace launch of K1 per call at ingest,
-   initialize_stats and refresh; then the conv learner on the card
+   storage, one Retrace launch of K1 per call at ingest,
+   initialize_stats and refresh, and that the ball falls 2 rows a step
+   in 256 stored episodes; then the conv learner on the card
    against the CPU on the 20x20 board (two conv layers, 2 appended
    frames, uint8 replay; cuDNN's f32 backward sums in another order than
    the CPU's, and the params stay within the other learners' rtol 1e-4 /
@@ -112,7 +113,8 @@ Phases, each reported on its own line:
    through the launcher at phase 8's width (1024 envs, 65,536 x 40 uint8
    slots): warmup, one fused cycle of 1024 grad steps timed by CUDA
    events (its 1000-step refresh at the end), evaluate(8, 39); one K1
-   Retrace launch per call at ingest, initialize_stats and refresh. Then
+   Retrace launch per call at ingest, initialize_stats and refresh; the
+   ball falling 2 rows a step in 256 stored episodes. Then
    the RACER_atari grad step at profile_main.atari_setup's shapes in f32,
    bf16, bf16, f32: ms per step by events, launches, device-busy ms,
    TFLOP/s at the step's FLOPs from the shapes and the MFU against the
@@ -251,7 +253,7 @@ Phases, each reported on its own line:
    (tools/serving_bench.py) for 3 s over 4 forked apps: served > 0.
    Prints the phase's time.
 `--only NAME ...` runs the device phase and the named phases of 2b, 4b,
-8b and 17-23 alone (adam, graphs, bf16, glider, predator_prey,
+8, 8b and 17-23 alone (adam, graphs, atari, bf16, glider, predator_prey,
 multitrainer, logs, multichip, curves, bench).
 Then one JSON line with the kernels' results and, last, the device line.
 
@@ -1468,6 +1470,30 @@ def phase_recurrent():
     return results
 
 
+def _check_catch_frames(tr, n=256):
+    """In n stored episodes of `catch`, the ball's top row is FALL * t at
+    every step t and its column that of the first frame: the rollout
+    writes the env state back field by field, and fields that shared
+    memory would make the ball fall 1 row a step."""
+    import numpy as np
+    import torch
+    from smarties_tpu_torch.envs import catch
+    rs = tr.replay
+    slots = torch.nonzero(rs.slot_id >= 0)[:n, 0]
+    frames = rs.states_tm[:, slots].transpose(0, 1).cpu().numpy()
+    lens = rs.slot_len[slots].cpu().numpy()
+    frames = frames.reshape(len(slots), -1, catch.H, catch.W)
+    ball = frames[:, :, :catch.H - catch.PADDLE_H] > 0
+    for e in range(len(slots)):
+        left0 = np.nonzero(ball[e, 0].any(0))[0].min()
+        for t in range(int(lens[e]) + 1):
+            rows = np.nonzero(ball[e, t].any(1))[0]
+            cols = np.nonzero(ball[e, t].any(0))[0]
+            assert rows.min() == catch.FALL * t and cols.min() == left0, \
+                (e, t, rows.min(), cols.min(), left0)
+    return len(slots)
+
+
 def phase_atari():
     """`catch` with RACER_atari through the launcher at full width."""
     import shutil
@@ -1575,6 +1601,7 @@ def phase_atari():
         counts, ("ingest", "initialize_stats", "refresh"), name)
     assert modes == {"retrace": counts["retrace_sweep"], "GAE": 0}, \
         (name, modes, counts)
+    n_checked = _check_catch_frames(tr)
     # the statistics pass never holds a second copy of the replay
     init_extra = hooks["init_peak"] - hooks["init_base"]
     assert init_extra < 0.5 * states_bytes, (init_extra, states_bytes)
@@ -1595,7 +1622,8 @@ def phase_atari():
           f"{run_s:.2f} s | stored steps {n_stored} | evaluate(8, 39) mean "
           f"return {float(np.mean(rets)):.2f} | memory peak "
           f"{peak / gib:.2f} GiB | K1 sweep launches by site {sites}, one "
-          f"per call, by mode {modes}", flush=True)
+          f"per call, by mode {modes} | ball falls {catch.FALL} rows a step "
+          f"in {n_checked} stored episodes", flush=True)
     shutil.rmtree(tr.run_dir)
     del tr, rs
     torch.cuda.empty_cache()
@@ -1738,6 +1766,7 @@ def phase_bf16():
         counts, ("ingest", "initialize_stats", "refresh"), name)
     assert modes == {"retrace": counts["retrace_sweep"], "GAE": 0}, \
         (name, modes, counts)
+    n_checked = _check_catch_frames(tr)
     ms_step = hooks["train_ms"] / hooks["steps"]
     print(f"bf16: {name} (catch, RACER_atari + nnBf16, {ATARI_ENVS} envs, "
           f"uint8 replay {ATARI_E} x {ATARI_L1}): warmup "
@@ -1746,7 +1775,8 @@ def phase_bf16():
           f"step, host wall {hooks['train_wall_s']:.2f} s) | launch.run "
           f"{run_s:.2f} s | evaluate(8, 39) mean return "
           f"{float(np.mean(rets)):.2f} | K1 sweep launches by site {sites},"
-          f" one per call, by mode {modes}", flush=True)
+          f" one per call, by mode {modes} | ball falls {catch.FALL} rows "
+          f"a step in {n_checked} stored episodes", flush=True)
     shutil.rmtree(tr.run_dir)
     del tr
     torch.cuda.empty_cache()
@@ -3878,9 +3908,9 @@ def phase_bench():
                       "serving": srv, "phase_s": phase_s}}
 
 
-# phases 4b, 8b and 17-23, by the names `--only` takes
+# phases 4b, 8, 8b and 17-23, by the names `--only` takes
 NEW_PHASES = {"adam": phase_adam, "graphs": phase_graphs,
-              "bf16": phase_bf16,
+              "atari": phase_atari, "bf16": phase_bf16,
               "glider": phase_glider,
               "predator_prey": phase_predator_prey,
               "multitrainer": phase_multitrainer, "logs": phase_logs,

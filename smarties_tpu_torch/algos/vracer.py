@@ -46,9 +46,15 @@ from smarties_tpu_torch.models.optim import (AdamConfig, AdamState,
 from smarties_tpu_torch.ops import advantages as adv_ops
 from smarties_tpu_torch.ops import continuous_policy as cp
 from smarties_tpu_torch.ops import discrete_policy as dpol
+from smarties_tpu_torch.ops.stamp import on_grad
 from smarties_tpu_torch.ops.value_scale import scale_net2v, scale_vdiff
 from smarties_tpu_torch.replay import buffer as rb
 from smarties_tpu_torch.utils.config import HyperParameters
+
+
+# the traced step's phases of a feed-forward net with a conv stack
+CONV_STEP_PHASES = ("gather", "conv_forward", "forward", "backward",
+                    "conv_backward", "adam", "writeback")
 
 
 class VRacer(Learner):
@@ -91,6 +97,8 @@ class VRacer(Learner):
                 param_init=tuple([sig0] * nA), out_bias_init=tuple(bias),
                 **common)
         self.adv_start, self.pol_start = 1, 1 + self.nL
+        if self.spec.conv and not self.spec.is_recurrent:
+            self.step_phases = CONV_STEP_PHASES
         self.adam_cfg = AdamConfig(eta=cfg.learnrate, lambda_=cfg.nnLambda,
                                    eps_anneal=cfg.epsAnneal)
         self.returns_mode = returns_mode_of(cfg, "retrace")
@@ -165,7 +173,8 @@ class VRacer(Learner):
         return act
 
     # ------------------------------------------------------------------
-    # the phases of a traced step, stamped at their ends by `stamp`
+    # the phases of a traced step, stamped at their ends by `stamp`; a
+    # feed-forward net with a conv stack has CONV_STEP_PHASES
     step_phases = ("gather", "forward", "backward", "adam", "writeback")
 
     def train_step(self, params, opt_state: AdamState, rs: rb.ReplayState,
@@ -186,13 +195,19 @@ class VRacer(Learner):
         global.
 
         stamp: the traced step's phase stamps (runtime/trainer.py):
-        stamp(k) marks the end of step_phases[k - 1] in stream order; the
-        caller stamps the start (0) and the end of the last phase."""
+        stamp(name) marks the end of the phase `name` of step_phases in
+        stream order; the caller stamps the start and the end of the last
+        phase. With a conv stack, conv_forward ends where the stack's
+        output enters the dense layers, backward where the backward pass
+        reaches that output again, and conv_backward with the stack's
+        gradients; stamp.counters["conv_macs"] gets the multiply-adds of
+        each conv of the forward, from the shapes it ran."""
         cfg, spec = self.cfg, self.spec
         mb = self.sample_minibatch(rs, gen, sample_override, mesh)
         if stamp is not None:
-            stamp(1)
+            stamp("gather")
         a_t, mu_t, qret_t = mb.action, mb.mu, mb.qret
+        last_grads = "backward"         # the phase that ends with the grads
 
         if spec.is_recurrent:
             xs, active = bptt_window(rs, mb.ep, mb.t, cfg.nnBPTTseq)
@@ -203,8 +218,17 @@ class VRacer(Learner):
             # refresh, RACER_train.cpp:22-27) ride along; their rows get
             # zero cotangent
             B2 = mb.s_t.shape[0]
+            boundary = None
+            if stamp is not None and spec.conv:
+                last_grads = "conv_backward"
+
+                def boundary(h, macs):
+                    stamp("conv_forward")
+                    stamp.counters["conv_macs"] = macs
+                    return on_grad(h, lambda: stamp("backward"))
             out_cat, _ = apply_net(params, spec,
-                                   torch.cat([mb.s_t, mb.s_t1]))
+                                   torch.cat([mb.s_t, mb.s_t1]),
+                                   conv_boundary=boundary)
             out = out_cat[:B2].detach()
             out_next = out_cat[B2:].detach()
 
@@ -275,14 +299,14 @@ class VRacer(Learner):
             g = torch.where(mb.valid[:, None], g, torch.zeros_like(g))
 
         if stamp is not None:
-            stamp(2)
+            stamp("forward")
         grads = psum_grads_(pullback(g), mesh)
         if stamp is not None:
-            stamp(3)
+            stamp(last_grads)
         params, opt_state = adam_step(params, grads, opt_state,
                                       self.adam_cfg, 1.0 / cfg.batchSize)
         if stamp is not None:
-            stamp(4)
+            stamp("adam")
 
         with torch.no_grad():
             v_next = scale_net2v(out_next[..., 0])

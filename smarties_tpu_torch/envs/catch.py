@@ -66,9 +66,11 @@ def init(gen: Optional[torch.Generator], n_envs: int, device=None,
     if cols is None:
         cols = _spawn(gen, n_envs, device, size)
     cols = cols.to(torch.int32)
-    z = torch.zeros((n_envs,), dtype=torch.int32, device=cols.device)
-    return CatchState(ball_col=cols[:, 0], ball_row=z,
-                      paddle_col=cols[:, 1], step=z)
+    # each field in memory of its own: the rollout copies the state back
+    # into these tensors field by field (replay/collector.py)
+    z = lambda: torch.zeros((n_envs,), dtype=torch.int32, device=cols.device)
+    return CatchState(ball_col=cols[:, 0], ball_row=z(),
+                      paddle_col=cols[:, 1], step=z())
 
 
 def observe(state: CatchState, size=W) -> torch.Tensor:

@@ -322,9 +322,12 @@ def _mm(a, w, bf16: bool):
     return (a.to(torch.bfloat16) @ w.to(torch.bfloat16)).float()
 
 
-def _conv_stack(layers, conv: Tuple[Conv2DDesc, ...], x, bf16: bool):
+def _conv_stack(layers, conv: Tuple[Conv2DDesc, ...], x, bf16: bool,
+                boundary=None):
     """[..., C*H*W] flat CHW input -> [..., h*w*c] features, flattened in
-    (h, w, c) order."""
+    (h, w, c) order. boundary(features, macs) -> features, if given: the
+    output passes through it on its way to the dense layers, with the
+    multiply-adds each conv ran, from the shapes it saw."""
     conv2d = torch.nn.functional.conv2d
     c0 = conv[0]
     lead = x.shape[:-1]
@@ -333,6 +336,7 @@ def _conv_stack(layers, conv: Tuple[Conv2DDesc, ...], x, bf16: bool):
     h = x.reshape((-1, c0.in_c, c0.in_h, c0.in_w))
     if h.is_cuda:
         h = h.contiguous(memory_format=torch.channels_last)
+    macs = []
     for layer, c in zip(layers, conv):
         # leaves are HWIO; conv2d takes OIHW
         w = layer["W"].permute(3, 2, 0, 1)
@@ -343,21 +347,25 @@ def _conv_stack(layers, conv: Tuple[Conv2DDesc, ...], x, bf16: bool):
                  + layer["b"][:, None, None])
         else:
             h = conv2d(h, w, layer["b"], stride=c.stride)
+        # an output element is a sum over the filter's window and channels
+        macs.append(h.numel() * w.shape[1] * w.shape[2] * w.shape[3])
         h = _ACTS["LRelu"](h)
     # a view where h is channels_last
-    return h.permute(0, 2, 3, 1).reshape(lead + (-1,))
+    out = h.permute(0, 2, 3, 1).reshape(lead + (-1,))
+    return out if boundary is None else boundary(out, tuple(macs))
 
 
-def apply_net(params: Dict, spec: NetSpec, x, carry=()):
+def apply_net(params: Dict, spec: NetSpec, x, carry=(), conv_boundary=None):
     """Forward pass. x: [..., n_in] -> (y [..., total_out], new_carry).
 
     Batched over leading axes; a recurrent carry (see init_carry) must
-    share those axes. Feed-forward nets return ()."""
+    share those axes. Feed-forward nets return (). conv_boundary: see
+    _conv_stack (a traced step's phase marks)."""
     act = _ACTS[spec.act]
     bf16 = spec.compute_dtype == "bfloat16"
     h = x
     if spec.conv:
-        h = _conv_stack(params["conv"], spec.conv, h, bf16)
+        h = _conv_stack(params["conv"], spec.conv, h, bf16, conv_boundary)
     new_carry = []
     for li, layer in enumerate(params["layers"]):
         if spec.kind == "FFNN":

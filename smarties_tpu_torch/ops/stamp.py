@@ -7,8 +7,9 @@ csrc/stamp.cu, which reads the card's global timer (%globaltimer, ns);
 on the CPU, where every op has finished when the next one starts,
 time.perf_counter_ns(). `row` is a 0-based device counter ([1] int64),
 read by the kernel, so a replayed graph stamps a new row each step; None
-stamps row 0. utils/profiler.py maps the card's timer onto the host's
-clock. The library is built at first use, never at import, as K1's is
+stamps row 0. `on_grad(x, mark)` marks where a backward pass reaches x.
+utils/profiler.py maps the card's timer onto the host's clock. The
+library is built at first use, never at import, as K1's is
 (ops/retrace_kernel.py::compile_library).
 """
 from __future__ import annotations
@@ -67,6 +68,28 @@ def stamp_(buf: torch.Tensor, row, col: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"stamp_: CUDA launch failed with error {err}")
     return buf
+
+
+class _OnGrad(torch.autograd.Function):
+    """The identity; its backward calls `mark()` before it passes the
+    gradient on."""
+
+    @staticmethod
+    def forward(ctx, x, mark):
+        ctx.mark = mark
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.mark()
+        return g, None
+
+
+def on_grad(x: torch.Tensor, mark) -> torch.Tensor:
+    """x, through an identity whose backward calls mark() (a stamp) when
+    the backward pass reaches it, before the ops that produced x take
+    their gradients: the boundary of the two in stream order."""
+    return _OnGrad.apply(x, mark)
 
 
 def timer_ticks_ns(device, n: int = 64) -> list:

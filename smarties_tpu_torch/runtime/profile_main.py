@@ -85,7 +85,13 @@ replays launched on an idle card; the card timer's resolution and the
 mapping's measured error; and the Chrome trace of one more traced cycle
 at --trace-out. `--trace-after S` runs S seconds of plain cycles first
 (each one's TRAIN ms per grad step printed) and turns tracing on after
-them (the traced step graph is then captured late).
+them (the traced step graph is then captured late). `--trace-atari`
+traces RACER_atari on catch instead (`atari_trainer`: 1024 envs, the
+launcher's 65,536 x 40 uint8 slots, filled by 156 sweeps, four whole
+episodes of every env): its step has the phases gather, conv_forward,
+forward, backward, conv_backward, Adam and write-back, and each row adds
+the conv stack's forward multiply-adds a replay and the TFLOP/s its
+FLOPs make over the two conv phases (Profiler.summary).
 
 Needs a CUDA card (exits 2 without one). Imports no JAX.
 """
@@ -126,6 +132,22 @@ def main_path_trainer(seed: int = 0, device="cuda", n_envs: int = 1024,
                           nnLayerSizes=[128, 128], randSeed=seed)
     tr = Trainer(cartpole, cartpole.MDP, cfg, n_envs=n_envs, n_slots=n_slots,
                  max_len=cartpole.MAX_STEPS, device=device, graphs=graphs)
+    tr.log_flush_threshold = 10 ** 9
+    return tr
+
+
+def atari_trainer(seed: int = 0, device="cuda", n_envs: int = 1024,
+                  n_slots=None, graphs=None) -> Trainer:
+    """RACER_atari on catch as the launcher builds it: the recipe's
+    RACER-discrete over the Mnih stack and [512], batch 128, episodes of
+    catch's 39 steps, a uint8 replay (n_slots None: the Trainer's 65,536
+    at the recipe's maxTotObsNum), episode logs held on the device."""
+    from smarties_tpu_torch.utils.recipes import RECIPES
+    cfg = HyperParameters.from_dict(dict(RECIPES["RACER_atari"],
+                                         randSeed=seed))
+    tr = Trainer(catch, catch.MDP, cfg, n_envs=n_envs, n_slots=n_slots,
+                 max_len=catch.MAX_STEPS, device=device,
+                 state_dtype=torch.uint8, graphs=graphs)
     tr.log_flush_threshold = 10 ** 9
     return tr
 
@@ -427,6 +449,9 @@ def main(argv=None):
     p.add_argument("--trace-out", default=None,
                    help="with --trace: write the Chrome trace of one traced "
                         "cycle here")
+    p.add_argument("--trace-atari", action="store_true",
+                   help="with --trace: RACER_atari on catch in place of "
+                        "the main path")
     args = p.parse_args(argv)
     if args.graphs and (not args.path or "RACER_atari" in args.path):
         p.error("--graphs needs --path, without RACER_atari")
@@ -446,7 +471,9 @@ def main(argv=None):
         else:
             profile_path(name)
     if args.trace is not None:
-        trace_main(args.trace, args.trace_after, args.trace_out)
+        trace_main(args.trace, args.trace_after, args.trace_out,
+                   fill_sweeps=4 * catch.MAX_STEPS if args.trace_atari
+                   else 256, atari=args.trace_atari)
         return
     if args.path:
         return
@@ -586,7 +613,7 @@ def compare_graphs(tr: Trainer, steps: int = 100):
 
 
 def phase_kernels(tr: Trainer, n: int = 8) -> dict:
-    """The device kernels of each stamped phase of the main path's traced
+    """The device kernels of each stamped phase of a trainer's traced
     step graph over n replays, from CUPTI (torch.profiler): per phase the
     kernels between the stamp that opens it and the one that closes it,
     and their summed device µs, medians over the replays (memory copies
@@ -627,16 +654,21 @@ def phase_kernels(tr: Trainer, n: int = 8) -> dict:
 
 def trace_main(seconds: float, plain_s: float = 0.0, out=None,
                device="cuda", n_envs: int = 1024, n_slots: int = 4096,
-               fill_sweeps: int = 256):
+               fill_sweeps: int = 256, atari: bool = False):
     """The main path's fused cycles with the profiler tracing (the module
     docstring, --trace): from the Trainer's construction, or after
     `plain_s` seconds of plain cycles (each one's TRAIN ms per grad
     step printed). Prints JSON lines; returns the
     per-cycle rows. The tests pass the CPU (the graphs' static-buffer
-    form) and smaller sizes."""
+    form) and smaller sizes. atari: RACER_atari on catch
+    (`atari_trainer`, its replay's slots the Trainer's own) in place of
+    the main path."""
     from smarties_tpu_torch.ops.stamp import timer_ticks_ns
-    tr = main_path_trainer(device=device, n_envs=n_envs, n_slots=n_slots,
-                           graphs=True)
+    if atari:
+        tr = atari_trainer(device=device, n_envs=n_envs, graphs=True)
+    else:
+        tr = main_path_trainer(device=device, n_envs=n_envs,
+                               n_slots=n_slots, graphs=True)
     prof = tr.profiler
     cuda = tr.device.type == "cuda"
     if not plain_s:
@@ -675,6 +707,8 @@ def trace_main(seconds: float, plain_s: float = 0.0, out=None,
                / 1e6 / n_train,
                "presample_ms": sm["presample_ms"],
                "device_gap_share": sm["device_gap_share"]}
+        row.update((k, sm[k]) for k in ("conv_macs", "conv_tflop_s")
+                   if k in sm)
         rows.append(row)
         print(json.dumps(row), flush=True)
     if cuda:

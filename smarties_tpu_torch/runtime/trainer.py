@@ -148,6 +148,55 @@ def _inprog_lane_dim(x) -> int:
     return 1 if x.dim() >= 2 else 0
 
 
+def _named_tensors(tree, name=""):
+    """(dotted name, tensor) of every tensor of a tree of named tuples,
+    dataclasses, dicts, lists and tuples."""
+    if isinstance(tree, torch.Tensor):
+        return [(name, tree)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    elif isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    elif hasattr(tree, "__dataclass_fields__"):
+        items = ((f, getattr(tree, f)) for f in tree.__dataclass_fields__)
+    else:
+        return []
+    return [leaf for k, v in items
+            for leaf in _named_tensors(v, f"{name}.{k}" if name else str(k))]
+
+
+def _bytes_of(x: torch.Tensor) -> torch.Tensor:
+    """The storage byte offsets that tensor x covers, on the host."""
+    size = x.element_size()
+    el = torch.arange(x.untyped_storage().nbytes() // size).as_strided(
+        x.shape, x.stride(), x.storage_offset())
+    return (el.reshape(-1, 1) * size + torch.arange(size)).reshape(-1)
+
+
+def refuse_shared_fields(env_module, state):
+    """Raise if two tensors of an env's initial state share memory. The
+    rollout writes the state back into these tensors field by field
+    (replay/collector.py, models/net.py::tree_copy_), so the last field
+    copied would overwrite the other. Views of one storage that cover
+    distinct elements pass. Checked once, where the Trainer builds the
+    state."""
+    leaves = _named_tensors(state)
+    for i, (a, x) in enumerate(leaves):
+        for b, y in leaves[i + 1:]:
+            if (x.untyped_storage().data_ptr()
+                    != y.untyped_storage().data_ptr()):
+                continue
+            if bool(torch.isin(_bytes_of(x), _bytes_of(y)).any()):
+                env = getattr(env_module, "__name__", repr(env_module))
+                raise ValueError(
+                    f"env {env}: the initial state's fields {a!r} and {b!r} "
+                    f"share memory; the rollout copies the state back field "
+                    f"by field, so one would overwrite the other. Give each "
+                    f"field a tensor of its own")
+
+
 def set_precision():
     """The contractions as the JAX package computes them, for every entry
     point: f32 products and convolutions without TF32, and bf16 GEMMs
@@ -289,6 +338,7 @@ class Trainer:
         # (rows, row counter, metric rows by key, static (ep, t) rows)
         self._step_rows = None
         self._stamp_rows = None       # the traced step's [rows, stamps]
+        self._stamp_counters = {}     # and what it counts a replay
         self.is_coordinator = rank == 0
         self.run_dir = run_dir
         self._rew_file = self._obs_file = self._grads_file = None
@@ -332,6 +382,7 @@ class Trainer:
                              state_dtype=sdt)
         env_state = env_module.init(self.gen_env, self.n_local_envs,
                                     self.device)
+        refuse_shared_fields(env_module, env_state)
         self.carry = RolloutCarry(rs, ip, env_state,
                                   RolloutGens(self.gen_act, self.gen_env),
                                   self._init_rnn(self.n_local_envs))
@@ -647,7 +698,8 @@ class Trainer:
                                for key, b in m_rows.items()})
                 if traced:
                     prof.add_stamps(steps, self.algo.step_phases,
-                                    self._stamp_rows[:k].clone())
+                                    self._stamp_rows[:k].clone(),
+                                    self._stamp_counters)
         if len(pieces) == 1:
             return pieces[0]
         return {key: torch.cat([p[key] for p in pieces]) for key in pieces[0]}
@@ -661,7 +713,9 @@ class Trainer:
         `traced`: the step also stamps the start, the end of each of the
         learner's `step_phases` and the end of the metric copies into row
         i of the static [rows, len(step_phases) + 1] stamp buffer
-        (ops/stamp.py: the card's timer, in stream order)."""
+        (ops/stamp.py: the card's timer, in stream order), and the
+        counters the step reports as it is captured (the conv stack's
+        multiply-adds a replay) into `_stamp_counters`."""
         dev = self.device
         if self._step_rows is None:
             rows = max(int(round(self.n_envs / self.cfg.obsPerStep)), 100)
@@ -673,21 +727,22 @@ class Trainer:
         rows, i, m_rows, pins = self._step_rows
         stamp, kw = None, {}
         if traced:
-            n_phases = len(self.algo.step_phases)
+            phases = self.algo.step_phases
             if self._stamp_rows is None:
-                self._stamp_rows = torch.zeros((rows, n_phases + 1),
+                self._stamp_rows = torch.zeros((rows, len(phases) + 1),
                                                dtype=torch.int64, device=dev)
             buf = self._stamp_rows
 
-            def stamp(k):
-                stamp_(buf, i, k)
+            def stamp(name):
+                stamp_(buf, i, phases.index(name) + 1)
 
+            stamp.counters = self._stamp_counters
             kw = {"stamp": stamp}
 
         def program(state):
             params, opt_state, rs = state
             if stamp is not None:
-                stamp(0)
+                stamp_(buf, i, 0)
             row = (tuple(x.index_select(0, i)[0] for x in pins) if pinned
                    else None)
             params, opt_state, rs, m = self.algo.train_step(
@@ -699,7 +754,7 @@ class Trainer:
                                               dtype=v.dtype, device=dev)
                 m_rows[key].index_copy_(0, i, v[None])
             if stamp is not None:
-                stamp(n_phases)
+                stamp(phases[-1])
             i.add_(1)
             return (params, opt_state, rs), None
 

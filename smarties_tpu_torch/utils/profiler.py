@@ -133,6 +133,7 @@ class Profiler:
         self._open_spans = {}                # start()'s name -> record
         self._unread = []                    # records with events unread
         self._stamps = []                    # [spans, names, times, raw]
+        self.counters = {}                   # a stamped replay's counts
         # calibration: host ns, half width, device position (ns, chained
         # over the events), its event; the card's timer with its host ns
         # and half width; Unix time minus perf_counter
@@ -216,6 +217,7 @@ class Profiler:
         self._events = []
         self.records, self._stack, self._unread, self._stamps = [], [], [], []
         self._open_spans.clear()
+        self.counters = {}
 
     # ------------------------------------------------------------------
     # tracing
@@ -275,12 +277,17 @@ class Profiler:
         finally:
             self.end(s)
 
-    def add_stamps(self, spans, names, times: torch.Tensor):
+    def add_stamps(self, spans, names, times: torch.Tensor,
+                   counters=None):
         """The phase stamps of `spans` (STEP records, in order): times
         [len(spans), len(names) + 1], row k the boundaries of span k's
         phases, in the stamp's clock (the card's timer; perf_counter_ns
-        on the CPU). Kept on the device until `read()`."""
+        on the CPU). Kept on the device until `read()`. counters: what
+        each of these replays counted (the same for every replay of a
+        graph), e.g. "conv_macs": the multiply-adds of each conv of the
+        forward."""
         self._stamps.append([list(spans), tuple(names), times, None])
+        self.counters.update(counters or {})
 
     def _calibrate(self):
         if not self.cuda:
@@ -424,7 +431,12 @@ class Profiler:
         share of it outside every busy interval (device_gap_share, %),
         PRESAMPLE's device ms per cycle, the median STEP device ms and
         host µs, the median ms of each stamped phase, and the mapping's
-        error (µs)."""
+        error (µs). A step with a conv stack adds its forward
+        multiply-adds a replay (conv_macs) and the rate of the stack's
+        FLOPs over the median conv_forward plus conv_backward ms
+        (conv_tflop_s): 2 per multiply-add of the forward, the weight
+        gradients and the input gradients of every conv but the first,
+        whose input takes none."""
         recs = self._select(cycles)
         busy = [r for r in recs if r.name in BUSY_SPANS
                 and r.dev0 is not None]
@@ -440,6 +452,16 @@ class Profiler:
             for name, a, b in r.phases or ():
                 phases[name].append((b - a) / 1e6)
         med = statistics.median
+        phases_ms = {k: med(v) for k, v in phases.items()}
+        conv = {}
+        macs = self.counters.get("conv_macs")
+        if macs:
+            conv["conv_macs"] = sum(macs)
+            conv_ms = (phases_ms.get("conv_forward", 0.0)
+                       + phases_ms.get("conv_backward", 0.0))
+            if conv_ms > 0:
+                conv["conv_tflop_s"] = (2 * (3 * sum(macs) - macs[0])
+                                        / (conv_ms * 1e-3) / 1e12)
         return {
             "cycles": n_cycles,
             "window_ms": (hi - lo) / 1e6,
@@ -451,8 +473,9 @@ class Profiler:
                         if steps else None),
             "step_host_us": (med([(r.host1 - r.host0) / 1e3 for r in steps])
                              if steps else None),
-            "phases_ms": {k: med(v) for k, v in phases.items()},
+            "phases_ms": phases_ms,
             "mapping_error_us": self.mapping_error_ns() / 1e3,
+            **conv,
         }
 
     def export_chrome_trace(self, path: str, onto: str | None = None):

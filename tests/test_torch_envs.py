@@ -30,7 +30,7 @@ from smarties_tpu_torch.envs import cartpole as tc
 from smarties_tpu_torch.envs import mountaincar as tm
 from smarties_tpu_torch.envs import pendulum as tp
 
-from _torch_parity import np32, tn, tt
+from _torch_parity import jax_replay_views, np32, tn, tt
 
 N, STEPS = 32, 200
 TOL = dict(rtol=1e-4, atol=5e-4)
@@ -312,3 +312,114 @@ def test_catch_small_board():
     assert (ret == 1.0).all()
     s = small.reset_where(s, done, torch.Generator().manual_seed(3))
     assert not tn(s.step).any() and not tn(s.ball_row).any()
+
+
+# ---------------------------------------------------------------------
+# catch through the Trainer's rollout. The rollout writes the env state
+# back into the tensors it started from, field by field
+# (replay/collector.py), so two fields that share memory would
+# overwrite one another: the ball then fell 1 row a step, not FALL.
+
+def _catch_trainer(env, graphs, n=4):
+    from smarties_tpu_torch.runtime.trainer import Trainer
+    from smarties_tpu_torch.utils.config import HyperParameters
+    cfg = HyperParameters(learner="RACER", nnLayerSizes=[8], batchSize=8,
+                          minTotObsNum=64, maxTotObsNum=512, bTrain=False)
+    tr = Trainer(env, env.MDP, cfg, n_envs=n, n_slots=8,
+                 max_len=env.MAX_STEPS, device="cpu",
+                 state_dtype=torch.uint8, graphs=graphs)
+    with torch.no_grad():       # a uniform policy: argmax takes action 0
+        tr.params["out"]["W"].zero_()
+        tr.params["out"]["b"].zero_()
+    return tr
+
+
+def _stored_episodes(tr, n):
+    """[n, L1, size, size] frames of the committed slots, slot order."""
+    from smarties_tpu_torch.models.convert import replay_to_numpy
+    r = replay_to_numpy(tr.replay)
+    slots = np.nonzero(r["ep_id"] >= 0)[0]
+    assert len(slots) == n and (r["length"][slots] == tr.max_len).all()
+    size = int(np.sqrt(r["states"].shape[-1]))
+    return r["states"][slots].reshape(n, -1, size, size)
+
+
+@pytest.mark.parametrize("graphs", [False, True])
+@pytest.mark.parametrize("board", ["catch", "catch.small"])
+def test_catch_trainer_rollout_ball_falls_fall_rows(board, graphs):
+    """One-sweep chunks of the Trainer's rollout (eager and the graphs'
+    static form) from pinned spawns until every lane has committed its
+    episode: in every stored frame the ball's top row is FALL * t and its
+    column the spawn's; the frames equal the env's own functions stepped
+    from the same spawns with the same actions, and on the 84x84 board
+    the JAX package's collector (catch.small has no JAX counterpart)."""
+    jcatch, tcatch = _catch_mods()
+    env = tcatch.small if board == "catch.small" else tcatch
+    size = getattr(env, "SIZE", tcatch.W)
+    n = 4
+    cols = _catch_cols(np.random.RandomState(7), n, tcatch) % (
+        size - tcatch.PADDLE + 1)
+    tr = _catch_trainer(env, graphs, n)
+    tr.carry = tr.carry._replace(env_state=env.init(
+        None, n, cols=tt(cols, torch.int32)))
+    for _ in range(env.MAX_STEPS):
+        tr._sweep(1)
+    got = _stored_episodes(tr, n)
+    for t in range(env.MAX_STEPS + 1):
+        ball = got[:, t, :size - tcatch.PADDLE_H] > 0
+        rows = np.nonzero(ball.any(-1))
+        top = [rows[1][rows[0] == e].min() for e in range(n)]
+        assert top == [tcatch.FALL * t] * n, (t, top)
+        left = [np.nonzero(ball[e].any(0))[0].min() for e in range(n)]
+        assert left == list(cols[:, 0]), (t, left)
+    # the env stepped as functions, action 0 (the uniform policy's argmax)
+    s = env.init(None, n, cols=tt(cols, torch.int32))
+    want = [tn(env.observe(s))]
+    for _ in range(env.MAX_STEPS):
+        s, _, _, _ = env.step(s, torch.zeros((n, 1)))
+        want.append(tn(env.observe(s)))
+    want = np.stack(want, 1).reshape(got.shape).astype(np.uint8)
+    np.testing.assert_array_equal(got, want)
+    if board == "catch.small":
+        return
+    from smarties_tpu.runtime.trainer import Trainer as JTrainer
+    from smarties_tpu.utils.config import HyperParameters as JHP
+    jt = JTrainer(jcatch, jcatch.MDP,
+                  JHP(learner="RACER", nnLayerSizes=[8], batchSize=8,
+                      minTotObsNum=64, maxTotObsNum=512, bTrain=False),
+                  n_envs=n, n_slots=8, max_len=jcatch.MAX_STEPS,
+                  state_dtype=jnp.uint8)
+    params = dict(jt.params)
+    params["out"] = {k: jnp.zeros_like(v) for k, v in params["out"].items()}
+    carry = jt.carry._replace(env_state=_jax_catch_state(jcatch, cols))
+    for _ in range(jcatch.MAX_STEPS):
+        carry, _ = jt._rollout(params, carry, 1)
+    jr = jax_replay_views(carry.replay)
+    slots = np.nonzero(jr["ep_id"] >= 0)[0]
+    np.testing.assert_array_equal(
+        got, jr["states"][slots].reshape(got.shape))
+
+
+def test_trainer_refuses_an_env_state_with_shared_fields():
+    """A state whose fields share memory is refused where the Trainer
+    builds it, naming the env and the fields; views of one tensor that
+    cover distinct elements (catch's two spawn columns) pass."""
+    _, tcatch = _catch_mods()
+
+    class shared:
+        MDP, MAX_STEPS = tcatch.small.MDP, tcatch.small.MAX_STEPS
+        observe = staticmethod(tcatch.small.observe)
+        step = staticmethod(tcatch.small.step)
+        reset_where = staticmethod(tcatch.small.reset_where)
+
+        @staticmethod
+        def init(gen, n, device=None, cols=None):
+            s = tcatch.small.init(gen, n, device, cols)
+            return s._replace(step=s.ball_row)
+
+    with pytest.raises(ValueError, match=r"shared.*'ball_row' and 'step'"):
+        _catch_trainer(shared, False)
+    s = tcatch.init(torch.Generator().manual_seed(0), 8)
+    assert (s.ball_col.untyped_storage().data_ptr()
+            == s.paddle_col.untyped_storage().data_ptr())
+    _catch_trainer(tcatch.small, False)

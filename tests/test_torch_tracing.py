@@ -376,6 +376,39 @@ def test_traced_graph_on_card(cuda, tmp_path):
         assert e["ts"] + e["dur"] <= roll["ts"] + roll["dur"] + 50
 
 
+@pytest.mark.cuda
+def test_conv_traced_graph_on_card(cuda):
+    """The traced conv step graph (its backward stamp launched from
+    autograd's thread into the capture) equals the plain one bit for bit
+    over 8 replays, and its stamps are in order."""
+    from smarties_tpu_torch.envs import catch
+    env = catch.small
+    cfg = dict(CFG, learner="RACER", nnLayerSizes=[16], batchSize=8,
+               minTotObsNum=64, maxTotObsNum=256)
+    plain, traced = (Trainer(env, env.MDP, HyperParameters(**cfg),
+                             n_envs=4, n_slots=32, max_len=env.MAX_STEPS,
+                             device=cuda, state_dtype=torch.uint8)
+                     for _ in range(2))
+    assert plain.graphs and traced.graphs
+    for tr in (plain, traced):
+        tr.warmup(chunk=1, blind_sweeps=28)
+        tr._train_chunk(4)
+        torch.cuda.synchronize()
+    traced.profiler.trace()
+    for tr in (plain, traced):
+        for _ in range(cg.WARMUP_CALLS + 1):
+            tr._train_chunk(1)
+        tr._train_chunk(8)
+        torch.cuda.synchronize()
+    assert traced._step_graphs[True, "traced"].graph is not None
+    _assert_same(plain, traced)
+    st = traced._stamp_rows[:8].cpu()
+    assert st.shape[1] == len(CONV_PHASES) + 1
+    assert torch.all(st[:, 1:] >= st[:, :-1])
+    s = traced.profiler.summary()
+    assert set(s["phases_ms"]) == set(CONV_PHASES) and s["conv_tflop_s"] > 0
+
+
 def test_profile_main_trace_runs_on_the_cpu(tmp_path, capsys):
     """`profile_main --trace`'s loop at a small size: one row per traced
     cycle after the plain ones, the cost turns, the Chrome trace."""
@@ -393,3 +426,104 @@ def test_profile_main_trace_runs_on_the_cpu(tmp_path, capsys):
         names = {e["name"] for e in json.load(f)["traceEvents"]}
     assert {"TRAIN", "STEP", "PRESAMPLE", "METRICS", "ROLL", "LOGS",
             *PHASES} <= names
+
+
+# ---------------------------------------------------------------------
+# a learner with a conv stack: RACER-discrete on the 20x20 catch board
+
+CONV_PHASES = ("gather", "conv_forward", "forward", "backward",
+               "conv_backward", "adam", "writeback")
+
+
+def _conv_trainer(graphs=True):
+    from smarties_tpu_torch.envs import catch
+    env = catch.small
+    cfg = dict(CFG, learner="RACER", nnLayerSizes=[16], batchSize=8,
+               minTotObsNum=64, maxTotObsNum=256)
+    return Trainer(env, env.MDP, HyperParameters(**cfg), n_envs=4,
+                   n_slots=32, max_len=env.MAX_STEPS, device="cpu",
+                   graphs=graphs, state_dtype=torch.uint8)
+
+
+def test_dense_learners_keep_their_phases():
+    """Only a feed-forward net with a conv stack gets the conv phases."""
+    assert _trainer().algo.step_phases == PHASES
+    assert _trainer(learner="RACER").algo.step_phases == PHASES
+    assert _conv_trainer().algo.step_phases == CONV_PHASES
+
+
+def test_conv_phases_in_order_sum_to_the_replay_and_count_macs():
+    """The traced conv step's phases follow one another, the old forward
+    (gather's end to forward's end) holds conv_forward, their sum is the
+    stamped replay inside its STEP span, and the counter is the stack's
+    multiply-adds over [s_t; s_t1] as benchmark/yardstick.py counts them
+    from the shapes."""
+    from benchmark import yardstick
+    tr = _conv_trainer()
+    tr.profiler.trace()
+    tr.warmup(chunk=1, blind_sweeps=28)
+    tr.train_fused(8, log_every=10 ** 9)
+    steps = [r for r in tr.profiler.read() if r.name == "STEP"]
+    assert len(steps) == 8
+    for r in steps:
+        assert [n for n, _, _ in r.phases] == list(CONV_PHASES)
+        for (_, _, end), (_, start, _) in zip(r.phases, r.phases[1:]):
+            assert start == end
+        assert all(a <= b for _, a, b in r.phases)
+        ph = {n: (a, b) for n, a, b in r.phases}
+        assert ph["gather"][1] <= ph["conv_forward"][0] \
+            <= ph["conv_forward"][1] <= ph["forward"][1]
+        total = sum(b - a for _, a, b in r.phases)
+        assert total == r.phases[-1][2] - r.phases[0][1]
+        assert r.host0 <= r.phases[0][1] and r.phases[-1][2] <= r.host1
+        assert total > 0.5 * (r.host1 - r.host0)
+    conv = tr.algo.mdp.conv_layers
+    sizes = [16, 16, tr.algo.spec.n_out]      # the dense part is not read
+    rows = 2 * tr.cfg.batchSize
+    want = [rows * m for m in yardstick.dense_macs(conv, sizes)[:len(conv)]]
+    assert list(tr.profiler.counters["conv_macs"]) == want
+    s = tr.profiler.summary()
+    assert set(s["phases_ms"]) == set(CONV_PHASES)
+    assert s["conv_macs"] == sum(want)
+    conv_s = (s["phases_ms"]["conv_forward"]
+              + s["phases_ms"]["conv_backward"]) / 1e3
+    assert s["conv_tflop_s"] == pytest.approx(
+        2 * (3 * sum(want) - want[0]) / conv_s / 1e12)
+    # a dense learner's summary has no conv entries
+    d = _trainer()
+    d.profiler.trace()
+    d.warmup(chunk=16, blind_sweeps=16)
+    d._train_chunk(2)
+    assert "conv_macs" not in d.profiler.summary() and \
+        not d.profiler.counters
+
+
+def test_conv_traced_step_is_the_plain_step_the_stamps_and_a_view():
+    """The traced conv step's ops are the plain step's with a stamp's at
+    each phase boundary and the identity that marks where the backward
+    pass reaches the stack's output (one view): the plain step graph,
+    which the window times, has none of them."""
+    tr = _conv_trainer()
+    tr.warmup(chunk=1, blind_sweeps=14)
+    tr._train_chunk(2)
+    tr.profiler.trace()
+    tr._train_chunk(2)
+    seen = []
+    for key in (True, (True, "traced")):
+        tr._step_rows[1].zero_()
+        mode = _Ops()
+        with mode:
+            tr._step_graphs[key]()
+        seen.append(mode.names)
+    plain, traced = seen
+    fill = "aten::index_fill_.int_Scalar"
+    assert fill not in plain
+    assert traced.count(fill) == len(CONV_PHASES) + 1
+    rest = list(traced)
+    for k in range(len(rest) - 1, -1, -1):
+        if rest[k] == fill:
+            assert rest[k - 1] == "aten::select.int"
+            del rest[k - 1:k + 1]
+    k = next(k for k, (a, b) in enumerate(zip(rest, plain)) if a != b)
+    assert rest[k] == "aten::view"
+    assert rest[:k] + rest[k + 1:] == plain
