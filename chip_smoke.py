@@ -36,7 +36,18 @@ Phases, each reported on its own line:
    and the loop's time taken the same way. Phases 4, 4b, 5, 6 and 11
    count the kernel's launches against the optimiser's step counter: one
    update per part (two for DPG, PPO and ACER) and one advance a step,
-   a graph's replays included.
+   a graph's replays included. They count the step-tail kernel's
+   launches too (csrc/step_tail.cu, held against the chain it replaces,
+   algos/base.py::step_tail_plain_, by tests/test_torch_step_tail_cuda.py):
+   one grad_stats and one step_tail a grad step and no tail on the chain
+   in phases 4, 4b and 5, none in 6 and 11 (PPO and ACER keep theirs).
+2c. tail: builds the step-tail kernel (csrc/step_tail.cu) and holds one
+   tail against the chain it replaces at the two benchmark cells'
+   shapes (4096 slots x 501, batch 256, the main path's 7 gradient
+   leaves; 65,536 slots x 40, batch 128, RACER_atari's 10 leaves):
+   torch.equal in the replay's fields and ReF-ER scalars, the metrics
+   within 1e-6; then its time and the chain's (200 and 20 calls in one
+   CUDA graph) beside the bound of the bytes it must move.
 3. reference: the port on the card against the port on the CPU at a
    small size, from one state (8 train steps and a refresh, so K1 runs
    inside the pipeline against its plain version).
@@ -54,7 +65,8 @@ Phases, each reported on its own line:
    NAF, DPG and MixedPG at their recipes' widths with 1024 envs (phase
    5's settings), then V-RACER under PERrank + farpolfrac (phase 9's,
    the draw inside the captured step). The captured side runs the Adam
-   kernel, the eager side the loop it replaces. Per path: warmup, the
+   and step-tail kernels, the eager side the loop and the chain they
+   replace. Per path: warmup, the
    graphs' warm-up calls and their capture in short fused cycles (1
    sweep + 8 grad steps), 2 fused cycles timed by CUDA events, a save,
    a short cycle, a restore and a short cycle (the 1000-step refresh after each
@@ -223,7 +235,9 @@ Phases, each reported on its own line:
    (the host has one card): the main path's V-RACER trainer split in two
    (1024 envs and 4096 x 501 slots in total), warmup and train(1000),
    one refresh with its rebalance. Checks each rank's K1 launches, one
-   per call of each site; parameters, Adam state, beta, alpha and the
+   per call of each site; its step-tail launches, one grad_stats,
+   step_tail and finish a grad step (the kernel's mesh form, with the
+   chain's three collectives between step_tail and finish); parameters, Adam state, beta, alpha and the
    statistics torch.equal across ranks on the card; one pinned step of
    the mesh against one single-process step on the card with the same
    global batch (rtol 2e-5 / atol 2e-6). Prints ms per grad step by
@@ -252,9 +266,9 @@ Phases, each reported on its own line:
    steady and Atari phases. Then the serving bench
    (tools/serving_bench.py) for 3 s over 4 forked apps: served > 0.
    Prints the phase's time.
-`--only NAME ...` runs the device phase and the named phases of 2b, 4b,
-8, 8b and 17-23 alone (adam, graphs, atari, bf16, glider, predator_prey,
-multitrainer, logs, multichip, curves, bench).
+`--only NAME ...` runs the device phase and the named phases of 2b, 4,
+4b, 8, 8b and 17-23 alone (adam, main, graphs, atari, bf16, glider,
+predator_prey, multitrainer, logs, multichip, curves, bench).
 Then one JSON line with the kernels' results and, last, the device line.
 
 The script imports no JAX and nothing of the JAX package. Any failed
@@ -387,6 +401,7 @@ EAGER_STEP_MS = {"racer": 12.525, "racer_discrete": 8.696, "dqn": 6.995,
                  "naf": 10.262, "dpg": 9.742, "mixedpg": 11.825}
 # the Adam phase: steps held against the loop, launches timed in a graph
 ADAM_STEPS, ADAM_TIMED = 200, 200
+TAIL_TIMED = 200
 # the bench phase: timed fused cycles, the Atari step's presampled steps,
 # quality cycles of seed 0; the serving bench's apps and seconds
 BENCH_CYCLES, BENCH_ATARI_STEPS, BENCH_QUALITY_CYCLES = 2, 128, 2
@@ -639,6 +654,43 @@ def _use_plain_adam(plain):
         ak.update_, ak.advance_ = _ADAM_KERNEL
 
 
+def _check_tail_launches(tr, what, used=True, mesh=False):
+    """The step-tail kernel's launches since the last reset against the
+    optimiser's step counter: one grad_stats and one step_tail a grad
+    step (a graph's replays count what its capture launched) where the
+    learner's tail is the kernel's (`used`), none where it is not (ACER,
+    PPO), one finish a step more under a mesh, and no tail on the chain
+    on the card."""
+    from smarties_tpu_torch.ops import step_tail_kernel
+    opt = tr.opt_state
+    steps = int((opt if hasattr(opt, "step") else opt.adam).step) * used
+    want = {"step_tail": steps, "grad_stats": steps,
+            "finish": steps * mesh, "plain": 0}
+    assert step_tail_kernel.launches == want, \
+        f"{what}: step-tail launches {step_tail_kernel.launches} != {want}"
+    return want
+
+
+_TAIL_KERNEL = []
+
+
+def _use_plain_tail(plain):
+    """Send the card's grad-step tails through algos/base.py's chain
+    (plain True), which the kernel is held against, or back through the
+    kernel."""
+    from smarties_tpu_torch.algos import base
+    from smarties_tpu_torch.ops import step_tail_kernel as stk
+    if not _TAIL_KERNEL:
+        _TAIL_KERNEL.append(stk.tail_)
+    if plain:
+        stk.tail_ = (lambda rs, mb, cfg, step, grads, *rows, net2v=False,
+                     mesh=None: base.step_tail_plain_(
+                         rs, mb, cfg, step, grads, *rows, mesh=mesh,
+                         net2v=net2v))
+    else:
+        stk.tail_ = _TAIL_KERNEL[0]
+
+
 def _graph_ms(fn, n):
     """Median ms of one fn() call: n calls captured in one CUDA graph,
     replayed 5 times between CUDA events (no host time inside)."""
@@ -758,6 +810,147 @@ def phase_adam():
             "launches": main_launches, "many_leaves_launches": many_launches}
 
 
+# phase 2c: a cell's name -> (slots, steps a slot, batch, env)
+TAIL_SHAPES = {
+    "vracer_cartpole": (4096, 500, 256, "cartpole"),
+    "racer_atari": (65536, 39, 128, "catch"),
+}
+
+
+def _tail_inputs(name, dev):
+    """A grad step's tail at a cell's shapes: a replay of that many slots
+    and steps (one state dimension: the tail reads no state), B rows at
+    distinct slots, the cell's learner's gradient leaves, random values
+    from a seed -> (rs, mb, rows, grads, step, cfg)."""
+    import torch
+    from smarties_tpu_torch import launch
+    from smarties_tpu_torch.algos import base
+    from smarties_tpu_torch.algos.registry import make_learner
+    from smarties_tpu_torch.models import net as tnet
+    from smarties_tpu_torch.replay import buffer as rb
+    from smarties_tpu_torch.utils.config import HyperParameters
+    E, L, B, app = TAIL_SHAPES[name]
+    env = launch.env_module(app)
+    cfg = (launch.load_recipe("RACER_atari", 0) if app == "catch" else
+           HyperParameters(batchSize=B, maxTotObsNum=262144,
+                           nnLayerSizes=[128, 128]))
+    algo = make_learner(env.MDP, cfg)
+    g = torch.Generator(dev).manual_seed(20)
+    params, _ = algo.init(torch.Generator().manual_seed(0), dev)
+    grads = tnet.tree_map(lambda p: torch.randn(
+        p.shape, generator=g, device=dev) * 1e-2, params)
+    rs = rb.init_replay(E, L, 1, 1, 3, clip_imp_weight=cfg.clipImpWeight,
+                        device=dev)
+    rs.slot_len.copy_(torch.randint(1, L + 1, (E,), generator=g, device=dev,
+                                    dtype=torch.int32))
+    rs.slot_id.copy_(torch.where(
+        torch.rand(E, generator=g, device=dev) < 0.9,
+        torch.arange(E, device=dev, dtype=torch.int32), -1))
+    for x in (rs.kl_tm, rs.delta_tm, rs.value_tm, rs.advantage_tm,
+              rs.v_trunc):
+        x.copy_(torch.randn(x.shape, generator=g, device=dev))
+    rs.rho_tm.copy_(torch.exp(torch.randn(rs.rho_tm.shape, generator=g,
+                                          device=dev)))
+    rs.far_count.copy_(rb.far_count_exact(rs))
+    ep = torch.randperm(E, generator=g, device=dev)[:B].to(torch.int32)
+    t = (torch.rand(B, generator=g, device=dev)
+         * rs.slot_len[ep.long()]).to(torch.int32)
+    mb = base.gather_minibatch(rs, ep, t)
+    rho = torch.exp(torch.randn(B, generator=g, device=dev))
+    rows = dict(rho=rho, dkl=torch.rand(B, generator=g, device=dev),
+                delta=torch.randn(B, generator=g, device=dev),
+                value=torch.randn(B, generator=g, device=dev),
+                advantage=torch.randn(B, generator=g, device=dev),
+                v_next=torch.randn(B, generator=g, device=dev),
+                is_far=rb.is_far_policy(rho, rs.cmax_ret, rs.cinv_ret))
+    step = torch.full((), 12345, dtype=torch.int32, device=dev)
+    return rs, mb, rows, grads, step, cfg
+
+
+def _tail_bytes(rs, mb, rows, grads):
+    """What the tail must move at these inputs: the gradients, the slots'
+    length, id and far count read once; the rows' inputs read; the five
+    fields written at the valid rows, the far count read and written
+    where a row's far state changes, v_trunc written at the truncated
+    rows; the scalars and metrics."""
+    from smarties_tpu_torch.models import net as tnet
+    from smarties_tpu_torch.replay import buffer as rb
+    B = mb.ep.numel()
+    was = rb.is_far_policy(mb.rho_old, rs.cmax_ret, rs.cinv_ret)
+    now = rb.is_far_policy(rows["rho"], rs.cmax_ret, rs.cinv_ret)
+    changed = int(((was != now) & mb.valid).sum())
+    return (4 * sum(x.numel() for x in tnet.tree_leaves(grads))
+            + 12 * rs.n_slots
+            + B * (7 * 4 + 3 + mb.ep.element_size() + mb.t.element_size())
+            + 20 * int(mb.valid.sum()) + 8 * changed
+            + 4 * int(mb.truncated_next.sum()) + 2 * 4 * 6 + 4 * 9)
+
+
+def phase_tail():
+    """The step-tail kernel against the chain it replaces, and its time
+    (phase 2c in the module docstring)."""
+    import torch
+    from smarties_tpu_torch.algos import base
+    from smarties_tpu_torch.models import net as tnet
+    from smarties_tpu_torch.ops import step_tail_kernel as stk
+    from smarties_tpu_torch.runtime import bench_retrace as bench
+
+    t0 = time.perf_counter()
+    stk.library()
+    build_s = time.perf_counter() - t0
+    regs = [ln.strip() for ln in stk.build_info["log"].splitlines()
+            if "registers" in ln]
+    dev = torch.device("cuda")
+    out = {"build_s": build_s, "registers": regs}
+    for name in TAIL_SHAPES:
+        rs, mb, rows, grads, step, cfg = _tail_inputs(name, dev)
+        ref = _clone_replay(rs)
+        stk.reset_launches()
+        _, mk = stk.tail_(rs, mb, cfg, step, grads, **rows)
+        _, mc = base.step_tail_plain_(ref, mb, cfg, step, grads, **rows)
+        torch.cuda.synchronize()
+        fields = ("rho_tm", "kl_tm", "delta_tm", "value_tm", "advantage_tm",
+                  "far_count", "v_trunc", "cmax_ret", "cinv_ret", "beta",
+                  "alpha", "max_abs_error")
+        equal = all(torch.equal(getattr(rs, f), getattr(ref, f))
+                    for f in fields)
+        assert equal, f"tail: kernel != chain at {name}'s shapes"
+        assert all(torch.equal(mk[k], mc[k]) for k in
+                   ("frac_far_data", "beta", "grad_max")), name
+        worst = max(float(torch.abs(mk[k] - mc[k]) / torch.abs(mc[k]))
+                    for k in mk if float(mc[k]) != 0)
+        assert worst < 1e-6, (name, worst)
+        n_bytes = _tail_bytes(ref, mb, rows, grads)
+        bound_ms = n_bytes / bench.HBM_BYTES_PER_S * 1e3
+        ms = _graph_ms(lambda: stk.tail_(rs, mb, cfg, step, grads, **rows),
+                       TAIL_TIMED)
+        plain_ms = _graph_ms(lambda: base.step_tail_plain_(
+            ref, mb, cfg, step, grads, **rows), TAIL_TIMED // 10)
+        n_params = sum(x.numel() for x in tnet.tree_leaves(grads))
+        print(f"tail: {name}'s shapes ({rs.n_slots} slots x "
+              f"{rs.max_len + 1}, batch {mb.ep.numel()}, "
+              f"{len(tnet.tree_leaves(grads))} gradient leaves, {n_params} "
+              f"params): kernel torch.equal to the chain (replay fields, "
+              f"ReF-ER scalars; metrics within {worst:.2e}), "
+              f"{ms * 1e3:.3f} us a call (2 launches, {TAIL_TIMED} calls in "
+              f"one graph) | chain {plain_ms * 1e3:.3f} us | bound "
+              f"{n_bytes} B -> {bound_ms * 1e3:.4f} us "
+              f"({bound_ms / ms:.4f} of the kernel's time)", flush=True)
+        out[name] = {"bytes": n_bytes, "bound_ms": bound_ms, "ms": ms,
+                     "plain_ms": plain_ms, "metrics_rel": worst}
+        del rs, ref, mb, rows, grads
+        torch.cuda.empty_cache()
+    stk.reset_launches()
+    print(f"tail: built in {build_s:.2f} s ({'; '.join(regs)})", flush=True)
+    return {"tail": out}
+
+
+def _clone_replay(rs):
+    import dataclasses
+    return dataclasses.replace(rs, **{f.name: getattr(rs, f.name).clone()
+                                      for f in dataclasses.fields(rs)})
+
+
 def _leaves(tree, prefix=""):
     """(path, tensor) pairs of a nested dict/list of tensors."""
     if isinstance(tree, dict):
@@ -873,7 +1066,7 @@ def phase_reference():
 def phase_main_path():
     import numpy as np
     import torch
-    from smarties_tpu_torch.ops import adam_kernel
+    from smarties_tpu_torch.ops import adam_kernel, step_tail_kernel
     from smarties_tpu_torch.ops import retrace_kernel as rk
     from smarties_tpu_torch.runtime.profile_main import main_path_trainer
 
@@ -888,6 +1081,7 @@ def phase_main_path():
 
     rk.reset_launches()
     adam_kernel.reset_launches()
+    step_tail_kernel.reset_launches()
     sites.ingest_site = "warmup_train_ingest"
     t0 = time.perf_counter()
     tr.warmup(chunk=16, blind_sweeps=16)
@@ -930,6 +1124,7 @@ def phase_main_path():
         counts, ("warmup_train_ingest", "initialize_stats", "refresh",
                  "fused_cycle_ingest"), "main")
     adam = _check_adam_launches(tr, "main")
+    tail = _check_tail_launches(tr, "main")
 
     per_cycle = statistics.median(cycle_ms)
     print(f"main: fused cycle {cycle_ms[0]:.1f} / {cycle_ms[1]:.1f} ms "
@@ -945,9 +1140,11 @@ def phase_main_path():
           f"call of each site (captured: {sorted(tr._sweep_graphs)}-sweep "
           f"graphs, the step graph; pools "
           f"{tr.graph_pool_bytes() / 2 ** 20:.1f} MiB) | Adam launches "
-          f"{adam}, one update and one advance a grad step", flush=True)
+          f"{adam}, one update and one advance a grad step | step-tail "
+          f"launches {tail}, one grad_stats and one step_tail a grad step",
+          flush=True)
     return {"cycle_ms": cycle_ms, "launches": counts, "sites": site_counts,
-            "adam": adam}
+            "adam": adam, "tail": tail}
 
 
 def _state_tensors(x, name=""):
@@ -1011,7 +1208,7 @@ def _graphs_path(name, make, tmp):
     import gc
 
     import torch
-    from smarties_tpu_torch.ops import adam_kernel
+    from smarties_tpu_torch.ops import adam_kernel, step_tail_kernel
     from smarties_tpu_torch.ops import retrace_kernel as rk
     from smarties_tpu_torch.runtime import graphs as cg
     from smarties_tpu_torch.runtime.profile_main import profile_calls
@@ -1019,13 +1216,16 @@ def _graphs_path(name, make, tmp):
     t_path = time.perf_counter()
     res, trainers = {}, {}
     for mode in ("captured", "eager"):
-        # captured: the Adam kernel; eager: the loop it replaces
+        # captured: the Adam and step-tail kernels; eager: the loop and
+        # the chain they replace
         _use_plain_adam(mode == "eager")
+        _use_plain_tail(mode == "eager")
         tr = make(None if mode == "captured" else False)
         assert tr.graphs == (mode == "captured"), (name, mode, tr.graphs)
         sites = SiteCounter(tr, rk)
         rk.reset_launches()
         adam_kernel.reset_launches()
+        step_tail_kernel.reset_launches()
         t0 = time.perf_counter()
         tr.warmup(chunk=16)
         torch.cuda.synchronize()
@@ -1046,6 +1246,8 @@ def _graphs_path(name, make, tmp):
             e1.record()
             e1.synchronize()
             cycle_ms.append(e0.elapsed_time(e1))
+        tail = _check_tail_launches(tr, f"graphs {name} {mode}",
+                                    mode == "captured")
         if mode == "captured":
             adam = _check_adam_launches(tr, f"graphs {name} {mode}")
         else:
@@ -1074,6 +1276,7 @@ def _graphs_path(name, make, tmp):
             assert tr._step_graphs and tr._sweep_graphs[1].graph is not None
         res[mode] = {"fused_cycle_ms": cycle_ms,
                      "k1": counts.get("retrace_sweep", 0), "adam": adam,
+                     "tail": tail,
                      "sites": dict(sites.sites), "stages": stages}
         tr._pending_logs.clear()
         trainers[mode] = tr
@@ -1099,6 +1302,7 @@ def _graphs_path(name, make, tmp):
     # launches per grad step and per env sweep, and a train chunk's time
     for mode, tr in trainers.items():
         _use_plain_adam(mode == "eager")
+        _use_plain_tail(mode == "eager")
         t0 = time.perf_counter()
         step = profile_calls(
             lambda: tr._train_chunk(GRAPH_PROFILED_STEPS), 1)
@@ -1122,6 +1326,7 @@ def _graphs_path(name, make, tmp):
                          ms_per_grad_step=chunk_ms / GRAPH_CHUNK,
                          pool_bytes=tr.graph_pool_bytes())
     _use_plain_adam(False)
+    _use_plain_tail(False)
     c, e = res["captured"], res["eager"]
     assert c["per_grad_step"]["graph_launches"] == 1, (name, c)
     # a replay launches 2 kernels (its seed and offset) per generator the
@@ -1142,14 +1347,14 @@ def _graphs_path(name, make, tmp):
               f"{GRAPH_CHUNK}) | per grad step {r['per_grad_step']} | per "
               f"env sweep + ingest {r['per_sweep']} | K1 {r['k1']} sweep "
               f"launches by site {r['sites']}, one per call | Adam kernel "
-              f"{r['adam']} | graph pools "
+              f"{r['adam']} | step-tail kernel {r['tail']} | graph pools "
               f"{r['pool_bytes']} B | s "
               + ", ".join(f"{k} {v:.2f}" for k, v in r["stages"].items()),
               flush=True)
     res["tensors"] = n_tensors
     res["path_s"] = time.perf_counter() - t_path
-    print(f"graphs {name}: captured (Adam kernel) and eager (Adam loop) "
-          f"torch.equal after warmup, "
+    print(f"graphs {name}: captured (Adam and step-tail kernels) and eager "
+          f"(Adam loop, tail chain) torch.equal after warmup, "
           f"{cg.WARMUP_CALLS + 1 + GRAPH_TIMED_CYCLES + 2} fused cycles, "
           f"their refreshes and a save / restore ({n_tensors} tensors and 4 "
           f"generator states) | {res['path_s']:.2f} s", flush=True)
@@ -1205,7 +1410,7 @@ def phase_learners():
     import numpy as np
     import torch
     from smarties_tpu_torch import launch
-    from smarties_tpu_torch.ops import adam_kernel
+    from smarties_tpu_torch.ops import adam_kernel, step_tail_kernel
     from smarties_tpu_torch.ops import retrace_kernel as rk
 
     runs = os.path.join(ROOT, "build", "chip_smoke_runs")
@@ -1238,6 +1443,7 @@ def phase_learners():
 
         rk.reset_launches()
         adam_kernel.reset_launches()
+        step_tail_kernel.reset_launches()
         t0 = time.perf_counter()
         tr = launch.run(args, prepare=prepare)
         torch.cuda.synchronize()
@@ -1245,6 +1451,7 @@ def phase_learners():
         run_s = time.perf_counter() - t0
         counts, sites = dict(rk.launches), dict(hooks["sites"].sites)
         adam = _check_adam_launches(tr, name)
+        tail = _check_tail_launches(tr, name)
         rets = tr.evaluate(8, max_steps=200)
 
         for k, p in _leaves(tr.params):
@@ -1278,11 +1485,13 @@ def phase_learners():
               f"train_step {EAGER_STEP_MS[name]} ms in PERF.md §5; host wall "
               f"{hooks['train_wall_s']:.2f} s) | launch.run {run_s:.2f} s | "
               f"evaluate(8, 200) mean return {float(np.mean(rets)):.2f} | "
-              f"{k1} | Adam launches {adam} | card vs CPU max |diff| "
+              f"{k1} | Adam launches {adam} | step-tail launches {tail} | "
+              f"card vs CPU max |diff| "
               + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()),
               flush=True)
         results[name] = {"sites": sites, "launches": counts["retrace_sweep"],
-                         "adam": adam, "ms_per_grad_step": ms_step,
+                         "adam": adam, "tail": tail,
+                         "ms_per_grad_step": ms_step,
                          "train_ms": hooks["train_ms"], "run_s": run_s,
                          "card_vs_cpu": worst}
     return results
@@ -1312,7 +1521,7 @@ def phase_on_policy():
     import numpy as np
     import torch
     from smarties_tpu_torch import launch
-    from smarties_tpu_torch.ops import adam_kernel
+    from smarties_tpu_torch.ops import adam_kernel, step_tail_kernel
     from smarties_tpu_torch.ops import retrace_kernel as rk
 
     runs = os.path.join(ROOT, "build", "chip_smoke_runs")
@@ -1347,12 +1556,14 @@ def phase_on_policy():
 
         rk.reset_launches()
         adam_kernel.reset_launches()
+        step_tail_kernel.reset_launches()
         t0 = time.perf_counter()
         tr = launch.run(args, prepare=prepare)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         counts, modes = dict(rk.launches), dict(rk.launch_modes)
         adam = _check_adam_launches(tr, name)
+        _check_tail_launches(tr, name, used=False)
         assert adam["parts"] == 2 and adam["adam_advance"] == PPO_STEPS, \
             (name, adam)
         sites, calls = dict(hooks["sites"].sites), dict(hooks["sites"].calls)
@@ -2027,7 +2238,7 @@ def phase_acer():
     from smarties_tpu_torch import launch
     from smarties_tpu_torch.algos import acer
     from smarties_tpu_torch.envs import pendulum
-    from smarties_tpu_torch.ops import adam_kernel
+    from smarties_tpu_torch.ops import adam_kernel, step_tail_kernel
     from smarties_tpu_torch.ops import retrace_kernel as rk
     from smarties_tpu_torch.ops import returns as ret
     from smarties_tpu_torch.runtime import bench_retrace as bench
@@ -2055,6 +2266,7 @@ def phase_acer():
     try:
         rk.reset_launches()
         adam_kernel.reset_launches()
+        step_tail_kernel.reset_launches()
         t0 = time.perf_counter()
         tr = launch.run(args, prepare=prepare)
         torch.cuda.synchronize()
@@ -2063,6 +2275,7 @@ def phase_acer():
     finally:
         acer.affine_suffix_scan = scan
     adam = _check_adam_launches(tr, name)
+    _check_tail_launches(tr, name, used=False)
     assert adam["parts"] == 2, adam
     sites, calls = dict(hooks["sites"].sites), dict(hooks["sites"].calls)
     rets = tr.evaluate(8, max_steps=200)
@@ -3418,6 +3631,7 @@ def _mc_rank(rank, store, out_dir):
     from smarties_tpu_torch.envs import cartpole
     from smarties_tpu_torch.models.net import tree_map
     from smarties_tpu_torch.ops import retrace_kernel as rk
+    from smarties_tpu_torch.ops import step_tail_kernel as stk
     from smarties_tpu_torch.parallel import mesh as pm
     from smarties_tpu_torch.parallel.multihost import init_multihost
     from smarties_tpu_torch.runtime.trainer import Trainer, _plain
@@ -3453,6 +3667,7 @@ def _mc_rank(rank, store, out_dir):
         # the counts start at 0 here: warmup and train(MC_STEPS) are the
         # path's run
         rk.reset_launches()
+        stk.reset_launches()
         mesh.counts.clear()
         t0 = time.perf_counter()
         tr.warmup()
@@ -3463,6 +3678,9 @@ def _mc_rank(rank, store, out_dir):
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         counts, by_kind = dict(rk.launches), dict(mesh.counts)
+        # every grad step's tail on the kernel, its finish after the
+        # collectives
+        tail = _check_tail_launches(tr, f"multichip rank {rank}", mesh=True)
         sites.check_one_launch_per_call(
             counts, ("ingest", "initialize_stats", "refresh"),
             f"multichip rank {rank}")
@@ -3512,7 +3730,8 @@ def _mc_rank(rank, store, out_dir):
         torch.save({"rank": rank, "before": before,
                     "after": {"params": cpu(tr.params),
                               "opt": cpu(tr.opt_state)},
-                    "launches": counts, "sites": dict(sites.sites),
+                    "launches": counts, "tail": tail,
+                    "sites": dict(sites.sites),
                     "calls": dict(sites.calls),
                     "collectives_by_kind": by_kind,
                     "step_collectives": sum(step_coll.values()),
@@ -3666,7 +3885,9 @@ def phase_multichip():
           f"(torch.equal on the card)", flush=True)
     print(f"{name}: K1 sweep launches by rank {launches}, by site "
           f"{[o['sites'] for o in outs]} for calls "
-          f"{[o['calls'] for o in outs]}, one per call", flush=True)
+          f"{[o['calls'] for o in outs]}, one per call | step-tail "
+          f"launches by rank {[o['tail'] for o in outs]}, one grad_stats, "
+          f"step_tail and finish a grad step", flush=True)
     print(f"{name}: ms per grad step by CUDA events in train's chunks "
           f"{[round(x, 4) for x in ms_step]} (ranks) | single-rank step at "
           f"the same width and batch on the gathered replay "
@@ -3687,6 +3908,7 @@ def phase_multichip():
     return {name: {"sites": {f"rank{r}": o["sites"]
                              for r, o in enumerate(outs)},
                    "launches": sum(launches),
+                   "tail": [o["tail"] for o in outs],
                    "launches_by_rank": launches, "k1": k1,
                    "k1_max_abs_err": err["retrace_sweep"],
                    "ms_per_grad_step": ms_step,
@@ -3908,8 +4130,10 @@ def phase_bench():
                       "serving": srv, "phase_s": phase_s}}
 
 
-# phases 4b, 8, 8b and 17-23, by the names `--only` takes
-NEW_PHASES = {"adam": phase_adam, "graphs": phase_graphs,
+# phases 2b, 2c, 4, 4b, 8, 8b and 17-23, by the names `--only` takes
+NEW_PHASES = {"adam": phase_adam, "tail": phase_tail,
+              "main": lambda: {"main": phase_main_path()},
+              "graphs": phase_graphs,
               "atari": phase_atari, "bf16": phase_bf16,
               "glider": phase_glider,
               "predator_prey": phase_predator_prey,
@@ -3941,6 +4165,7 @@ def main(argv=None):
         return
     kern = phase_kernels()
     adam = phase_adam()
+    tail = phase_tail()["tail"]
     phase_reference()
     main_res = phase_main_path()
     graphs = phase_graphs()["graphs"]
@@ -4015,6 +4240,7 @@ def main(argv=None):
         acer_scan, bound_by="bytes", library_ms=None,
         launches=learners["acer"]["launches"])
     sweep = entry_points["retrace_sweep"]
+    tail_main = tail["vracer_cartpole"]
     graph_paths = [k for k, v in graphs.items() if isinstance(v, dict)]
     print(json.dumps({"kernels": [{
         "name": "retrace_suffix_scan",
@@ -4075,6 +4301,26 @@ def main(argv=None):
             "vracer_main": main_res["adam"],
             **{k: v["adam"] for k, v in learners.items() if "adam" in v},
             **{f"graphs_{k}": graphs[k]["captured"]["adam"]
+               for k in graph_paths}},
+    }, {
+        "name": "step_tail",
+        "route": "cuda",
+        "source": "smarties_tpu_torch/csrc/step_tail.cu",
+        "replaces": None,
+        "launches": main_res["tail"]["step_tail"],
+        "max_abs_err": 0.0,
+        # at the main path's shapes; the conv cell's under "phase"
+        "ms": tail_main["ms"],
+        "plain_ms": tail_main["plain_ms"],
+        "bound_ms": tail_main["bound_ms"],
+        "bound_by": "bytes",
+        "share_of_bound": tail_main["bound_ms"] / tail_main["ms"],
+        "library_ms": None,
+        "phase": tail,
+        "launches_by_path": {
+            "vracer_main": main_res["tail"],
+            **{k: v["tail"] for k, v in learners.items() if "tail" in v},
+            **{f"graphs_{k}": graphs[k]["captured"]["tail"]
                for k in graph_paths}},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

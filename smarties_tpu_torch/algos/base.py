@@ -24,6 +24,8 @@ import torch
 from smarties_tpu_torch.models.net import (apply_net, init_carry,
                                            tree_leaves, tree_map)
 from smarties_tpu_torch.ops import continuous_policy as cp
+from smarties_tpu_torch.ops import step_tail_kernel
+from smarties_tpu_torch.ops.value_scale import scale_net2v
 from smarties_tpu_torch.parallel.mesh import pmax_, pmean, psum_tree_
 from smarties_tpu_torch.replay import buffer as rb
 from smarties_tpu_torch.utils.config import anneal_rate
@@ -290,11 +292,16 @@ def write_back(rs: rb.ReplayState, mb: MiniBatch, rho, dkl, delta, value,
     incremental far-policy count (Episode::updateCumulative_atomic,
     Episode.h:112-129). In place.
 
-    The JAX package drops invalid rows at a trash index (mode="drop");
-    here an invalid row writes back the value it read, so no index needs
-    dropping."""
+    Invalid rows write nothing, as the JAX package drops them at a trash
+    index (mode="drop"). A scatter here has no index to drop, so an
+    invalid row writes what the first valid row writes, where it writes
+    it; with no valid row, every row writes back the value row 0 read.
+    No host sync: the step stays capturable."""
     tl, epl = mb.t.long(), mb.ep.long()
     valid = mb.valid
+    # the first valid row, as a [1] index (a 0-d one reads it on the host)
+    k = torch.argmax(valid.to(torch.int32)).view(1)
+    tw, ew = torch.where(valid, tl, tl[k]), torch.where(valid, epl, epl[k])
     was_far = rb.is_far_policy(mb.rho_old, rs.cmax_ret, rs.cinv_ret)
     is_far = rb.is_far_policy(rho, rs.cmax_ret, rs.cinv_ret)
     delta_far = torch.where(valid, is_far.to(F32) - was_far.to(F32),
@@ -302,7 +309,8 @@ def write_back(rs: rb.ReplayState, mb: MiniBatch, rho, dkl, delta, value,
     for dst, new in ((rs.rho_tm, rho), (rs.kl_tm, dkl),
                      (rs.delta_tm, delta), (rs.value_tm, value),
                      (rs.advantage_tm, advantage)):
-        dst[tl, epl] = torch.where(valid, new, dst[tl, epl])
+        dst[tw, ew] = torch.where(valid[k], torch.where(valid, new, new[k]),
+                                  dst[tw, ew])
     rs.far_count.index_add_(0, epl, delta_far)
     return rs
 
@@ -394,3 +402,39 @@ def default_metrics(dkl, rho, is_far, frac_off, beta, delta_q, v_val,
         "rmse": torch.sqrt(means[3]),
         "avg_v": means[4],
     }
+
+
+def step_tail_(rs: rb.ReplayState, mb: MiniBatch, cfg, opt_step, grads, rho,
+               dkl, delta, value, advantage, v_next, is_far, mesh=None,
+               net2v=False):
+    """What a grad step does after Adam (step_tail_plain_), in place ->
+    (rs, metrics). CUDA tensors take the hand-written kernel
+    (ops/step_tail_kernel.py: two launches, bit-equal in the replay and
+    its scalars; under a mesh a third after the chain's collectives);
+    CPU tensors take the chain."""
+    if rho.is_cuda:
+        return step_tail_kernel.tail_(rs, mb, cfg, opt_step, grads, rho,
+                                      dkl, delta, value, advantage, v_next,
+                                      is_far, net2v=net2v, mesh=mesh)
+    return step_tail_plain_(rs, mb, cfg, opt_step, grads, rho, dkl, delta,
+                            value, advantage, v_next, is_far, mesh, net2v)
+
+
+def step_tail_plain_(rs: rb.ReplayState, mb: MiniBatch, cfg, opt_step,
+                     grads, rho, dkl, delta, value, advantage, v_next,
+                     is_far, mesh=None, net2v=False):
+    """The tail of the off-policy learners' grad step: the write-backs
+    with the V(s_T) refresh (`net2v`: v_next is the net's raw output,
+    turned into a value by scale_net2v first), the ReF-ER bookkeeping
+    from Adam's new step count, the step metrics (`delta` the TD error,
+    `value` the V estimate, `is_far` the batch's far-policy rows) and
+    grad_stats -> (rs, metrics)."""
+    if net2v:
+        v_next = scale_net2v(v_next)
+    rs = write_back_with_next(rs, mb, rho, dkl, delta, value, advantage,
+                              v_next)
+    rs, frac_off = post_step_processing(rs, cfg, opt_step, delta, mesh)
+    metrics = default_metrics(dkl, rho, is_far, frac_off, rs.beta, delta,
+                              value, mesh)
+    metrics.update(grad_stats(grads))
+    return rs, metrics

@@ -33,12 +33,10 @@ from __future__ import annotations
 import torch
 
 from smarties_tpu_torch.algos.base import (Learner, bptt_window,
-                                           check_ported, default_metrics,
-                                           explore, grad_stats, ou_acting,
-                                           post_step_processing,
-                                           psum_grads_,
-                                           returns_mode_of, seq_outputs,
-                                           target_copy, write_back_with_next)
+                                           check_ported, explore, ou_acting,
+                                           psum_grads_, returns_mode_of,
+                                           seq_outputs, step_tail_,
+                                           target_copy)
 from smarties_tpu_torch.core.mdp import MDPSpec
 from smarties_tpu_torch.models.net import (NetSpec, apply_net, init_carry,
                                            init_params, join, tree_leaves,
@@ -254,11 +252,7 @@ class DPG(Learner):
 
         with torch.no_grad():
             err = target - q_val
-            rs = write_back_with_next(rs, mb, rho, dkl, err, v_val,
-                                      q_val - v_val, v_next)
-            rs, frac_off = post_step_processing(rs, cfg, opt_state.step, err,
-                                                mesh)
-            metrics = default_metrics(dkl, rho, is_far, frac_off, rs.beta,
-                                      err, v_val, mesh)
-            metrics.update(grad_stats(grads))
+            rs, metrics = step_tail_(rs, mb, cfg, opt_state.step, grads, rho,
+                                     dkl, err, v_val, q_val - v_val, v_next,
+                                     is_far, mesh)
         return params, opt_state, rs, metrics

@@ -22,12 +22,10 @@ from __future__ import annotations
 import torch
 
 from smarties_tpu_torch.algos.base import (Learner, backprop, bptt_window,
-                                           check_ported, default_metrics,
-                                           grad_stats, post_step_processing,
-                                           psum_grads_,
+                                           check_ported, psum_grads_,
                                            returns_mode_of, seq_forward_vjp,
-                                           seq_outputs, target_copy,
-                                           write_back_with_next)
+                                           seq_outputs, step_tail_,
+                                           target_copy)
 from smarties_tpu_torch.core.mdp import MDPSpec
 from smarties_tpu_torch.models.net import (Conv2DDesc, NetSpec, apply_net,
                                            init_carry, init_params)
@@ -189,11 +187,7 @@ class DQN(Learner):
         update_target(net, tgt, cfg.targetDelay, opt_state.step)
 
         with torch.no_grad():
-            rs = write_back_with_next(rs, mb, rho, dkl, td_error, v_val,
-                                      q_a - v_val, v_next)
-            rs, frac_off = post_step_processing(rs, cfg, opt_state.step,
-                                                td_error, mesh)
-            metrics = default_metrics(dkl, rho, is_far, frac_off, rs.beta,
-                                      td_error, v_val, mesh)
-            metrics.update(grad_stats(grads))
+            rs, metrics = step_tail_(rs, mb, cfg, opt_state.step, grads, rho,
+                                     dkl, td_error, v_val, q_a - v_val,
+                                     v_next, is_far, mesh)
         return params, opt_state, rs, metrics

@@ -21,11 +21,8 @@ import numpy as np
 import torch
 
 from smarties_tpu_torch.algos.base import (Learner, check_ported,
-                                           default_metrics, grad_stats,
-                                           post_step_processing,
-                                           psum_grads_,
-                                           returns_mode_of,
-                                           write_back_with_next)
+                                           psum_grads_, returns_mode_of,
+                                           step_tail_)
 from smarties_tpu_torch.core.mdp import MDPSpec
 from smarties_tpu_torch.models.net import (NetSpec, apply_net, init_params,
                                            tree_leaves, tree_map)
@@ -218,11 +215,7 @@ class MixedPG(Learner):
                 lr * (torch.mean(dq * dq) - opt_state.err_q_factor))
 
             delta = a_ret - a_est
-            rs = write_back_with_next(rs, mb, rho, dkl, delta, v_est, a_est,
-                                      v_next)
-            rs, frac_off = post_step_processing(rs, cfg, opt_state.step,
-                                                delta, mesh)
-            metrics = default_metrics(dkl, rho, is_far, frac_off, rs.beta,
-                                      delta, v_est, mesh)
-            metrics.update(grad_stats(grads))
+            rs, metrics = step_tail_(rs, mb, cfg, opt_state.step, grads, rho,
+                                     dkl, delta, v_est, a_est, v_next,
+                                     is_far, mesh)
         return params, opt_state, rs, metrics

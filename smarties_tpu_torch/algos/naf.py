@@ -26,13 +26,10 @@ from __future__ import annotations
 import torch
 
 from smarties_tpu_torch.algos.base import (Learner, backprop, bptt_window,
-                                           check_ported, default_metrics,
-                                           explore, grad_stats, ou_acting,
-                                           post_step_processing,
-                                           psum_grads_,
-                                           returns_mode_of, seq_forward_vjp,
-                                           seq_outputs, target_copy,
-                                           write_back_with_next)
+                                           check_ported, explore, ou_acting,
+                                           psum_grads_, returns_mode_of,
+                                           seq_forward_vjp, seq_outputs,
+                                           step_tail_, target_copy)
 from smarties_tpu_torch.core.mdp import MDPSpec
 from smarties_tpu_torch.models.net import (Conv2DDesc, NetSpec, apply_net,
                                            init_carry, init_params)
@@ -201,11 +198,7 @@ class NAF(Learner):
         update_target(net, tgt, cfg.targetDelay, opt_state.step)
 
         with torch.no_grad():
-            rs = write_back_with_next(rs, mb, rho, dkl, error, v, a_val,
-                                      v_next)
-            rs, frac_off = post_step_processing(rs, cfg, opt_state.step,
-                                                error, mesh)
-            metrics = default_metrics(dkl, rho, is_far, frac_off, rs.beta,
-                                      error, v, mesh)
-            metrics.update(grad_stats(grads))
+            rs, metrics = step_tail_(rs, mb, cfg, opt_state.step, grads, rho,
+                                     dkl, error, v, a_val, v_next, is_far,
+                                     mesh)
         return params, opt_state, rs, metrics

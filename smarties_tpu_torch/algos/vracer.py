@@ -33,11 +33,9 @@ from __future__ import annotations
 import torch
 
 from smarties_tpu_torch.algos.base import (Learner, backprop, bptt_window,
-                                           check_ported, default_metrics,
-                                           grad_stats, post_step_processing,
-                                           psum_grads_, returns_mode_of,
-                                           seq_forward_vjp,
-                                           write_back_with_next)
+                                           check_ported, psum_grads_,
+                                           returns_mode_of, seq_forward_vjp,
+                                           step_tail_)
 from smarties_tpu_torch.core.mdp import MDPSpec
 from smarties_tpu_torch.models.net import (Conv2DDesc, NetSpec, apply_net,
                                            init_carry, init_params)
@@ -309,14 +307,10 @@ class VRacer(Learner):
             stamp("adam")
 
         with torch.no_grad():
-            v_next = scale_net2v(out_next[..., 0])
-            rs = write_back_with_next(rs, mb, rho, dkl, delta_q, v_val,
-                                      a_val, v_next)
-            rs, frac_off = post_step_processing(rs, cfg, opt_state.step,
-                                                delta_q, mesh)
-            metrics = default_metrics(dkl, rho, is_far, frac_off, rs.beta,
-                                      delta_q, v_val, mesh)
-            metrics.update(grad_stats(grads))
+            rs, metrics = step_tail_(rs, mb, cfg, opt_state.step, grads, rho,
+                                     dkl, delta_q, v_val, a_val,
+                                     out_next[..., 0], is_far, mesh,
+                                     net2v=True)
         return params, opt_state, rs, metrics
 
 

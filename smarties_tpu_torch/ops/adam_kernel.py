@@ -25,7 +25,6 @@ multiply and add contract into an FMA.
 """
 from __future__ import annotations
 
-import collections
 import ctypes
 import os
 
@@ -33,6 +32,7 @@ import numpy as np
 import torch
 
 from smarties_tpu_torch.ops import retrace_kernel as rk
+from smarties_tpu_torch.ops.leaf_table import LeafTables
 
 SOURCES = (os.path.join(os.path.dirname(rk.SOURCES[0]), "adam.cu"),)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -40,9 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 launches = {"adam_update": 0, "adam_advance": 0}
 build_info = {"path": None, "seconds": None, "log": ""}
-# leaf tables of the leaf sets seen last, by their pointers and sizes
-TABLE_CACHE = 64
-_tables = collections.OrderedDict()
+_tables = LeafTables()
 _lib = None
 
 
@@ -108,21 +106,14 @@ def _table(ws, gs, m1s, m2s):
     """(pointer array, size array, leaves, launches) of a leaf set, made
     once per set of pointers and sizes."""
     ptrs = [x.data_ptr() for leaf in zip(ws, gs, m1s, m2s) for x in leaf]
-    sizes = [w.numel() for w in ws]
-    key = (*ptrs, *sizes)
-    hit = _tables.get(key)
-    if hit is not None:
-        _tables.move_to_end(key)
-        return hit
+    return _tables.get(ptrs, [w.numel() for w in ws], _launches)
+
+
+def _launches(sizes) -> tuple:
+    """(launches,) of an update over leaves of these sizes: one per
+    table of leaves with an element."""
     per = library().smt_adam_max_leaves()
-    n = len(ws)
-    hit = ((ctypes.c_void_p * (4 * n))(*ptrs),
-           (ctypes.c_longlong * n)(*sizes), n,
-           sum(any(sizes[i:i + per]) for i in range(0, n, per)))
-    _tables[key] = hit
-    if len(_tables) > TABLE_CACHE:
-        _tables.popitem(last=False)
-    return hit
+    return (sum(any(sizes[i:i + per]) for i in range(0, len(sizes), per)),)
 
 
 def update_(ws, gs, m1s, m2s, state, cfg, grad_factor, eps):

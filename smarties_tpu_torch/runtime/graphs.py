@@ -38,8 +38,8 @@ replay reads. A replay writes each registered generator's seed and
 offset with two small kernels of its own before the graph.
 
 Launch counters: the dicts of ints in COUNTERS (ops/retrace_kernel.py's
-launches and launch_modes, ops/adam_kernel.py's launches, and any a
-caller adds) count device launches.
+launches and launch_modes, the launches of ops/adam_kernel.py and of
+ops/step_tail_kernel.py, and any a caller adds) count device launches.
 What a capture adds to them is taken back, and added again at every
 replay.
 
@@ -58,13 +58,14 @@ from typing import Callable, Sequence
 import torch
 
 from smarties_tpu_torch.models.net import tree_copy_
-from smarties_tpu_torch.ops import adam_kernel
+from smarties_tpu_torch.ops import adam_kernel, step_tail_kernel
 from smarties_tpu_torch.ops import retrace_kernel as rk
 
 # eager calls on the side stream before the capture
 WARMUP_CALLS = 2
 # launch counters that a replay advances by what its capture launched
-COUNTERS = [rk.launches, rk.launch_modes, adam_kernel.launches]
+COUNTERS = [rk.launches, rk.launch_modes, adam_kernel.launches,
+            step_tail_kernel.launches]
 
 
 class Graph:

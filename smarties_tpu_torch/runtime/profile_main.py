@@ -82,8 +82,11 @@ replays of the traced step graph under torch.profiler (CUPTI). Then the
 cost of tracing, in turns plain, traced, traced, plain of 3 cycles
 each: TRAIN ms per grad step, and the host's µs per replay of 64
 replays launched on an idle card; the card timer's resolution and the
-mapping's measured error; and the Chrome trace of one more traced cycle
-at --trace-out. `--trace-after S` runs S seconds of plain cycles first
+mapping's measured error, the launches of the Adam and step-tail
+kernels since the Trainer's construction (`launches`: one update, one
+advance, one grad_stats and one step_tail a grad step); and the Chrome
+trace of one more traced cycle at --trace-out. `--trace-after S` runs S
+seconds of plain cycles first
 (each one's TRAIN ms per grad step printed) and turns tracing on after
 them (the traced step graph is then captured late). `--trace-atari`
 traces RACER_atari on catch instead (`atari_trainer`: 1024 envs, the
@@ -112,6 +115,7 @@ from smarties_tpu_torch.algos.base import presample_uniform
 from smarties_tpu_torch.core.mdp import MDPSpec
 from smarties_tpu_torch.envs import cartpole, catch
 from smarties_tpu_torch.models.net import _mlp_in_dim
+from smarties_tpu_torch.ops import adam_kernel, step_tail_kernel
 from smarties_tpu_torch.ops import retrace_kernel as rk
 from smarties_tpu_torch.replay import buffer as rb
 from smarties_tpu_torch.runtime.trainer import Trainer, set_precision
@@ -511,6 +515,7 @@ def main(argv=None):
     )
     for name, fn, n in parts:
         report_times(name, fn, n)
+    print(f"launches: {kernel_launches(tr)}", flush=True)
 
     for name, fn, n in (("train_step", train_step, 20),
                         ("env sweep", roll, 5)):
@@ -652,6 +657,16 @@ def phase_kernels(tr: Trainer, n: int = 8) -> dict:
             "kernels_per_replay": len(kernels) / n}
 
 
+def kernel_launches(tr: Trainer) -> dict:
+    """The Adam and step-tail kernels' launch counters beside the grad
+    steps the trainer's optimiser has taken."""
+    opt = tr.opt_state
+    return {"grad_steps": int((opt if hasattr(opt, "step")
+                               else opt.adam).step),
+            "adam": dict(adam_kernel.launches),
+            "step_tail": dict(step_tail_kernel.launches)}
+
+
 def trace_main(seconds: float, plain_s: float = 0.0, out=None,
                device="cuda", n_envs: int = 1024, n_slots: int = 4096,
                fill_sweeps: int = 256, atari: bool = False):
@@ -664,6 +679,8 @@ def trace_main(seconds: float, plain_s: float = 0.0, out=None,
     (`atari_trainer`, its replay's slots the Trainer's own) in place of
     the main path."""
     from smarties_tpu_torch.ops.stamp import timer_ticks_ns
+    adam_kernel.reset_launches()
+    step_tail_kernel.reset_launches()
     if atari:
         tr = atari_trainer(device=device, n_envs=n_envs, graphs=True)
     else:
@@ -749,7 +766,8 @@ def trace_main(seconds: float, plain_s: float = 0.0, out=None,
     info = {"mapping_error_us": prof.mapping_error_ns() / 1e3,
             "timer_ticks_ns": timer_ticks_ns(tr.device)[:16] if cuda
             else None,
-            "graph_pool_bytes": tr.graph_pool_bytes()}
+            "graph_pool_bytes": tr.graph_pool_bytes(),
+            "launches": kernel_launches(tr)}
     if out:
         prof.export_chrome_trace(out)
         info["trace"] = out

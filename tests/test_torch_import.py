@@ -19,7 +19,8 @@ names = sorted(m.name for m in pkgutil.walk_packages(
     smarties_tpu_torch.__path__, "smarties_tpu_torch."))
 for n in names:
     __import__(n)
-from smarties_tpu_torch.ops import adam_kernel, retrace_kernel, stamp
+from smarties_tpu_torch.ops import (adam_kernel, retrace_kernel, stamp,
+                                    step_tail_kernel)
 import smarties_tpu_torch as pkg
 lazy = sorted(n for n in ("Engine", "Communicator", "HyperParameters",
                           "MDPSpec") if getattr(pkg, n).__name__ == n)
@@ -35,7 +36,8 @@ print(json.dumps({
                          if m.split(".")[0] == "matplotlib"),
     "kernel_loaded": (retrace_kernel._lib is not None
                       or stamp._lib is not None
-                      or adam_kernel._lib is not None)}))
+                      or adam_kernel._lib is not None
+                      or step_tail_kernel._lib is not None)}))
 """
 
 
@@ -50,7 +52,7 @@ def test_port_imports_no_jax():
     assert res["matplotlib"] == [], res["matplotlib"]
     assert not res["kernel_loaded"]
     for sub in ("core.mdp", "ops.returns", "ops.retrace_kernel", "ops.stamp",
-                "ops.adam_kernel",
+                "ops.adam_kernel", "ops.step_tail_kernel", "ops.leaf_table",
                 "ops.continuous_policy", "ops.discrete_policy",
                 "ops.advantages", "envs.cartpole", "envs.pendulum",
                 "envs.acrobot", "envs.mountaincar", "envs.catch",
