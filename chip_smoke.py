@@ -496,10 +496,10 @@ def phase_kernels():
     t0 = time.perf_counter()
     rk.library()
     build_s = time.perf_counter() - t0
-    nvcc_s = rk.build_info["seconds"]
+    nvcc_s = rk.LIB.build_info["seconds"]
     print(f"kernels: K1 built in {build_s:.2f} s (nvcc "
           f"{'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'}) -> "
-          f"{os.path.relpath(rk.build_info['path'])}", flush=True)
+          f"{os.path.relpath(rk.LIB.build_info['path'])}", flush=True)
     for line in bench.ptxas_lines():
         print(f"  ptxas: {line}", flush=True)
 
@@ -566,15 +566,16 @@ class SiteCounter:
     the calls and the launches they made. The ingest sweep counts
     under `ingest_site`, which the main path sets per phase. A captured
     sweep calls the wrapper once, at its capture: both dicts are
-    counters that each replay advances as it does K1's."""
+    counters registered in ops/cuda_lib.py, which each replay advances
+    as it does K1's and cuda_lib.reset_launches() zeroes with K1's."""
 
     def __init__(self, trainer, rk):
-        from smarties_tpu_torch.runtime import graphs as cg
+        from smarties_tpu_torch.ops import cuda_lib
         self.rk = rk
         self.ingest_site = "ingest"
         self.sites = {}
         self.calls = {}
-        cg.COUNTERS.extend((self.sites, self.calls))
+        cuda_lib.register(self.sites, self.calls)
         for attr, site in (("_fix_returns", "ingest"),
                            ("_init_stats", "initialize_stats"),
                            ("_refresh", "refresh")):
@@ -659,13 +660,12 @@ def _check_tail_launches(tr, what, used=True, mesh=False):
     optimiser's step counter: one grad_stats and one step_tail a grad
     step (a graph's replays count what its capture launched) where the
     learner's tail is the kernel's (`used`), none where it is not (ACER,
-    PPO), one finish a step more under a mesh, and no tail on the chain
-    on the card."""
+    PPO), and one finish a step more under a mesh."""
     from smarties_tpu_torch.ops import step_tail_kernel
     opt = tr.opt_state
     steps = int((opt if hasattr(opt, "step") else opt.adam).step) * used
     want = {"step_tail": steps, "grad_stats": steps,
-            "finish": steps * mesh, "plain": 0}
+            "finish": steps * mesh}
     assert step_tail_kernel.launches == want, \
         f"{what}: step-tail launches {step_tail_kernel.launches} != {want}"
     return want
@@ -723,14 +723,15 @@ def phase_adam():
     import torch
     from smarties_tpu_torch.models import net as tnet
     from smarties_tpu_torch.models import optim
-    from smarties_tpu_torch.ops import adam_kernel
+    from smarties_tpu_torch.ops import adam_kernel, cuda_lib
     from smarties_tpu_torch.runtime import bench_retrace as bench
     from smarties_tpu_torch.runtime.profile_main import main_path_trainer
 
     t0 = time.perf_counter()
-    adam_kernel.library()
+    adam_kernel.LIB.load()
     build_s = time.perf_counter() - t0
-    regs = [ln.strip() for ln in adam_kernel.build_info["log"].splitlines()
+    regs = [ln.strip()
+            for ln in adam_kernel.LIB.build_info["log"].splitlines()
             if "registers" in ln]
     tr = main_path_trainer(0, "cuda", n_envs=16, n_slots=64)
     cfg, gf = tr.algo.adam_cfg, 1.0 / tr.cfg.batchSize
@@ -748,7 +749,7 @@ def phase_adam():
         kp = tnet.tree_map(lambda p: p.detach().clone(), params)
         lp = tnet.tree_map(lambda p: p.detach().clone(), params)
         ks, ls = optim.adam_init(kp), optim.adam_init(lp)
-        adam_kernel.reset_launches()
+        cuda_lib.reset_launches()
         for k in range(steps):
             g = grads(kp, k)
             optim.adam_step(kp, g, ks, acfg, gf)
@@ -787,7 +788,7 @@ def phase_adam():
             _graph_ms(lambda: (optim.adam_update_plain_(kp, g, ks, cfg, gf),
                                optim.adam_advance_plain_(ks, cfg)),
                       ADAM_TIMED // 10))}
-    adam_kernel.reset_launches()
+    cuda_lib.reset_launches()
     del tr
     torch.cuda.empty_cache()
     ms, plain_ms = rows["update"]
@@ -892,20 +893,21 @@ def phase_tail():
     import torch
     from smarties_tpu_torch.algos import base
     from smarties_tpu_torch.models import net as tnet
+    from smarties_tpu_torch.ops import cuda_lib
     from smarties_tpu_torch.ops import step_tail_kernel as stk
     from smarties_tpu_torch.runtime import bench_retrace as bench
 
     t0 = time.perf_counter()
-    stk.library()
+    stk.LIB.load()
     build_s = time.perf_counter() - t0
-    regs = [ln.strip() for ln in stk.build_info["log"].splitlines()
+    regs = [ln.strip() for ln in stk.LIB.build_info["log"].splitlines()
             if "registers" in ln]
     dev = torch.device("cuda")
     out = {"build_s": build_s, "registers": regs}
     for name in TAIL_SHAPES:
         rs, mb, rows, grads, step, cfg = _tail_inputs(name, dev)
         ref = _clone_replay(rs)
-        stk.reset_launches()
+        cuda_lib.reset_launches()
         _, mk = stk.tail_(rs, mb, cfg, step, grads, **rows)
         _, mc = base.step_tail_plain_(ref, mb, cfg, step, grads, **rows)
         torch.cuda.synchronize()
@@ -940,7 +942,7 @@ def phase_tail():
                      "plain_ms": plain_ms, "metrics_rel": worst}
         del rs, ref, mb, rows, grads
         torch.cuda.empty_cache()
-    stk.reset_launches()
+    cuda_lib.reset_launches()
     print(f"tail: built in {build_s:.2f} s ({'; '.join(regs)})", flush=True)
     return {"tail": out}
 
@@ -1066,7 +1068,7 @@ def phase_reference():
 def phase_main_path():
     import numpy as np
     import torch
-    from smarties_tpu_torch.ops import adam_kernel, step_tail_kernel
+    from smarties_tpu_torch.ops import cuda_lib
     from smarties_tpu_torch.ops import retrace_kernel as rk
     from smarties_tpu_torch.runtime.profile_main import main_path_trainer
 
@@ -1079,9 +1081,7 @@ def phase_main_path():
           f"(1024 envs, 4096 x 501 slots, [128,128], batch 256)",
           flush=True)
 
-    rk.reset_launches()
-    adam_kernel.reset_launches()
-    step_tail_kernel.reset_launches()
+    cuda_lib.reset_launches()
     sites.ingest_site = "warmup_train_ingest"
     t0 = time.perf_counter()
     tr.warmup(chunk=16, blind_sweeps=16)
@@ -1208,7 +1208,7 @@ def _graphs_path(name, make, tmp):
     import gc
 
     import torch
-    from smarties_tpu_torch.ops import adam_kernel, step_tail_kernel
+    from smarties_tpu_torch.ops import adam_kernel, cuda_lib
     from smarties_tpu_torch.ops import retrace_kernel as rk
     from smarties_tpu_torch.runtime import graphs as cg
     from smarties_tpu_torch.runtime.profile_main import profile_calls
@@ -1223,9 +1223,7 @@ def _graphs_path(name, make, tmp):
         tr = make(None if mode == "captured" else False)
         assert tr.graphs == (mode == "captured"), (name, mode, tr.graphs)
         sites = SiteCounter(tr, rk)
-        rk.reset_launches()
-        adam_kernel.reset_launches()
-        step_tail_kernel.reset_launches()
+        cuda_lib.reset_launches()
         t0 = time.perf_counter()
         tr.warmup(chunk=16)
         torch.cuda.synchronize()
@@ -1410,7 +1408,7 @@ def phase_learners():
     import numpy as np
     import torch
     from smarties_tpu_torch import launch
-    from smarties_tpu_torch.ops import adam_kernel, step_tail_kernel
+    from smarties_tpu_torch.ops import cuda_lib
     from smarties_tpu_torch.ops import retrace_kernel as rk
 
     runs = os.path.join(ROOT, "build", "chip_smoke_runs")
@@ -1441,9 +1439,7 @@ def phase_learners():
                              steps=tr.n_grad_steps - g0)
             tr.train = timed_train
 
-        rk.reset_launches()
-        adam_kernel.reset_launches()
-        step_tail_kernel.reset_launches()
+        cuda_lib.reset_launches()
         t0 = time.perf_counter()
         tr = launch.run(args, prepare=prepare)
         torch.cuda.synchronize()
@@ -1521,7 +1517,7 @@ def phase_on_policy():
     import numpy as np
     import torch
     from smarties_tpu_torch import launch
-    from smarties_tpu_torch.ops import adam_kernel, step_tail_kernel
+    from smarties_tpu_torch.ops import cuda_lib
     from smarties_tpu_torch.ops import retrace_kernel as rk
 
     runs = os.path.join(ROOT, "build", "chip_smoke_runs")
@@ -1554,9 +1550,7 @@ def phase_on_policy():
 
             tr._train_chunk, tr._refresh = timed_chunk, watched_refresh
 
-        rk.reset_launches()
-        adam_kernel.reset_launches()
-        step_tail_kernel.reset_launches()
+        cuda_lib.reset_launches()
         t0 = time.perf_counter()
         tr = launch.run(args, prepare=prepare)
         torch.cuda.synchronize()
@@ -1619,6 +1613,7 @@ def phase_recurrent():
     import torch
     from smarties_tpu_torch import launch
     from smarties_tpu_torch.envs import cartpole
+    from smarties_tpu_torch.ops import cuda_lib
     from smarties_tpu_torch.ops import retrace_kernel as rk
     from smarties_tpu_torch.runtime.trainer import Trainer
 
@@ -1633,7 +1628,7 @@ def phase_recurrent():
         assert tr.algo_is_recurrent and tr.algo.spec.kind == cfg.nnType
         assert tr.replay.rewards.shape == (n_slots, MAIN_L1)
         sites = SiteCounter(tr, rk)
-        rk.reset_launches()
+        cuda_lib.reset_launches()
         t0 = time.perf_counter()
         tr.warmup()
         torch.cuda.synchronize()
@@ -1713,6 +1708,7 @@ def phase_atari():
     import torch
     from smarties_tpu_torch import launch
     from smarties_tpu_torch.envs import catch
+    from smarties_tpu_torch.ops import cuda_lib
     from smarties_tpu_torch.ops import retrace_kernel as rk
 
     name = "racer_atari"
@@ -1766,7 +1762,7 @@ def phase_atari():
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    rk.reset_launches()
+    cuda_lib.reset_launches()
     t0 = time.perf_counter()
     tr = launch.run(args, prepare=prepare)
     torch.cuda.synchronize()
@@ -2054,6 +2050,7 @@ def phase_samplers():
     import numpy as np
     import torch
     from smarties_tpu_torch.models import convert
+    from smarties_tpu_torch.ops import cuda_lib
     from smarties_tpu_torch.ops import retrace_kernel as rk
     from smarties_tpu_torch.replay import buffer as rb
 
@@ -2062,7 +2059,7 @@ def phase_samplers():
     cfg = tr.cfg
     assert tr.graphs
     sites = SiteCounter(tr, rk)
-    rk.reset_launches()
+    cuda_lib.reset_launches()
     tr.warmup(chunk=16, blind_sweeps=16)
     assert not tr._can_presample
     hooks = {}
@@ -2130,6 +2127,7 @@ def phase_learning():
     import numpy as np
     import torch
     from smarties_tpu_torch.envs import cartpole
+    from smarties_tpu_torch.ops import cuda_lib
     from smarties_tpu_torch.ops import retrace_kernel as rk
     from smarties_tpu_torch.runtime.trainer import Trainer
     from smarties_tpu_torch.utils.config import HyperParameters
@@ -2139,7 +2137,7 @@ def phase_learning():
                  n_envs=LEARN_ENVS, n_slots=LEARN_SLOTS,
                  max_len=cartpole.MAX_STEPS, device="cuda")
     sites = SiteCounter(tr, rk)
-    rk.reset_launches()
+    cuda_lib.reset_launches()
     t0 = time.perf_counter()
     tr.warmup(chunk=32)
     base = float(np.mean(tr.evaluate(16)))
@@ -2238,7 +2236,7 @@ def phase_acer():
     from smarties_tpu_torch import launch
     from smarties_tpu_torch.algos import acer
     from smarties_tpu_torch.envs import pendulum
-    from smarties_tpu_torch.ops import adam_kernel, step_tail_kernel
+    from smarties_tpu_torch.ops import cuda_lib
     from smarties_tpu_torch.ops import retrace_kernel as rk
     from smarties_tpu_torch.ops import returns as ret
     from smarties_tpu_torch.runtime import bench_retrace as bench
@@ -2264,9 +2262,7 @@ def phase_acer():
 
     acer.affine_suffix_scan = recorded_scan
     try:
-        rk.reset_launches()
-        adam_kernel.reset_launches()
-        step_tail_kernel.reset_launches()
+        cuda_lib.reset_launches()
         t0 = time.perf_counter()
         tr = launch.run(args, prepare=prepare)
         torch.cuda.synchronize()
@@ -2393,6 +2389,7 @@ def phase_racer_es():
     import torch
     from smarties_tpu_torch import launch
     from smarties_tpu_torch.envs import cartpole
+    from smarties_tpu_torch.ops import cuda_lib
     from smarties_tpu_torch.ops import retrace_kernel as rk
 
     name = "vracer_cma"
@@ -2408,7 +2405,7 @@ def phase_racer_es():
         hooks["sites"] = SiteCounter(tr, rk)
         _timed_fused(tr, hooks)
 
-    rk.reset_launches()
+    cuda_lib.reset_launches()
     t0 = time.perf_counter()
     tr = launch.run(args, prepare=prepare)
     torch.cuda.synchronize()
@@ -2508,6 +2505,7 @@ def phase_cma():
     import numpy as np
     import torch
     from smarties_tpu_torch import launch
+    from smarties_tpu_torch.ops import cuda_lib
     from smarties_tpu_torch.ops import retrace_kernel as rk
 
     name = "cma"
@@ -2516,7 +2514,7 @@ def phase_cma():
         "cartpole", "--recipe", "CMA", "--device", "cuda", "--nEnvironments",
         str(CMA_ENVS), "--nTrainSteps", str(CMA_GENERATIONS), "--runprefix",
         runs, "--runname", name])
-    rk.reset_launches()
+    cuda_lib.reset_launches()
     t0 = time.perf_counter()
     cma = launch.run(args)
     torch.cuda.synchronize()
@@ -2743,6 +2741,7 @@ def phase_engine_main():
     import numpy as np
     import torch
     from smarties_tpu_torch import launch
+    from smarties_tpu_torch.ops import cuda_lib
     from smarties_tpu_torch.ops import retrace_kernel as rk
 
     run_dir = os.path.join(ROOT, "build", "chip_smoke_runs", "engine")
@@ -2769,7 +2768,7 @@ def phase_engine_main():
             e.setNumEvaluationEpisodes(ENGINE_EVAL)
             n_rows = len(_reward_rows(run_dir))
         probe = EngineProbe(rk)
-        rk.reset_launches()
+        cuda_lib.reset_launches()
         t0 = time.perf_counter()
         e.run(app, prepare=probe)
         torch.cuda.synchronize()
@@ -2940,6 +2939,7 @@ def phase_engine_paths():
     from smarties_tpu_torch import launch
     from smarties_tpu_torch.algos.cma import CMAES
     from smarties_tpu_torch.models.net import tree_leaves
+    from smarties_tpu_torch.ops import cuda_lib
     from smarties_tpu_torch.ops import retrace_kernel as rk
     from smarties_tpu_torch.runtime.env_pool import EnvPool
     from smarties_tpu_torch.runtime.socket_pool import SocketEnvPool
@@ -2953,7 +2953,7 @@ def phase_engine_paths():
 
     def run(name, e, app=None, pool=None, check=None):
         probe = EngineProbe(rk)
-        rk.reset_launches()
+        cuda_lib.reset_launches()
         t0 = time.perf_counter()
         e.run(app, pool=pool, prepare=probe)
         torch.cuda.synchronize()
@@ -3037,7 +3037,7 @@ def phase_engine_paths():
     cfg = HyperParameters(learner="CMA", ESpopSize=8, batchSize=4,
                           explNoise=0.0, nnLayerSizes=[8], learnrate=0.05)
     pool = EnvPool(app["app_main"], n_envs=8)
-    rk.reset_launches()
+    cuda_lib.reset_launches()
     t0 = time.perf_counter()
     try:
         cma = CMAES(None, pool.probe_spec(), cfg, n_envs=8, max_len=4,
@@ -3154,6 +3154,7 @@ def _launcher_path(name, app, recipe, n_envs, n_steps, extra=()):
     launches, wall s of the run)."""
     import torch
     from smarties_tpu_torch import launch
+    from smarties_tpu_torch.ops import cuda_lib
     from smarties_tpu_torch.ops import retrace_kernel as rk
 
     runs = os.path.join(ROOT, "build", "chip_smoke_runs")
@@ -3177,7 +3178,7 @@ def _launcher_path(name, app, recipe, n_envs, n_steps, extra=()):
             hooks["warmup_env_steps"] = tr.n_env_steps
         tr.warmup = timed_warmup
 
-    rk.reset_launches()
+    cuda_lib.reset_launches()
     t0 = time.perf_counter()
     tr = launch.run(args, prepare=prepare)
     torch.cuda.synchronize()
@@ -3376,6 +3377,7 @@ def phase_multitrainer():
     import torch
     from smarties_tpu_torch import launch
     from smarties_tpu_torch.envs import predator_prey as pp
+    from smarties_tpu_torch.ops import cuda_lib
     from smarties_tpu_torch.ops import retrace_kernel as rk
     from smarties_tpu_torch.runtime.multitrainer import MultiTrainer
 
@@ -3411,7 +3413,7 @@ def phase_multitrainer():
         return roll(n)
 
     mt._roll = counted_roll
-    rk.reset_launches()
+    cuda_lib.reset_launches()
     mt.warmup()
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
@@ -3630,8 +3632,8 @@ def _mc_rank(rank, store, out_dir):
     from smarties_tpu_torch.algos.base import presample_uniform
     from smarties_tpu_torch.envs import cartpole
     from smarties_tpu_torch.models.net import tree_map
+    from smarties_tpu_torch.ops import cuda_lib
     from smarties_tpu_torch.ops import retrace_kernel as rk
-    from smarties_tpu_torch.ops import step_tail_kernel as stk
     from smarties_tpu_torch.parallel import mesh as pm
     from smarties_tpu_torch.parallel.multihost import init_multihost
     from smarties_tpu_torch.runtime.trainer import Trainer, _plain
@@ -3666,8 +3668,7 @@ def _mc_rank(rank, store, out_dir):
 
         # the counts start at 0 here: warmup and train(MC_STEPS) are the
         # path's run
-        rk.reset_launches()
-        stk.reset_launches()
+        cuda_lib.reset_launches()
         mesh.counts.clear()
         t0 = time.perf_counter()
         tr.warmup()
@@ -3929,6 +3930,7 @@ def phase_curves():
 
     import numpy as np
     import torch
+    from smarties_tpu_torch.ops import cuda_lib
     from smarties_tpu_torch.ops import retrace_kernel as rk
     from smarties_tpu_torch.runtime import bench_retrace as bench
     from smarties_tpu_torch.tools import cma_func_max_record as cmarec
@@ -3954,7 +3956,7 @@ def phase_curves():
 
     results = {}
     for name, budget, steps, mode in CURVES_RUNS:
-        rk.reset_launches()
+        cuda_lib.reset_launches()
         t0 = time.perf_counter()
         lc.main(["run", name, "--device", "cuda", "--budget", str(budget),
                  "--out", out])
@@ -4001,7 +4003,7 @@ def phase_curves():
             "k1": k1, "run_s": run_s, "grad_steps": s["grad_steps"],
             "eval_mean": s["eval_mean"]}
 
-    rk.reset_launches()
+    cuda_lib.reset_launches()
     t0 = time.perf_counter()
     cma_out = os.path.join(out, "cma_func_max")
     cmarec.main(["--device", "cuda", "--generations",
@@ -4230,7 +4232,7 @@ def main(argv=None):
                "plain_ms": kern["plain"][name], "bytes": r["bytes"],
                "bound_ms": r["bound_ms"], "bound_by": "bytes",
                "share_of_bound": r["share_of_bound"],
-               "device_loop_ms": r["loop_ms"], "clone_ms": r["clone_ms"],
+               "clone_ms": r["clone_ms"],
                "library_ms": None, "paths": by_entry[name]}
         for name, r in entry_rows.items()}
     acer_scan = learners["acer"]["scan"]

@@ -43,10 +43,10 @@ setup and its FLOP count
             --quality-wall-s stops a seed between cycles, and the seed's
             result says so ("cut_by_wall_s" and the grad steps reached).
 
-K1's launches (ops/retrace_kernel.launches, reset at each phase start)
-and the peak memory of each phase go into the extras. --budget-s gates
-the steady and Atari phases as bench.py's left() does. The printed line
-is bench.py's schema ({"metric", "value", "unit", "vs_baseline",
+K1's launches (ops/retrace_kernel.launches, counted from each phase's
+start) and the peak memory of each phase go into the extras. --budget-s
+gates the steady and Atari phases as bench.py's left() does. The printed
+line is bench.py's schema ({"metric", "value", "unit", "vs_baseline",
 "extras"}) within its 1800-character budget and shed order; vs_baseline
 is null (bench.py's denominator is a TPU figure). The whole capture,
 the per-seed curves included, goes to build/bench_torch_partial.json
@@ -380,7 +380,7 @@ def run(sizes: Sizes = Sizes(), seeds=(0, 1, 2), quality_cycles: int = 256,
               "timing": "fused: CUDA events, one synchronize per window; "
                         "steady, atari: host clock between synchronizes",
               "device": card_line() if dev.type == "cuda" else "cpu"}
-    k1, peaks = {}, {}
+    k1, peaks, k1_start = {}, {}, {}
     extras["k1_launches"], extras["peak_memory_gib"] = k1, peaks
     errors, skipped, quality = [], [], []
     state = {"value": 0.0}
@@ -397,14 +397,14 @@ def run(sizes: Sizes = Sizes(), seeds=(0, 1, 2), quality_cycles: int = 256,
         os.replace(tmp, partial_path)
 
     def begin(phase):
-        rk.reset_launches()
+        k1_start[phase] = sum(rk.launches.values())
         gc.collect()                     # the last phase's trainer
         if dev.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
 
     def end(phase):
-        k1[phase] = sum(rk.launches.values())
+        k1[phase] = sum(rk.launches.values()) - k1_start[phase]
         if dev.type == "cuda":
             peaks[phase] = round(torch.cuda.max_memory_allocated(dev)
                                  / 2 ** 30, 3)

@@ -19,49 +19,29 @@ gradient or moment of another shape than its parameter). There is no
 fallback. `launches` counts the launches (a plain dict of ints, touched
 nowhere but at a launch; runtime/graphs.py counts them over replays).
 
-Build: at first use, never at import, as K1's library is
-(ops/retrace_kernel.py::compile_library), with --fmad=false so that no
-multiply and add contract into an FMA.
+Build: at first use, never at import, through ops/cuda_lib.py, with
+--fmad=false so that no multiply and add contract into an FMA.
 """
 from __future__ import annotations
 
 import ctypes
-import os
 
 import numpy as np
 import torch
 
-from smarties_tpu_torch.ops import retrace_kernel as rk
+from smarties_tpu_torch.ops.cuda_lib import Library
 from smarties_tpu_torch.ops.leaf_table import LeafTables
 
-SOURCES = (os.path.join(os.path.dirname(rk.SOURCES[0]), "adam.cu"),)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
 launches = {"adam_update": 0, "adam_advance": 0}
-build_info = {"path": None, "seconds": None, "log": ""}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LIB = Library(
+    "smt_adam", ("adam.cu",),
+    ("--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"),
+    {"smt_adam_update": [_P, _P, _I, _P, _P, _P] + [_F] * 9 + [_P],
+     "smt_adam_advance": [_P, _P, _P, _F, _F, _F, _P],
+     "smt_adam_max_leaves": []},
+    counters=(launches,))
 _tables = LeafTables()
-_lib = None
-
-
-def reset_launches():
-    for k in launches:
-        launches[k] = 0
-
-
-def library() -> ctypes.CDLL:
-    """Build (if needed) and load the Adam library; cached per process."""
-    global _lib
-    if _lib is None:
-        lib = rk.compile_library(SOURCES, NVCC_FLAGS, "smt_adam", build_info)
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.smt_adam_update.argtypes = [P, P, I, P, P, P] + [F] * 9 + [P]
-        lib.smt_adam_advance.argtypes = [P, P, P, F, F, F, P]
-        for fn in (lib.smt_adam_update, lib.smt_adam_advance,
-                   lib.smt_adam_max_leaves):
-            fn.restype = I
-        _lib = lib
-    return _lib
 
 
 def scalar_args(cfg, grad_factor, eps) -> tuple:
@@ -112,7 +92,7 @@ def _table(ws, gs, m1s, m2s):
 def _launches(sizes) -> tuple:
     """(launches,) of an update over leaves of these sizes: one per
     table of leaves with an element."""
-    per = library().smt_adam_max_leaves()
+    per = LIB.load().smt_adam_max_leaves()
     return (sum(any(sizes[i:i + per]) for i in range(0, len(sizes), per)),)
 
 
@@ -121,15 +101,9 @@ def update_(ws, gs, m1s, m2s, state, cfg, grad_factor, eps):
     moments' leaves), in place, with state's scalars read on the card."""
     _check(ws, gs, m1s, m2s, state)
     ptrs, sizes, n, n_launches = _table(ws, gs, m1s, m2s)
-    dev = ws[0].device
-    with torch.cuda.device(dev):
-        err = library().smt_adam_update(
-            ptrs, sizes, n, state.step.data_ptr(), state.beta_t_1.data_ptr(),
-            state.beta_t_2.data_ptr(), *scalar_args(cfg, grad_factor, eps),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"adam_kernel: CUDA launch failed with error "
-                           f"{err}")
+    LIB.launch("adam_kernel", ws[0].device, "smt_adam_update", ptrs, sizes,
+               n, state.step.data_ptr(), state.beta_t_1.data_ptr(),
+               state.beta_t_2.data_ptr(), *scalar_args(cfg, grad_factor, eps))
     launches["adam_update"] += n_launches
     # autograd's record of in-place writes, as the loop's add_ / copy_ keep it
     for x in (*ws, *m1s, *m2s):
@@ -140,13 +114,8 @@ def advance_(state, cfg, eps):
     """adam_advance_plain_ on CUDA scalars, in place: one launch."""
     dev = state.step.device
     _check_scalars(state, dev)
-    with torch.cuda.device(dev):
-        err = library().smt_adam_advance(
-            state.beta_t_1.data_ptr(), state.beta_t_2.data_ptr(),
-            state.step.data_ptr(), np.float32(cfg.beta1),
-            np.float32(cfg.beta2), np.float32(eps),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"adam_kernel: CUDA launch failed with error "
-                           f"{err}")
+    LIB.launch("adam_kernel", dev, "smt_adam_advance",
+               state.beta_t_1.data_ptr(), state.beta_t_2.data_ptr(),
+               state.step.data_ptr(), np.float32(cfg.beta1),
+               np.float32(cfg.beta2), np.float32(eps))
     launches["adam_advance"] += 1

@@ -37,116 +37,39 @@ takes a plain loop. All arrays of one call must share the layout; the
 output is allocated in it. No copy is made. `retrace_sweep_` takes the
 contiguous time-major [L1, E] tensors themselves.
 
-Build: at first use (never at import), nvcc compiles csrc/retrace.cu for
-sm_90a into a shared library with a plain C interface under
-build/smarties_tpu_torch/ at the repository root, named by a hash of the
-source and flags so an edited source rebuilds; ctypes loads it.
+Build: at first use (never at import), through ops/cuda_lib.py. The
+pipeline's producer warps, tile depth and stages are compile-time
+constants of csrc/retrace.cu (SMT_PRODUCERS, SMT_STEPS, SMT_STAGES),
+changed by editing the source.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import torch
 
+from smarties_tpu_torch.ops.cuda_lib import Library
 from smarties_tpu_torch.ops.returns import (affine_suffix_scan_plain,
                                             batched_retrace_plain,
                                             retrace_sweep_plain_)
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = (os.path.join(_PKG_DIR, "csrc", "retrace.cu"),)
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
-                         "smarties_tpu_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-# kernel launches per entry point (reset by callers that count a run)
+# kernel launches per entry point (zeroed by cuda_lib.reset_launches)
 launches = {"affine_suffix_scan": 0, "batched_retrace": 0,
             "retrace_sweep": 0}
 # the same launches of the two return estimators by their mode
 launch_modes = {"retrace": 0, "GAE": 0}
-# what the last build in this process did: library path, nvcc seconds
-# (None when the library was already built) and nvcc's output
-build_info = {"path": None, "seconds": None, "log": ""}
-_lib = None
-
-
-def reset_launches():
-    for counts in (launches, launch_modes):
-        for k in counts:
-            counts[k] = 0
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    default = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                           "bin", "nvcc")
-    if path is None and os.path.exists(default):
-        path = default
-    if path is None:
-        raise RuntimeError("nvcc not found: the CUDA kernel of "
-                           "ops/retrace_kernel.py cannot be built")
-    return path
-
-
-def compile_library(sources, flags, stem: str, info: dict) -> ctypes.CDLL:
-    """nvcc `sources` with `flags` into build/smarties_tpu_torch/lib<stem>_
-    <hash of sources and flags>.so, unless that library is already
-    there, and load it. Fills `info` (path, nvcc seconds, nvcc's
-    output), as `build_info`."""
-    h = hashlib.sha256(" ".join(flags).encode())
-    for src in sources:
-        with open(src, "rb") as f:
-            h.update(f.read())
-    so = os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
-    info.update(path=so, seconds=None, log="")
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.tmp{os.getpid()}"
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, *sources],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)   # atomic: a concurrent loader sees all or none
-        info.update(seconds=time.perf_counter() - t0,
-                    log=proc.stdout + proc.stderr)
-    return ctypes.CDLL(so)
-
-
-def build(defines=()) -> ctypes.CDLL:
-    """Compile csrc/retrace.cu (unless a library of the same source,
-    flags and `defines` is already there) and load it. `defines` are -D
-    options: the pipeline's producer warps, tile depth and stages
-    (SMT_PRODUCERS, SMT_STEPS, SMT_STAGES), for runtime/bench_retrace.py's
-    comparison of shapes. Fills `build_info`."""
-    lib = compile_library(SOURCES,
-                          (*NVCC_FLAGS, *(f"-D{d}" for d in defines)),
-                          "smt_retrace", build_info)
-    P, I, LL, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
-    lib.smt_affine_suffix_scan.argtypes = [P, P, P, I, I, LL, LL, I, P]
-    lib.smt_batched_retrace.argtypes = [P, P, P, P, P, P, P, I, I, LL, LL,
-                                        F, F, F, F, I, I, P]
-    lib.smt_retrace_sweep.argtypes = [P] * 11 + [I, I, F, F, F, F, I, I, P]
-    lib.smt_pipeline_smem_bytes.argtypes = [I]
-    for fn in (lib.smt_affine_suffix_scan, lib.smt_batched_retrace,
-               lib.smt_retrace_sweep, lib.smt_pipeline_smem_bytes):
-        fn.restype = I
-    return lib
-
-
-def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; cached per process."""
-    global _lib
-    if _lib is None:
-        _lib = build()
-    return _lib
+LIB = Library(
+    "smt_retrace", ("retrace.cu",),
+    ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"),
+    {"smt_affine_suffix_scan": [_P, _P, _P, _I, _I, _LL, _LL, _I, _P],
+     "smt_batched_retrace": [_P] * 7 + [_I, _I, _LL, _LL, _F, _F, _F, _F,
+                                        _I, _I, _P],
+     "smt_retrace_sweep": [_P] * 11 + [_I, _I, _F, _F, _F, _F, _I, _I, _P],
+     "smt_pipeline_smem_bytes": [_I]},
+    counters=(launches, launch_modes))
+library = LIB.load
 
 
 def _strides(arrays, names):
@@ -183,22 +106,11 @@ def _strides(arrays, names):
     return E, L1, want
 
 
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-
-
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def affine_suffix_scan(a, b, *, pipelined: bool = True):
+def affine_suffix_scan(a, b):
     """q[e, t] = a[e, t] + b[e, t] * q[e, t+1], q beyond L1-1 = 0.
 
     a, b: [E, L1] float32 -> q [E, L1] in their layout. CPU: the plain
-    loop; CUDA: one kernel launch on the current stream, not synchronised.
-    `pipelined=False` makes time-major input take the kernel's plain loop
-    too (the yardstick of the async-copy pipeline; same result)."""
+    loop; CUDA: one kernel launch on the current stream, not synchronised."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return affine_suffix_scan_plain(a, b)
     if a.device.type != "cuda":
@@ -208,12 +120,9 @@ def affine_suffix_scan(a, b, *, pipelined: bool = True):
                             device=a.device)
     if E == 0 or L1 == 0:
         return q
-    lib = library()
-    with torch.cuda.device(a.device):
-        err = lib.smt_affine_suffix_scan(a.data_ptr(), b.data_ptr(),
-                                         q.data_ptr(), E, L1, se, st,
-                                         int(pipelined), _stream(a.device))
-    _raise_on(err, "affine_suffix_scan")
+    # 1: time-major input takes the pipeline, row-major input the loop
+    LIB.launch("affine_suffix_scan", a.device, "smt_affine_suffix_scan",
+               a.data_ptr(), b.data_ptr(), q.data_ptr(), E, L1, se, st, 1)
     launches["affine_suffix_scan"] += 1
     return q
 
@@ -227,15 +136,14 @@ def _check_slots(x, name, dtype, E, device):
 
 
 def batched_retrace(r_scaled, value, advantage, rho, length, terminal,
-                    gamma: float, lam: float, mode: str = "retrace", *,
-                    pipelined: bool = True):
+                    gamma: float, lam: float, mode: str = "retrace"):
     """qret [E, L1] of the Retrace ("retrace") or GAE ("GAE") backward
     recursion, 0 for t > length — batched_retrace_pallas's result.
 
     r_scaled, value, advantage, rho: [E, L1] float32 in one layout;
     length: [E] int32 with 0 <= length <= L1-1; terminal: [E] bool.
     CPU: `batched_retrace_plain`; CUDA: one kernel launch on the current
-    stream, not synchronised. `pipelined` as in `affine_suffix_scan`."""
+    stream, not synchronised."""
     if mode not in ("retrace", "GAE"):
         raise ValueError(f"batched_retrace: mode {mode!r} is not affine")
     floats = (r_scaled, value, advantage, rho)
@@ -253,15 +161,12 @@ def batched_retrace(r_scaled, value, advantage, rho, length, terminal,
                             device=r_scaled.device)
     if E == 0 or L1 == 0:
         return q
-    lib = library()
-    with torch.cuda.device(r_scaled.device):
-        err = lib.smt_batched_retrace(
-            r_scaled.data_ptr(), value.data_ptr(), advantage.data_ptr(),
-            rho.data_ptr(), length.data_ptr(), terminal.data_ptr(),
-            q.data_ptr(), E, L1, se, st, gamma, lam, gamma * lam,
-            gamma * (1 - lam), int(mode == "GAE"), int(pipelined),
-            _stream(r_scaled.device))
-    _raise_on(err, "batched_retrace")
+    LIB.launch(
+        "batched_retrace", r_scaled.device, "smt_batched_retrace",
+        r_scaled.data_ptr(), value.data_ptr(), advantage.data_ptr(),
+        rho.data_ptr(), length.data_ptr(), terminal.data_ptr(), q.data_ptr(),
+        E, L1, se, st, gamma, lam, gamma * lam, gamma * (1 - lam),
+        int(mode == "GAE"), 1)
     launches["batched_retrace"] += 1
     launch_modes[mode] += 1
     return q
@@ -319,16 +224,13 @@ def retrace_sweep_(qret_tm, rewards_tm, value_tm, advantage_tm, rho_tm,
                              f"got {tuple(x.shape)} {x.dtype} on {x.device}")
     if E == 0 or L1 == 0:
         return qret_tm
-    lib = library()
-    with torch.cuda.device(dev):
-        err = lib.smt_retrace_sweep(
-            qret_tm.data_ptr(), rewards_tm.data_ptr(), value_tm.data_ptr(),
-            advantage_tm.data_ptr(), rho_tm.data_ptr(), v_trunc.data_ptr(),
-            slot_len.data_ptr(), slot_term.data_ptr(), select.data_ptr(),
-            rew_mean.data_ptr(), rew_scale.data_ptr(), E, L1, gamma, lam,
-            gamma * lam, gamma * (1 - lam), int(mode == "GAE"),
-            int(zero_unselected), _stream(dev))
-    _raise_on(err, "retrace_sweep_")
+    LIB.launch(
+        "retrace_sweep_", dev, "smt_retrace_sweep", qret_tm.data_ptr(),
+        rewards_tm.data_ptr(), value_tm.data_ptr(), advantage_tm.data_ptr(),
+        rho_tm.data_ptr(), v_trunc.data_ptr(), slot_len.data_ptr(),
+        slot_term.data_ptr(), select.data_ptr(), rew_mean.data_ptr(),
+        rew_scale.data_ptr(), E, L1, gamma, lam, gamma * lam,
+        gamma * (1 - lam), int(mode == "GAE"), int(zero_unselected))
     launches["retrace_sweep"] += 1
     launch_modes[mode] += 1
     return qret_tm

@@ -9,38 +9,21 @@ time.perf_counter_ns(). `row` is a 0-based device counter ([1] int64),
 read by the kernel, so a replayed graph stamps a new row each step; None
 stamps row 0. `on_grad(x, mark)` marks where a backward pass reaches x.
 utils/profiler.py maps the card's timer onto the host's clock. The
-library is built at first use, never at import, as K1's is
-(ops/retrace_kernel.py::compile_library).
+library is built at first use, never at import, through ops/cuda_lib.py.
 """
 from __future__ import annotations
 
 import ctypes
-import os
 import time
 
 import torch
 
-from smarties_tpu_torch.ops import retrace_kernel as rk
+from smarties_tpu_torch.ops.cuda_lib import Library
 
-SOURCES = (os.path.join(os.path.dirname(rk.SOURCES[0]), "stamp.cu"),)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-build_info = {"path": None, "seconds": None, "log": ""}
-_lib = None
-
-
-def library() -> ctypes.CDLL:
-    """Build (if needed) and load the stamp library; cached per process."""
-    global _lib
-    if _lib is None:
-        lib = rk.compile_library(SOURCES, NVCC_FLAGS, "smt_stamp",
-                                 build_info)
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.smt_stamp.argtypes = [P, P, I, I, P]
-        lib.smt_timer_ticks.argtypes = [P, I, P]
-        lib.smt_stamp.restype = lib.smt_timer_ticks.restype = I
-        _lib = lib
-    return _lib
+_P, _I = ctypes.c_void_p, ctypes.c_int
+LIB = Library("smt_stamp", ("stamp.cu",), ("-shared", "-Xcompiler", "-fPIC"),
+              {"smt_stamp": [_P, _P, _I, _I, _P],
+               "smt_timer_ticks": [_P, _I, _P]})
 
 
 def stamp_(buf: torch.Tensor, row, col: int) -> torch.Tensor:
@@ -60,13 +43,8 @@ def stamp_(buf: torch.Tensor, row, col: int) -> torch.Tensor:
     if row is not None and (row.device != buf.device
                             or row.dtype != torch.int64):
         raise ValueError(f"stamp_: row must be int64 on {buf.device}")
-    with torch.cuda.device(buf.device):
-        err = library().smt_stamp(
-            buf.data_ptr(), None if row is None else row.data_ptr(),
-            buf.shape[1], col,
-            torch.cuda.current_stream(buf.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"stamp_: CUDA launch failed with error {err}")
+    LIB.launch("stamp_", buf.device, "smt_stamp", buf.data_ptr(),
+               None if row is None else row.data_ptr(), buf.shape[1], col)
     return buf
 
 
@@ -97,10 +75,6 @@ def timer_ticks_ns(device, n: int = 64) -> list:
     distinct readings of %globaltimer. A synchronisation."""
     device = torch.device(device)
     out = torch.zeros((n,), dtype=torch.int64, device=device)
-    with torch.cuda.device(device):
-        err = library().smt_timer_ticks(
-            out.data_ptr(), n, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"timer_ticks_ns: CUDA launch failed with "
-                           f"error {err}")
+    LIB.launch("timer_ticks_ns", device, "smt_timer_ticks", out.data_ptr(),
+               n)
     return out.tolist()

@@ -33,69 +33,49 @@ algos/base.py::step_tail_ dispatches: CUDA tensors come here, with or
 without a mesh; what the kernel does not take raises (a replay field
 that is not float32 or not contiguous, tensors on two devices, rows of
 another length or type). There is no fallback. `launches` counts the
-launches, and `plain` the tails that took the chain on a card (none
-does today); runtime/graphs.py counts them over replays.
+launches; runtime/graphs.py counts them over replays.
 
-Build: at first use, never at import, as K1's library is
-(ops/retrace_kernel.py::compile_library), with --fmad=false so that no
-multiply and add contract into an FMA.
+Build: at first use, never at import, through ops/cuda_lib.py, with
+--fmad=false so that no multiply and add contract into an FMA.
 """
 from __future__ import annotations
 
 import ctypes
-import os
 
 import numpy as np
 import torch
 
-from smarties_tpu_torch.ops import retrace_kernel as rk
+from smarties_tpu_torch.ops.cuda_lib import Library
 from smarties_tpu_torch.ops.leaf_table import LeafTables
 from smarties_tpu_torch.parallel.mesh import pmax_, psum_
 
-SOURCES = (os.path.join(os.path.dirname(rk.SOURCES[0]), "step_tail.cu"),)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
-launches = {"step_tail": 0, "grad_stats": 0, "finish": 0, "plain": 0}
-build_info = {"path": None, "seconds": None, "log": ""}
+launches = {"step_tail": 0, "grad_stats": 0, "finish": 0}
 # the kernel's sizes (csrc/step_tail.cu): leaves a grad_stats launch
 # takes, gradient elements a grad_stats block, replay slots a tail block
 MAX_LEAVES, STAT_ELEMS, SLOT_ELEMS = 64, 16 * 256, 4 * 256
 METRICS = ("avg_dkl", "avg_rho", "frac_far_batch", "frac_far_data", "beta",
            "rmse", "avg_v", "grad_norm", "grad_max")
 _tables = LeafTables()
-_lib = None
 
 
-def reset_launches():
-    for k in launches:
-        launches[k] = 0
+def _check_sizes(lib):
+    sizes = (lib.smt_step_tail_max_leaves(), lib.smt_step_tail_stat_elems(),
+             lib.smt_step_tail_slot_elems(), lib.smt_step_tail_metrics())
+    if sizes != (MAX_LEAVES, STAT_ELEMS, SLOT_ELEMS, len(METRICS)):
+        raise RuntimeError(f"step_tail_kernel: the library's sizes {sizes} "
+                           f"differ from the wrapper's")
 
 
-def library() -> ctypes.CDLL:
-    """Build (if needed) and load the tail library; cached per process."""
-    global _lib
-    if _lib is None:
-        lib = rk.compile_library(SOURCES, NVCC_FLAGS, "smt_step_tail",
-                                 build_info)
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.smt_grad_stats.argtypes = [P, P, I, P, P, P, P]
-        lib.smt_step_tail.argtypes = [P, P, I, I, P, I] + [F] * 6 + [P, I, P]
-        lib.smt_step_tail_finish.argtypes = [P, I] + [F] * 6 + [P, I, I, P]
-        for fn in (lib.smt_grad_stats, lib.smt_step_tail,
-                   lib.smt_step_tail_finish,
-                   lib.smt_step_tail_max_leaves,
-                   lib.smt_step_tail_stat_elems,
-                   lib.smt_step_tail_slot_elems, lib.smt_step_tail_metrics):
-            fn.restype = I
-        sizes = (lib.smt_step_tail_max_leaves(),
-                 lib.smt_step_tail_stat_elems(),
-                 lib.smt_step_tail_slot_elems(), lib.smt_step_tail_metrics())
-        if sizes != (MAX_LEAVES, STAT_ELEMS, SLOT_ELEMS, len(METRICS)):
-            raise RuntimeError(f"step_tail_kernel: the library's sizes "
-                               f"{sizes} differ from the wrapper's")
-        _lib = lib
-    return _lib
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LIB = Library(
+    "smt_step_tail", ("step_tail.cu",),
+    ("--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"),
+    {"smt_grad_stats": [_P, _P, _I, _P, _P, _P, _P],
+     "smt_step_tail": [_P, _P, _I, _I, _P, _I] + [_F] * 6 + [_P, _I, _P],
+     "smt_step_tail_finish": [_P, _I] + [_F] * 6 + [_P, _I, _I, _P],
+     "smt_step_tail_max_leaves": [], "smt_step_tail_stat_elems": [],
+     "smt_step_tail_slot_elems": [], "smt_step_tail_metrics": []},
+    counters=(launches,), check=_check_sizes)
 
 
 def scalar_args(cfg) -> tuple:
@@ -231,21 +211,13 @@ def tail_(rs, mb, cfg, opt_step, grads, rho, dkl, delta, value, advantage,
         metrics.data_ptr(), *coll)
     flags = (int(mb.ep.dtype == torch.int64)
              + 2 * int(mb.t.dtype == torch.int64) + 4 * int(bool(net2v)))
-    lib = library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.smt_grad_stats(g_ptrs, g_sizes, n_leaves, part_sq,
-                                 part_max, arrivals, stream)
-        if err == 0:
-            launches["grad_stats"] += n_stat
-            err = lib.smt_step_tail(
-                (ctypes.c_void_p * 12)(*row_ptrs),
-                (ctypes.c_longlong * 12)(*row_strides), flags, n,
-                replay_ptrs, E, *scalar_args(cfg), scratch_ptrs, n_grad,
-                stream)
-    if err != 0:
-        raise RuntimeError(f"step_tail_kernel: CUDA launch failed with "
-                           f"error {err}")
+    LIB.launch("step_tail_kernel", dev, "smt_grad_stats", g_ptrs, g_sizes,
+               n_leaves, part_sq, part_max, arrivals)
+    launches["grad_stats"] += n_stat
+    LIB.launch("step_tail_kernel", dev, "smt_step_tail",
+               (ctypes.c_void_p * 12)(*row_ptrs),
+               (ctypes.c_longlong * 12)(*row_strides), flags, n, replay_ptrs,
+               E, *scalar_args(cfg), scratch_ptrs, n_grad)
     launches["step_tail"] += 1
     if mesh is not None:
         # the chain's collectives, in its order (post_step_processing,
@@ -253,13 +225,9 @@ def tail_(rs, mb, cfg, opt_step, grads, rho, dkl, delta, value, advantage,
         psum_(mesh, counts)
         pmax_(mesh, red[:1])
         psum_(mesh, red[1:])
-        with torch.cuda.device(dev):
-            err = lib.smt_step_tail_finish(
-                replay_ptrs, E, *scalar_args(cfg), scratch_ptrs, n_grad,
-                mesh.size, torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"step_tail_kernel: CUDA launch failed with "
-                               f"error {err}")
+        LIB.launch("step_tail_kernel", dev, "smt_step_tail_finish",
+                   replay_ptrs, E, *scalar_args(cfg), scratch_ptrs, n_grad,
+                   mesh.size)
         launches["finish"] += 1
     # autograd's record of in-place writes, as the chain's keeps it
     for x in replay[:7] + replay[9:14]:

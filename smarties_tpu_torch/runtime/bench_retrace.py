@@ -1,7 +1,6 @@
 """K1's time on one CUDA card beside the least the card could take.
 
-    python3 -m smarties_tpu_torch.runtime.bench_retrace          # the table
-    python3 -m smarties_tpu_torch.runtime.bench_retrace --tune   # + shapes
+    python3 -m smarties_tpu_torch.runtime.bench_retrace
 
 Times the three entry points of ops/retrace_kernel.py at the main
 path's [4096, 501] in the replay's time-major layout, Retrace and GAE,
@@ -19,14 +18,13 @@ with CUDA events and a cold L2 (a 64 MB write before every launch):
   input whatever the bound's count of needed elements says; sorted,
   neighbours end together and the two counts agree.
 
-Per case: the async-copy pipeline's time, the same kernel's plain loop
-on the same input (`pipelined=False`; the sweep has none), the bytes the
-function must move (each input element it needs read once, each output
-element written once), the bound those bytes set at the card's
-published 3.35 TB/s, the share of the bound reached, and as context the
-time of one torch.clone that moves as many bytes (half read, half
-written). `--tune` rebuilds the kernel with other counts of producer
-warps, tile depths and stage counts and times `batched_retrace` with each.
+Per case: the kernel's time, the bytes the function must move (each
+input element it needs read once, each output element written once),
+the bound those bytes set at the card's published 3.35 TB/s, the share
+of the bound reached, and as context the time of one torch.clone that
+moves as many bytes (half read, half written). The pipeline's shape
+(producer warps, tile depth, stages) is a set of compile-time constants
+of csrc/retrace.cu, changed by editing the source.
 
 chip_smoke.py prints the same table (`measure`). Needs a CUDA card
 (exits 2 without one). Imports no JAX.
@@ -48,10 +46,6 @@ MAIN_E, MAIN_L1 = 4096, 501
 INGEST_SELECTED = 1024
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 GAMMA, LAM = 0.995, 0.95
-# (SMT_PRODUCERS, SMT_STEPS, SMT_STAGES) tried by --tune beside the default
-TUNE_SHAPES = ((1, 16, 4), (3, 4, 4), (3, 8, 4), (5, 4, 4), (7, 2, 4),
-               (7, 4, 2), (7, 4, 6), (7, 8, 3), (11, 2, 4), (11, 4, 4),
-               (15, 2, 4), (15, 4, 3))
 
 
 def card_line() -> str:
@@ -133,7 +127,7 @@ def moved_bytes(entry: str, mode: str, L1: int, lens, select=None,
 
 
 def _cases(device):
-    """(entry, mode, case, kernel call, loop call or None, bytes)."""
+    """(entry, mode, case, kernel call, bytes)."""
     E, L1 = MAIN_E, MAIN_L1
     rng = np.random.RandomState(1)
     some = np.zeros(E, bool)
@@ -151,45 +145,39 @@ def _cases(device):
                           torch.as_tensor(near, device=device), False))
             a, b = f["r"].t(), f["b"].t()
             out.append(("affine_suffix_scan", "-", "all steps",
-                        lambda a=a, b=b, **kw: rk.affine_suffix_scan(
-                            a, b, **kw),
-                        True, moved_bytes("affine_suffix_scan", "-", L1,
-                                          f["len"])))
+                        lambda a=a, b=b: rk.affine_suffix_scan(a, b),
+                        moved_bytes("affine_suffix_scan", "-", L1,
+                                    f["len"])))
         for mode in ("retrace", "GAE"):
             if case == "sorted" and mode == "GAE":
                 continue
             args = (f["r"].t(), f["v"].t(), f["adv"].t(), f["rho"].t(),
                     f["len"], f["term"], GAMMA, LAM, mode)
             out.append(("batched_retrace", mode, case,
-                        lambda args=args, **kw: rk.batched_retrace(
-                            *args, **kw),
-                        True, moved_bytes("batched_retrace", mode, L1,
-                                          f["len"])))
+                        lambda args=args: rk.batched_retrace(*args),
+                        moved_bytes("batched_retrace", mode, L1, f["len"])))
             for tag, select, zero in picks if case != "sorted" else ():
                 sargs = (f["qret"], f["r"], f["v"], f["adv"], f["rho"],
                          f["v_trunc"], f["len"], f["term"], select,
                          f["mean"], f["scale"], GAMMA, LAM, mode, zero)
                 out.append(("retrace_sweep", mode, tag or case,
                             lambda sargs=sargs: rk.retrace_sweep_(*sargs),
-                            False, moved_bytes("retrace_sweep", mode, L1,
-                                               f["len"], select, zero)))
+                            moved_bytes("retrace_sweep", mode, L1,
+                                        f["len"], select, zero)))
     return out
 
 
 def measure(device, n: int = 50):
-    """One row per (entry point, mode, case): dicts with `ms` (the
-    pipeline), `loop_ms` (the plain device loop, None for the sweep),
-    `bytes`, `bound_ms`, `share_of_bound` and `clone_ms`."""
+    """One row per (entry point, mode, case): dicts with `ms`, `bytes`,
+    `bound_ms`, `share_of_bound` and `clone_ms`."""
     timer = ColdTimer(device)
     rows = []
-    for entry, mode, case, call, has_loop, nbytes in _cases(device):
+    for entry, mode, case, call, nbytes in _cases(device):
         src = torch.empty(nbytes // 8, dtype=torch.float32, device=device)
         ms = timer(call, n)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rows.append({
             "entry": entry, "mode": mode, "case": case, "ms": ms,
-            "loop_ms": timer(lambda: call(pipelined=False), n)
-            if has_loop else None,
             "bytes": nbytes, "bound_ms": bound_ms,
             "share_of_bound": bound_ms / ms,
             "clone_ms": timer(src.clone, n)})
@@ -199,7 +187,7 @@ def measure(device, n: int = 50):
 def measure_sweep_at(device, E: int, L1: int, mode: str, n: int = 30):
     """The sweep over every slot (random lengths) at another path's
     replay shape and mode: a row like `measure`'s, with the plain torch
-    version's `plain_ms` instead of the device loop's."""
+    version's `plain_ms`."""
     timer = ColdTimer(device)
     f = replay_fields(0, E, L1, "random", device)
     every = torch.ones(E, dtype=torch.bool, device=device)
@@ -280,9 +268,8 @@ def plain_ms(device, n: int = 10):
 
 
 def format_row(r) -> str:
-    loop = "-" if r["loop_ms"] is None else f"{r['loop_ms']:.4f}"
     return (f"{r['entry']} {r['mode']} {r['case']}: kernel {r['ms']:.4f} ms"
-            f" | plain device loop {loop} ms | {r['bytes']} B, bound "
+            f" | {r['bytes']} B, bound "
             f"{r['bound_ms'] * 1e3:.2f} us, share of bound "
             f"{r['share_of_bound']:.3f} | clone of as many bytes "
             f"{r['clone_ms']:.4f} ms")
@@ -293,7 +280,7 @@ def ptxas_lines():
     ptxas reported them (empty when the library was already built), then
     the dynamic shared memory a pipelined block asks for."""
     out, name = [], None
-    for ln in rk.build_info["log"].splitlines():
+    for ln in rk.LIB.build_info["log"].splitlines():
         m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)"
                       r"(?:ILb(\d)ELb(\d)EE)?", ln)
         if m:
@@ -308,29 +295,6 @@ def ptxas_lines():
     return out
 
 
-def tune(device):
-    """`batched_retrace` (Retrace; random and full lengths) under other
-    pipeline shapes, each its own build; the default comes first."""
-    timer = ColdTimer(device)
-    calls = [(c[2], c[3]) for c in _cases(device)
-             if c[0] == "batched_retrace" and c[1] == "retrace"]
-    shapes = (None,) + TUNE_SHAPES
-    try:
-        for shape in shapes:
-            defines = () if shape is None else (
-                f"SMT_PRODUCERS={shape[0]}", f"SMT_STEPS={shape[1]}",
-                f"SMT_STAGES={shape[2]}")
-            rk._lib = rk.build(defines)
-            times = ", ".join(f"{case} {timer(call, 30):.4f} ms"
-                              for case, call in calls)
-            print(f"tune {'default' if shape is None else shape} "
-                  f"(producer warps, steps per producer and tile, stages): "
-                  f"{times}",
-                  flush=True)
-    finally:
-        rk._lib = None
-
-
 def main():
     if not torch.cuda.is_available():
         print("bench_retrace: needs a CUDA card", file=sys.stderr)
@@ -338,7 +302,7 @@ def main():
     print(card_line(), flush=True)
     device = torch.device("cuda")
     rk.library()
-    print(f"nvcc {rk.build_info['seconds']} s", flush=True)
+    print(f"nvcc {rk.LIB.build_info['seconds']} s", flush=True)
     for line in ptxas_lines():
         print(f"  ptxas: {line}", flush=True)
     for row in measure(device):
@@ -348,8 +312,6 @@ def main():
     for name, ms in plain_ms(device).items():
         print(f"plain torch version, {name} retrace random: {ms:.4f} ms",
               flush=True)
-    if "--tune" in sys.argv[1:]:
-        tune(device)
 
 
 if __name__ == "__main__":

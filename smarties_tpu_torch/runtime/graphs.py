@@ -37,11 +37,11 @@ much; a restored generator state (Generator.set_state) is what the next
 replay reads. A replay writes each registered generator's seed and
 offset with two small kernels of its own before the graph.
 
-Launch counters: the dicts of ints in COUNTERS (ops/retrace_kernel.py's
-launches and launch_modes, the launches of ops/adam_kernel.py and of
-ops/step_tail_kernel.py, and any a caller adds) count device launches.
-What a capture adds to them is taken back, and added again at every
-replay.
+Launch counters: the dicts of ints registered in ops/cuda_lib.py's
+COUNTERS (each kernel library's, and any a caller registers) count
+device launches. What a capture adds to them is taken back, and added
+again at every replay. A dict registered during the capture counts from
+zero.
 
 The garbage collector runs before a capture and not during it: freeing
 another graph (a dropped trainer's) while a stream captures voids the
@@ -58,14 +58,36 @@ from typing import Callable, Sequence
 import torch
 
 from smarties_tpu_torch.models.net import tree_copy_
-from smarties_tpu_torch.ops import adam_kernel, step_tail_kernel
-from smarties_tpu_torch.ops import retrace_kernel as rk
+from smarties_tpu_torch.ops import cuda_lib
 
 # eager calls on the side stream before the capture
 WARMUP_CALLS = 2
-# launch counters that a replay advances by what its capture launched
-COUNTERS = [rk.launches, rk.launch_modes, adam_kernel.launches,
-            step_tail_kernel.launches]
+
+
+def _counts_now() -> dict:
+    """The registered launch counters' values, by each dict's identity."""
+    return {id(c): dict(c) for c in cuda_lib.COUNTERS}
+
+
+def _take_back(before: dict) -> list:
+    """Restore every registered counter to its value in `before` (a
+    _counts_now(); a dict not in it to zero) and return what each gained
+    since: [(counter, {key: gain})], the counters that gained."""
+    deltas = []
+    for counts in cuda_lib.COUNTERS:
+        old = before.get(id(counts))
+        if old is None:
+            old = dict.fromkeys(counts, 0)
+        delta = {k: n - old.get(k, 0) for k, n in counts.items()
+                 if n != old.get(k, 0)}
+        for k in delta:
+            if k in old:
+                counts[k] = old[k]
+            else:
+                del counts[k]
+        if delta:
+            deltas.append((counts, delta))
+    return deltas
 
 
 class Graph:
@@ -116,7 +138,7 @@ class Graph:
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
-        before = [dict(c) for c in COUNTERS]
+        before = _counts_now()
         # a graph that the collector frees during a capture (a dropped
         # trainer's, in a reference cycle) would void it: collect first,
         # and not during the capture
@@ -144,17 +166,7 @@ class Graph:
                 gc.enable()
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         # what the capture counted is counted by the replays instead
-        self._deltas = []
-        for counts, old in zip(COUNTERS, before):
-            delta = {k: n - old.get(k, 0) for k, n in counts.items()
-                     if n != old.get(k, 0)}
-            for k in delta:
-                if k in old:
-                    counts[k] = old[k]
-                else:
-                    del counts[k]
-            if delta:
-                self._deltas.append((counts, delta))
+        self._deltas = _take_back(before)
         self.graph, self.out = graph, out
 
     def replay(self):

@@ -18,11 +18,8 @@ runs one fused cycle, and then times each part of a cycle alone:
   launches and device kernels per call, and the five kernel names with
   the most device time;
 - the two return sweeps (the ingest's refresh_new_returns, with no
-  stale slot and with 1024 of them, and the 1000-step refresh) both
-  ways in this one run: through the fused in-place sweep, one K1 launch
-  per call, and through the composition it replaced (`composed_sweep_`:
-  scaled rewards and the v_trunc substitution materialised, K1's plain
-  device loop, a where and a copy), with the kernel launches of each;
+  stale slot and with 1024 of them, and the 1000-step refresh) through
+  the fused in-place sweep, with K1's launches per call (one);
 - the compiled programs (runtime/graphs.py) against the eager loops, in
   turns captured, eager, eager, captured: a train chunk of 100 grad
   steps (ms per grad step) and an env sweep with its ingest, each with
@@ -115,7 +112,7 @@ from smarties_tpu_torch.algos.base import presample_uniform
 from smarties_tpu_torch.core.mdp import MDPSpec
 from smarties_tpu_torch.envs import cartpole, catch
 from smarties_tpu_torch.models.net import _mlp_in_dim
-from smarties_tpu_torch.ops import adam_kernel, step_tail_kernel
+from smarties_tpu_torch.ops import adam_kernel, cuda_lib, step_tail_kernel
 from smarties_tpu_torch.ops import retrace_kernel as rk
 from smarties_tpu_torch.replay import buffer as rb
 from smarties_tpu_torch.runtime.trainer import Trainer, set_precision
@@ -204,19 +201,6 @@ def profile_calls(fn, n: int):
             "device_kernels": len(kernels) / n,
             "top_kernels": [(k[:60], us / 1e3 / n) for k, us in top],
             "kernel_counts": counts}
-
-
-def composed_sweep_(rs, select, gamma, lam, mode, zero_unselected):
-    """The replay's return sweep as it was composed before K1 had its
-    fused entry point (same signature as buffer._sweep_returns_): the
-    scaled rewards and the v_trunc substitution as full [L1, E] tensors,
-    K1's plain device loop over every slot, then a where and a copy."""
-    q = rk.batched_retrace(
-        rs.scaled_rewards_tm().t(), rs.value_with_trunc_tm().t(),
-        rs.advantage_tm.t(), rs.rho_tm.t(), rs.slot_len, rs.slot_term,
-        gamma, lam, mode, pipelined=False).t()
-    other = torch.zeros_like(rs.qret_tm) if zero_unselected else rs.qret_tm
-    rs.qret_tm.copy_(torch.where(select[None, :], q, other))
 
 
 # name: (app, recipe as the launcher takes it, envs, replay slots or None
@@ -521,7 +505,7 @@ def main(argv=None):
                         ("env sweep", roll, 5)):
         report_profile(name, fn, n)
 
-    # the return sweeps, fused and as composed before, in turns
+    # the return sweeps
     some_stale = torch.zeros_like(tr.replay.qret_stale)
     some_stale[torch.randperm(
         tr.replay.n_slots, generator=torch.Generator().manual_seed(0)
@@ -535,23 +519,15 @@ def main(argv=None):
               ("ingest sweep, 1024 stale slots (+1 launch to mark them)",
                ingest_some_stale),
               ("refresh", refresh))
-    fused = rb._sweep_returns_
-    for way, impl in (("composed", composed_sweep_), ("fused", fused),
-                      ("fused", fused), ("composed", composed_sweep_)):
-        rb._sweep_returns_ = impl
-        try:
-            for name, fn in sweeps:
-                fn()
-                k0 = sum(rk.launches.values())
-                ev, enq, tot = time_calls(fn, 20)
-                k1 = (sum(rk.launches.values()) - k0) / 20
-                print(f"{name} [{way}]: {ev:.3f} ms/call (events) | host "
-                      f"enqueue {enq:.3f} ms/call | host total {tot:.3f} "
-                      f"ms/call | K1 launches/call {k1:.1f} (n=20)",
-                      flush=True)
-                report_profile(f"{name} [{way}]", fn, 10)
-        finally:
-            rb._sweep_returns_ = fused
+    for name, fn in sweeps:
+        fn()
+        k0 = sum(rk.launches.values())
+        ev, enq, tot = time_calls(fn, 20)
+        k1 = (sum(rk.launches.values()) - k0) / 20
+        print(f"{name}: {ev:.3f} ms/call (events) | host enqueue "
+              f"{enq:.3f} ms/call | host total {tot:.3f} ms/call | K1 "
+              f"launches/call {k1:.1f} (n=20)", flush=True)
+        report_profile(name, fn, 10)
     compare_graphs(tr)
 
 
@@ -679,8 +655,7 @@ def trace_main(seconds: float, plain_s: float = 0.0, out=None,
     (`atari_trainer`, its replay's slots the Trainer's own) in place of
     the main path."""
     from smarties_tpu_torch.ops.stamp import timer_ticks_ns
-    adam_kernel.reset_launches()
-    step_tail_kernel.reset_launches()
+    cuda_lib.reset_launches()
     if atari:
         tr = atari_trainer(device=device, n_envs=n_envs, graphs=True)
     else:

@@ -13,6 +13,7 @@ import os
 import torch
 
 from smarties_tpu_torch.algos import base
+from smarties_tpu_torch.ops import cuda_lib
 from smarties_tpu_torch.ops import step_tail_kernel as stk
 from smarties_tpu_torch.replay import buffer as rb
 from smarties_tpu_torch.utils.config import HyperParameters
@@ -130,7 +131,7 @@ def mesh_tails(device, mesh, seed):
     c = cfg()
     rs, mb, r, grads, step = case(device, seed=seed, invalid=3, shared=1)
     ref = clone_replay(rs)
-    stk.reset_launches()
+    cuda_lib.reset_launches()
     mesh.counts.clear()
     _, got = base.step_tail_(rs, mb, c, step, grads, **r, mesh=mesh)
     counts = {"kernel": dict(mesh.counts)}

@@ -21,7 +21,7 @@ import torch
 from smarties_tpu_torch.algos import dpg
 from smarties_tpu_torch.models import net as tnet
 from smarties_tpu_torch.models import optim as topt
-from smarties_tpu_torch.ops import adam_kernel
+from smarties_tpu_torch.ops import adam_kernel, cuda_lib
 from smarties_tpu_torch.runtime import graphs
 
 # V-RACER on cart-pole: 5 inputs, [128, 128], V and the mean, one stdev
@@ -102,7 +102,7 @@ def test_kernel_equals_loop_at_vracer_leaves(cuda, cfg):
     params = _vracer_params(cuda)
     assert [p.numel() for p in tnet.tree_leaves(params)] == \
         [640, 128, 16384, 128, 256, 2, 1]
-    adam_kernel.reset_launches()
+    cuda_lib.reset_launches()
     kp, ks, lp, ls = _run_both(params, topt.AdamConfig(**CFGS[cfg]),
                                1.0 / 256, 200)
     torch.cuda.synchronize()
@@ -117,7 +117,7 @@ def test_kernel_equals_loop_over_several_launches(cuda):
     """150 leaves take three update launches of at most 64 leaves; one
     leaf is empty, several start 4 bytes past a 16-byte boundary (the
     scalar path) and the sizes leave every tail length."""
-    per = adam_kernel.library().smt_adam_max_leaves()
+    per = adam_kernel.LIB.load().smt_adam_max_leaves()
     assert per == 64
     gen = torch.Generator().manual_seed(2)
     sizes = torch.randint(1, 3000, (150,), generator=gen).tolist()
@@ -131,7 +131,7 @@ def test_kernel_equals_loop_over_several_launches(cuda):
         else:
             params[f"l{i:03d}"] = torch.randn(n, generator=gen).to(cuda)
     assert sum(p.data_ptr() % 16 != 0 for p in params.values()) > 20
-    adam_kernel.reset_launches()
+    cuda_lib.reset_launches()
     kp, ks, lp, ls = _run_both(params, topt.AdamConfig(**CFGS[
         "lambda_anneal"]), 1.0 / 32, 200, seed=3)
     torch.cuda.synchronize()
@@ -159,7 +159,7 @@ def test_captured_kernel_equals_eager_loop(cuda):
 
     graph = graphs.Graph(fn, state, device=cuda)
     gen = torch.Generator(cuda).manual_seed(4)
-    adam_kernel.reset_launches()
+    cuda_lib.reset_launches()
     for k in range(graphs.WARMUP_CALLS + 50):
         g = _grads(params, gen, k)
         tnet.tree_copy_(state["grads"], g)
@@ -191,7 +191,7 @@ def test_split_adam_step_equals_loop(cuda, monkeypatch):
     ko, ro = topt.adam_init(net), topt.adam_init(ref)
     g_gen = torch.Generator(cuda).manual_seed(6)
     grads = [_grads(net, g_gen, k) for k in range(200)]
-    adam_kernel.reset_launches()
+    cuda_lib.reset_launches()
     for g in grads:
         dpg.split_adam_step(net, g, ko, parts, 1.0 / 64)
     assert adam_kernel.launches == {"adam_update": 400, "adam_advance": 200}
@@ -217,7 +217,7 @@ def test_wrapper_raises(cuda, bad):
         params["b"] = params["b"].double()
     else:
         grads["b"] = grads["b"].cpu()
-    adam_kernel.reset_launches()
+    cuda_lib.reset_launches()
     with pytest.raises(ValueError, match="adam_kernel"):
         topt.adam_update_(params, grads, state, topt.AdamConfig(), 1.0)
     assert adam_kernel.launches["adam_update"] == 0

@@ -344,6 +344,7 @@ def cuda():
 def test_captured_cycle_equals_eager_on_card(cuda, path, tmp_path):
     from torch.profiler import ProfilerActivity, profile
 
+    from smarties_tpu_torch.ops import cuda_lib
     from smarties_tpu_torch.ops import retrace_kernel as rk
     from smarties_tpu_torch.runtime import graphs as cg
 
@@ -352,7 +353,7 @@ def test_captured_cycle_equals_eager_on_card(cuda, path, tmp_path):
     n_cycles = cg.WARMUP_CALLS + 2
     for tr in (eager, captured):
         tr.warmup(chunk=16)
-        rk.reset_launches()
+        cuda_lib.reset_launches()
         for _ in range(n_cycles):
             _cycle(tr, N_ENVS)
         tr._update_replay(tr._refresh, 1000.0)

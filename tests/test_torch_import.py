@@ -19,8 +19,7 @@ names = sorted(m.name for m in pkgutil.walk_packages(
     smarties_tpu_torch.__path__, "smarties_tpu_torch."))
 for n in names:
     __import__(n)
-from smarties_tpu_torch.ops import (adam_kernel, retrace_kernel, stamp,
-                                    step_tail_kernel)
+from smarties_tpu_torch.ops import cuda_lib
 import smarties_tpu_torch as pkg
 lazy = sorted(n for n in ("Engine", "Communicator", "HyperParameters",
                           "MDPSpec") if getattr(pkg, n).__name__ == n)
@@ -34,10 +33,8 @@ print(json.dumps({
                         or m.startswith("smarties_tpu.")),
     "matplotlib": sorted(m for m in sys.modules
                          if m.split(".")[0] == "matplotlib"),
-    "kernel_loaded": (retrace_kernel._lib is not None
-                      or stamp._lib is not None
-                      or adam_kernel._lib is not None
-                      or step_tail_kernel._lib is not None)}))
+    "libraries": sorted(lib.stem for lib in cuda_lib.LIBRARIES),
+    "kernel_loaded": any(lib.loaded for lib in cuda_lib.LIBRARIES)}))
 """
 
 
@@ -50,9 +47,12 @@ def test_port_imports_no_jax():
     assert res["jax"] == [], res["jax"]
     assert res["reference"] == [], res["reference"]
     assert res["matplotlib"] == [], res["matplotlib"]
+    assert res["libraries"] == ["smt_adam", "smt_retrace", "smt_stamp",
+                                "smt_step_tail"]
     assert not res["kernel_loaded"]
-    for sub in ("core.mdp", "ops.returns", "ops.retrace_kernel", "ops.stamp",
-                "ops.adam_kernel", "ops.step_tail_kernel", "ops.leaf_table",
+    for sub in ("core.mdp", "ops.returns", "ops.cuda_lib",
+                "ops.retrace_kernel", "ops.stamp", "ops.adam_kernel",
+                "ops.step_tail_kernel", "ops.leaf_table",
                 "ops.continuous_policy", "ops.discrete_policy",
                 "ops.advantages", "envs.cartpole", "envs.pendulum",
                 "envs.acrobot", "envs.mountaincar", "envs.catch",

@@ -160,24 +160,28 @@ def test_sweep_matches_plain(cuda, shape, mode, zero_unselected):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(33, 22), (200, 37), (64, 70), (5, 1)])
 def test_pipeline_is_exact_and_equals_the_loop(cuda, shape):
-    """Time-major input: the async-copy pipeline, the same kernel's plain
-    loop and the plain torch version agree to the last bit."""
+    """Time-major input takes the async-copy pipeline, the same data
+    row-major and contiguous the kernel's plain loop: the two and the
+    plain torch version agree to the last bit."""
     E, L1 = shape
     f = _sweep_inputs(3, E, L1, cuda)
     a, b = f["r"].t(), (f["rho"] * 0.1).t()
     want = tret.affine_suffix_scan_plain(a, b)
-    for pipelined in (True, False):
-        assert torch.equal(rk.affine_suffix_scan(a, b, pipelined=pipelined),
-                           want)
+    got = rk.affine_suffix_scan(a, b)
+    loop = rk.affine_suffix_scan(a.contiguous(), b.contiguous())
+    assert torch.equal(got, want)
+    assert torch.equal(loop, got)
     for mode in ("retrace", "GAE"):
-        args = (f["r"].t(), f["v"].t(), f["adv"].t(), f["rho"].t(),
-                f["lens"], f["terms"], 0.995, 0.95, mode)
-        want = tret.batched_retrace_plain(*args)
-        for pipelined in (True, False):
-            got = rk.batched_retrace(*args, pipelined=pipelined)
-            torch.cuda.synchronize()
-            assert got.t().is_contiguous()      # time-major, as the input
-            assert torch.equal(got, want), (mode, pipelined)
+        floats = (f["r"].t(), f["v"].t(), f["adv"].t(), f["rho"].t())
+        rest = (f["lens"], f["terms"], 0.995, 0.95, mode)
+        want = tret.batched_retrace_plain(*floats, *rest)
+        got = rk.batched_retrace(*floats, *rest)
+        loop = rk.batched_retrace(*(x.contiguous() for x in floats), *rest)
+        torch.cuda.synchronize()
+        assert got.t().is_contiguous()      # time-major, as the input
+        assert loop.is_contiguous()         # row-major, as the input
+        assert torch.equal(got, want), mode
+        assert torch.equal(loop, got), mode
 
 
 @pytest.mark.cuda

@@ -20,8 +20,7 @@ from smarties_tpu.models import optim as jopt
 from smarties_tpu_torch.models import convert
 from smarties_tpu_torch.models import net as tnet
 from smarties_tpu_torch.models import optim as topt
-from smarties_tpu_torch.ops import adam_kernel
-from smarties_tpu_torch.runtime import graphs
+from smarties_tpu_torch.ops import adam_kernel, cuda_lib
 
 from _torch_parity import assert_tree_close, np32, tn, tt
 
@@ -175,15 +174,15 @@ def test_adam_cpu_leaves_take_the_loop():
     tp = convert.params_from_jax(pj)
     pp = convert.params_from_jax(pj)
     ts, ps = topt.adam_init(tp), topt.adam_init(pp)
-    adam_kernel.reset_launches()
+    cuda_lib.reset_launches()
     for _ in range(3):
         g = tnet.tree_map(lambda x: tt(rng.randn(*x.shape)), tp)
         topt.adam_step(tp, g, ts, cfg, 1.0 / 32)
         topt.adam_update_plain_(pp, g, ps, cfg, 1.0 / 32)
         topt.adam_advance_plain_(ps, cfg)
     assert adam_kernel.launches == {"adam_update": 0, "adam_advance": 0}
-    assert adam_kernel._lib is None
-    assert adam_kernel.launches in graphs.COUNTERS
+    assert not adam_kernel.LIB.loaded
+    assert any(adam_kernel.launches is c for c in cuda_lib.COUNTERS)
     for a, b in zip(tnet.tree_leaves([tp, list(ts)]),
                     tnet.tree_leaves([pp, list(ps)])):
         assert torch.equal(a, b)
@@ -281,7 +280,7 @@ def test_adam_kernel_refuses(bad):
     """The wrapper raises on what the kernel does not take, before any
     build or launch: there is no fallback."""
     state = topt.adam_init({"w": torch.zeros(4, 3)})
-    adam_kernel.reset_launches()
+    cuda_lib.reset_launches()
     with pytest.raises(ValueError, match="adam_kernel"):
         adam_kernel.update_(*_leaf_set(**bad), state, topt.AdamConfig(),
                             1.0, topt.NN_EPS)

@@ -42,6 +42,7 @@ from smarties_tpu_torch.algos.registry import make_learner as tmake
 from smarties_tpu_torch.envs import cartpole as tc
 from smarties_tpu_torch.models import convert
 from smarties_tpu_torch.models.net import tree_leaves
+from smarties_tpu_torch.ops import cuda_lib
 from smarties_tpu_torch.ops import retrace_kernel as rk
 from smarties_tpu_torch.runtime.trainer import Trainer, _plain
 from smarties_tpu_torch.utils.config import HyperParameters as THP
@@ -240,7 +241,7 @@ def test_train_on_policy_one_horizon(monkeypatch):
         return train_chunk(n)
 
     tr._refresh, tr._train_chunk = counting_refresh, counting_chunk
-    rk.reset_launches()
+    cuda_lib.reset_launches()
     tr.train_fused(1)      # gives way to train -> one whole horizon cycle
     n_updates = 4 * horizon // batch
     assert tr.n_grad_steps == n_updates == 32

@@ -21,6 +21,7 @@ from smarties_tpu.ops.pallas_retrace import (affine_suffix_scan,
                                              batched_retrace_pallas)
 from smarties_tpu.ops.returns import (batched_return_estimate,
                                       episode_return_estimate)
+from smarties_tpu_torch.ops import cuda_lib
 from smarties_tpu_torch.ops import retrace_kernel as rk
 from smarties_tpu_torch.ops import returns as tret
 
@@ -116,7 +117,7 @@ def test_episode_and_sequential_estimators(mode):
 
 
 def test_cpu_branch_uses_plain_version_and_counts_nothing():
-    rk.reset_launches()
+    cuda_lib.reset_launches()
     r, V, A, rho, lens, terms = _retrace_inputs(4, 33, 22)
     args = _torch_args(r, V, A, rho, lens, terms)
     q = rk.batched_retrace(*args, 0.995, 0.95, "retrace")
@@ -127,7 +128,7 @@ def test_cpu_branch_uses_plain_version_and_counts_nothing():
                        tret.affine_suffix_scan_plain(a, a * 0.5))
     assert rk.launches == {"affine_suffix_scan": 0, "batched_retrace": 0,
                            "retrace_sweep": 0}
-    assert rk._lib is None         # nothing compiled or loaded on the CPU
+    assert not rk.LIB.loaded       # nothing compiled or loaded on the CPU
 
 
 def test_time_major_views_give_the_same_result():

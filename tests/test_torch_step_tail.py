@@ -27,12 +27,12 @@ import torch.distributed as dist
 
 import _torch_tail_cases as cases
 from smarties_tpu_torch.algos import base
+from smarties_tpu_torch.ops import cuda_lib
 from smarties_tpu_torch.ops import step_tail_kernel as stk
 from smarties_tpu_torch.ops.leaf_table import LeafTables
 from smarties_tpu_torch.ops.value_scale import scale_net2v
 from smarties_tpu_torch.parallel.mesh import make_mesh
 from smarties_tpu_torch.replay import buffer as rb
-from smarties_tpu_torch.runtime import graphs
 
 torch.set_num_threads(1)
 f32 = np.float32
@@ -177,14 +177,13 @@ def test_step_tail_on_cpu_takes_the_chain(net2v, rows):
     c = cases.cfg()
     rs, mb, r, grads, step = cases.case("cpu", seed=3, **kw)
     ref = cases.clone_replay(rs)
-    stk.reset_launches()
+    cuda_lib.reset_launches()
     got = base.step_tail_(rs, mb, c, step, grads, **r, net2v=net2v)
     want = _chain_parts(ref, mb, c, step, grads, r, net2v=net2v)
     _assert_tails_equal(got, want)
-    assert stk.launches == {"step_tail": 0, "grad_stats": 0, "finish": 0,
-                            "plain": 0}
-    assert stk._lib is None
-    assert stk.launches in graphs.COUNTERS
+    assert stk.launches == {"step_tail": 0, "grad_stats": 0, "finish": 0}
+    assert not stk.LIB.loaded
+    assert any(stk.launches is c for c in cuda_lib.COUNTERS)
 
 
 def test_step_tail_under_a_mesh_takes_the_chain(tmp_path):
@@ -199,12 +198,12 @@ def test_step_tail_under_a_mesh_takes_the_chain(tmp_path):
         c = cases.cfg()
         rs, mb, r, grads, step = cases.case("cpu", seed=4, invalid=2)
         ref = cases.clone_replay(rs)
-        stk.reset_launches()
+        cuda_lib.reset_launches()
         got = base.step_tail_(rs, mb, c, step, grads, **r, mesh=mesh)
         assert dict(mesh.counts) == {"psum": 2, "pmax": 1}
         want = _chain_parts(ref, mb, c, step, grads, r)
         _assert_tails_equal(got, want)
-        assert sum(stk.launches.values()) == 0 and stk._lib is None
+        assert sum(stk.launches.values()) == 0 and not stk.LIB.loaded
     finally:
         dist.destroy_process_group()
 
@@ -328,8 +327,8 @@ def test_step_tail_kernel_refuses(bad):
     """The wrapper raises on what the kernel does not take, and on CPU
     tensors, before any build or launch: there is no fallback."""
     rs, mb, r, grads, step = _bad(bad, *cases.case("cpu", seed=5))
-    stk.reset_launches()
+    cuda_lib.reset_launches()
     with pytest.raises(ValueError, match="step_tail_kernel"):
         stk.tail_(rs, mb, cases.cfg(), step, grads, **r)
     assert sum(stk.launches.values()) == 0
-    assert stk._lib is None
+    assert not stk.LIB.loaded

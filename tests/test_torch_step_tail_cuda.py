@@ -33,6 +33,7 @@ import torch
 import _torch_tail_cases as cases
 from smarties_tpu_torch import launch
 from smarties_tpu_torch.algos import base
+from smarties_tpu_torch.ops import cuda_lib
 from smarties_tpu_torch.ops import step_tail_kernel as stk
 from smarties_tpu_torch.runtime import graphs
 from smarties_tpu_torch.runtime.trainer import Trainer
@@ -135,16 +136,14 @@ def test_captured_steps_equal_the_chain(cuda, path, monkeypatch):
                 m.setattr(stk, "tail_", _chain_tail)
             tr = _trainer(path, cuda)
             tr.warmup(chunk=16)
-            stk.reset_launches()
+            cuda_lib.reset_launches()
             metrics = tr._train_chunk(STEPS)
             torch.cuda.synchronize()
             runs[mode] = (tr, {k: v.clone() for k, v in metrics.items()},
                           dict(stk.launches))
     (kt, km, kl), (ct, cm, cl) = runs["kernel"], runs["chain"]
-    assert kl == {"step_tail": STEPS, "grad_stats": STEPS, "finish": 0,
-                  "plain": 0}, kl
-    assert cl == {"step_tail": 0, "grad_stats": 0, "finish": 0,
-                  "plain": 0}, cl
+    assert kl == {"step_tail": STEPS, "grad_stats": STEPS, "finish": 0}, kl
+    assert cl == {"step_tail": 0, "grad_stats": 0, "finish": 0}, cl
     assert all(g.graph is not None for g in kt._step_graphs.values())
     sk = _tensors({"params": kt.params, "opt": kt.opt_state,
                    "replay": kt.replay})
@@ -163,11 +162,10 @@ def _tail_both(dev, **kw):
     c = cases.cfg()
     rs, mb, r, grads, step = cases.case(dev, **kw)
     ref = cases.clone_replay(rs)
-    stk.reset_launches()
+    cuda_lib.reset_launches()
     got = base.step_tail_(rs, mb, c, step, grads, **r)
     torch.cuda.synchronize()
-    assert stk.launches == {"step_tail": 1, "grad_stats": 1, "finish": 0,
-                            "plain": 0}
+    assert stk.launches == {"step_tail": 1, "grad_stats": 1, "finish": 0}
     want = base.step_tail_plain_(ref, mb, c, step, grads, **r)
     return got, want, mb, r
 
@@ -249,7 +247,7 @@ def test_captured_tail_replayed(cuda, net2v):
     state = {"rs": rs, "step": step,
              "m": {k: torch.zeros((), device=cuda) for k in stk.METRICS}}
     graph = graphs.Graph(fn, state, device=cuda)
-    stk.reset_launches()
+    cuda_lib.reset_launches()
     n = graphs.WARMUP_CALLS + 50
     for _ in range(n):
         graph()
@@ -258,8 +256,7 @@ def test_captured_tail_replayed(cuda, net2v):
                                        net2v=net2v)
     torch.cuda.synchronize()
     assert graph.graph is not None
-    assert stk.launches == {"step_tail": n, "grad_stats": n, "finish": 0,
-                            "plain": 0}
+    assert stk.launches == {"step_tail": n, "grad_stats": n, "finish": 0}
     for f in cases.TAIL_FIELDS:
         assert torch.equal(getattr(rs, f), getattr(ref, f)), f
     _assert_metrics_close(state["m"], out, float(r["value"].abs().mean()))
@@ -282,8 +279,7 @@ def test_mesh_tail_on_card(cuda, tmp_path):
             cuda, make_mesh(cuda), seed=14)
         assert counts == {"kernel": {"psum": 2, "pmax": 1},
                           "chain": {"psum": 2, "pmax": 1}}, counts
-        assert launches == {"step_tail": 1, "grad_stats": 1, "finish": 1,
-                            "plain": 0}
+        assert launches == {"step_tail": 1, "grad_stats": 1, "finish": 1}
         _assert_mesh_tails(got, want)
     finally:
         dist.destroy_process_group()
@@ -307,7 +303,7 @@ def test_mesh_tail_two_ranks_on_card(cuda, tmp_path):
     outs = cases.two_ranks(tmp_path, "cuda:0")
     for o in outs:
         assert o["launches"] == {"step_tail": 1, "grad_stats": 1,
-                                 "finish": 1, "plain": 0}
+                                 "finish": 1}
         _assert_mesh_tails(o["kernel"], o["chain"])
 
 
@@ -321,7 +317,7 @@ def test_wrapper_raises(cuda, bad):
         rs.rho_tm = rs.rho_tm.double()
     else:
         rs.v_trunc = rs.v_trunc.cpu()
-    stk.reset_launches()
+    cuda_lib.reset_launches()
     with pytest.raises(ValueError, match="step_tail_kernel"):
         base.step_tail_(rs, mb, cases.cfg(), step, grads, **r)
     assert sum(stk.launches.values()) == 0

@@ -27,6 +27,7 @@ import torch
 
 from smarties_tpu.replay import buffer as jrb
 from smarties_tpu_torch.models import convert
+from smarties_tpu_torch.ops import cuda_lib
 from smarties_tpu_torch.ops import retrace_kernel as rk
 from smarties_tpu_torch.ops import returns as tret
 from smarties_tpu_torch.replay import buffer as trb
@@ -127,14 +128,14 @@ def test_sweep_takes_v_trunc_at_length_and_nothing_beyond():
 def test_sweep_wrapper_on_cpu_is_the_plain_version():
     _, rt = _replays(2, 24, 30, 17)
     select = rt.qret_stale & rt.valid_slots()
-    rk.reset_launches()
+    cuda_lib.reset_launches()
     got, want = rt.qret_tm.clone(), rt.qret_tm.clone()
     for fn, q in ((rk.retrace_sweep_, got), (tret.retrace_sweep_plain_, want)):
         fn(q, rt.rewards_tm, rt.value_tm, rt.advantage_tm, rt.rho_tm,
            rt.v_trunc, rt.slot_len, rt.slot_term, select, rt.rew_mean,
            rt.rew_scale, GAMMA, LAM, "GAE", False)
     assert torch.equal(got, want)
-    assert rk.launches["retrace_sweep"] == 0 and rk._lib is None
+    assert rk.launches["retrace_sweep"] == 0 and not rk.LIB.loaded
     with pytest.raises(ValueError):
         rk.retrace_sweep_(got, rt.rewards_tm, rt.value_tm, rt.advantage_tm,
                           rt.rho_tm, rt.v_trunc, rt.slot_len, rt.slot_term,
