@@ -48,6 +48,17 @@ Phases, each reported on its own line:
    torch.equal in the replay's fields and ReF-ER scalars, the metrics
    within 1e-6; then its time and the chain's (200 and 20 calls in one
    CUDA graph) beside the bound of the bytes it must move.
+2d. head: builds V-RACER's continuous-head kernel (csrc/policy_head.cu)
+   and holds it against the chain it replaces (algos/vracer.py::VRacer.
+   output_grad_plain) on tests/_torch_head_cases.py's inputs at
+   cart-pole's shapes (batch 256, one bounded action dim) and at batch
+   128 with 6 dims (a mixed mask): torch.equal in every output row; then
+   its time and the chain's (200 calls in one CUDA graph) beside the
+   bound of the bytes it must move. Phases 4, 4b, 5, 8 and 21 count its
+   launches against the optimiser's step counter: one a grad step on
+   V-RACER's captured paths (the main path and PERrank), none on the
+   eager side of 4b (the chain) and on the other learners (RACER's
+   Gaussian advantage, RACER-discrete, DQN, NAF, DPG, MixedPG).
 3. reference: the port on the card against the port on the CPU at a
    small size, from one state (8 train steps and a refresh, so K1 runs
    inside the pipeline against its plain version).
@@ -266,9 +277,10 @@ Phases, each reported on its own line:
    steady and Atari phases. Then the serving bench
    (tools/serving_bench.py) for 3 s over 4 forked apps: served > 0.
    Prints the phase's time.
-`--only NAME ...` runs the device phase and the named phases of 2b, 4,
-4b, 8, 8b and 17-23 alone (adam, main, graphs, atari, bf16, glider,
-predator_prey, multitrainer, logs, multichip, curves, bench).
+`--only NAME ...` runs the device phase and the named phases of 2b-2d,
+4, 4b, 8, 8b and 17-23 alone (adam, tail, head, main, graphs, atari,
+bf16, glider, predator_prey, multitrainer, logs, multichip, curves,
+bench).
 Then one JSON line with the kernels' results and, last, the device line.
 
 The script imports no JAX and nothing of the JAX package. Any failed
@@ -402,6 +414,10 @@ EAGER_STEP_MS = {"racer": 12.525, "racer_discrete": 8.696, "dqn": 6.995,
 # the Adam phase: steps held against the loop, launches timed in a graph
 ADAM_STEPS, ADAM_TIMED = 200, 200
 TAIL_TIMED = 200
+# the head phase: (name, batch, action dims, bounded mask), calls timed
+HEAD_SHAPES = (("vracer_cartpole", 256, 1, "bounded"),
+               ("batch128_6dims", 128, 6, "mixed"))
+HEAD_TIMED = 200
 # the bench phase: timed fused cycles, the Atari step's presampled steps,
 # quality cycles of seed 0; the serving bench's apps and seconds
 BENCH_CYCLES, BENCH_ATARI_STEPS, BENCH_QUALITY_CYCLES = 2, 128, 2
@@ -691,6 +707,44 @@ def _use_plain_tail(plain):
         stk.tail_ = _TAIL_KERNEL[0]
 
 
+def _takes_head_kernel(algo):
+    """Whether a learner's CUDA grad step runs the continuous-head kernel:
+    V-RACER's own train_step over continuous actions (the zero
+    advantage)."""
+    from smarties_tpu_torch.algos.vracer import VRacer
+    return (type(algo).train_step is VRacer.train_step
+            and not algo.discrete and algo.adv_kind == "zero")
+
+
+def _check_head_launches(tr, what, used=None):
+    """The continuous-head kernel's launches since the last reset against
+    the optimiser's step counter: one a grad step (a graph's replays
+    count what its capture launched) where the learner takes it (`used`;
+    by default _takes_head_kernel), none elsewhere."""
+    from smarties_tpu_torch.ops import policy_head_kernel
+    if used is None:
+        used = _takes_head_kernel(tr.algo)
+    opt = tr.opt_state
+    steps = int((opt if hasattr(opt, "step") else opt.adam).step) * used
+    want = {"continuous": steps}
+    assert policy_head_kernel.launches == want, \
+        f"{what}: head launches {policy_head_kernel.launches} != {want}"
+    return want
+
+
+_HEAD_KERNEL = []
+
+
+def _use_plain_head(plain):
+    """Send V-RACER's heads through the chain (plain True), which the
+    kernel is held against, or back through the dispatcher."""
+    from smarties_tpu_torch.algos.vracer import VRacer
+    if not _HEAD_KERNEL:
+        _HEAD_KERNEL.append(VRacer.output_grad)
+    VRacer.output_grad = VRacer.output_grad_plain if plain \
+        else _HEAD_KERNEL[0]
+
+
 def _graph_ms(fn, n):
     """Median ms of one fn() call: n calls captured in one CUDA graph,
     replayed 5 times between CUDA events (no host time inside)."""
@@ -947,6 +1001,61 @@ def phase_tail():
     return {"tail": out}
 
 
+def _head_bytes(B, nA):
+    """What the head must move: the net's outputs, actions, behaviour
+    vectors, returns and valid flags of the B rows, the mask and three
+    scalars read; the gradient, five float rows and the far flags
+    written."""
+    return (4 * B * (1 + 2 * nA) * 2 + 4 * B * 3 * nA + 4 * B + B + nA
+            + 12 + 20 * B + B)
+
+
+def phase_head():
+    """V-RACER's continuous-head kernel against the chain it replaces,
+    and its time (phase 2d in the module docstring)."""
+    import torch
+    from smarties_tpu_torch.ops import cuda_lib
+    from smarties_tpu_torch.ops import policy_head_kernel as phk
+    from smarties_tpu_torch.runtime import bench_retrace as bench
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _torch_head_cases as cases
+
+    t0 = time.perf_counter()
+    phk.LIB.load()
+    build_s = time.perf_counter() - t0
+    regs = [ln.strip() for ln in phk.LIB.build_info["log"].splitlines()
+            if "registers" in ln]
+    dev = torch.device("cuda")
+    out = {"build_s": build_s, "registers": regs}
+    for name, B, nA, kind in HEAD_SHAPES:
+        algo = cases.learner(nA, kind)
+        net_out, mb, rs = cases.case(dev, algo, B=B, seed=40)
+        cuda_lib.reset_launches()
+        got = algo.output_grad(net_out, mb, rs)
+        want = algo.output_grad_plain(net_out, mb, rs)
+        torch.cuda.synchronize()
+        assert phk.launches == {"continuous": 1}, phk.launches
+        for row, x, y in zip(cases.ROWS, got, want):
+            assert torch.equal(x, y), \
+                f"head: kernel != chain at {name} in {row}"
+        n_bytes = _head_bytes(B, nA)
+        bound_ms = n_bytes / bench.HBM_BYTES_PER_S * 1e3
+        ms = _graph_ms(lambda: algo.output_grad(net_out, mb, rs), HEAD_TIMED)
+        plain_ms = _graph_ms(lambda: algo.output_grad_plain(net_out, mb, rs),
+                             HEAD_TIMED)
+        print(f"head: {name} (batch {B}, {nA} action dims, {kind}): kernel "
+              f"torch.equal to the chain ({', '.join(cases.ROWS)}), "
+              f"{ms * 1e3:.3f} us a call (1 launch, {HEAD_TIMED} calls in one "
+              f"graph) | chain {plain_ms * 1e3:.3f} us | bound {n_bytes} B -> "
+              f"{bound_ms * 1e3:.4f} us ({bound_ms / ms:.5f} of the kernel's "
+              f"time)", flush=True)
+        out[name] = {"bytes": n_bytes, "bound_ms": bound_ms, "ms": ms,
+                     "plain_ms": plain_ms}
+    cuda_lib.reset_launches()
+    print(f"head: built in {build_s:.2f} s ({'; '.join(regs)})", flush=True)
+    return {"head": out}
+
+
 def _clone_replay(rs):
     import dataclasses
     return dataclasses.replace(rs, **{f.name: getattr(rs, f.name).clone()
@@ -1125,6 +1234,7 @@ def phase_main_path():
                  "fused_cycle_ingest"), "main")
     adam = _check_adam_launches(tr, "main")
     tail = _check_tail_launches(tr, "main")
+    head = _check_head_launches(tr, "main", used=True)
 
     per_cycle = statistics.median(cycle_ms)
     print(f"main: fused cycle {cycle_ms[0]:.1f} / {cycle_ms[1]:.1f} ms "
@@ -1141,10 +1251,10 @@ def phase_main_path():
           f"graphs, the step graph; pools "
           f"{tr.graph_pool_bytes() / 2 ** 20:.1f} MiB) | Adam launches "
           f"{adam}, one update and one advance a grad step | step-tail "
-          f"launches {tail}, one grad_stats and one step_tail a grad step",
-          flush=True)
+          f"launches {tail}, one grad_stats and one step_tail a grad step "
+          f"| head launches {head}, one a grad step", flush=True)
     return {"cycle_ms": cycle_ms, "launches": counts, "sites": site_counts,
-            "adam": adam, "tail": tail}
+            "adam": adam, "tail": tail, "head": head}
 
 
 def _state_tensors(x, name=""):
@@ -1220,6 +1330,7 @@ def _graphs_path(name, make, tmp):
         # the chain they replace
         _use_plain_adam(mode == "eager")
         _use_plain_tail(mode == "eager")
+        _use_plain_head(mode == "eager")
         tr = make(None if mode == "captured" else False)
         assert tr.graphs == (mode == "captured"), (name, mode, tr.graphs)
         sites = SiteCounter(tr, rk)
@@ -1246,6 +1357,9 @@ def _graphs_path(name, make, tmp):
             cycle_ms.append(e0.elapsed_time(e1))
         tail = _check_tail_launches(tr, f"graphs {name} {mode}",
                                     mode == "captured")
+        head = _check_head_launches(
+            tr, f"graphs {name} {mode}",
+            mode == "captured" and _takes_head_kernel(tr.algo))
         if mode == "captured":
             adam = _check_adam_launches(tr, f"graphs {name} {mode}")
         else:
@@ -1274,7 +1388,7 @@ def _graphs_path(name, make, tmp):
             assert tr._step_graphs and tr._sweep_graphs[1].graph is not None
         res[mode] = {"fused_cycle_ms": cycle_ms,
                      "k1": counts.get("retrace_sweep", 0), "adam": adam,
-                     "tail": tail,
+                     "tail": tail, "head": head,
                      "sites": dict(sites.sites), "stages": stages}
         tr._pending_logs.clear()
         trainers[mode] = tr
@@ -1301,6 +1415,7 @@ def _graphs_path(name, make, tmp):
     for mode, tr in trainers.items():
         _use_plain_adam(mode == "eager")
         _use_plain_tail(mode == "eager")
+        _use_plain_head(mode == "eager")
         t0 = time.perf_counter()
         step = profile_calls(
             lambda: tr._train_chunk(GRAPH_PROFILED_STEPS), 1)
@@ -1325,6 +1440,7 @@ def _graphs_path(name, make, tmp):
                          pool_bytes=tr.graph_pool_bytes())
     _use_plain_adam(False)
     _use_plain_tail(False)
+    _use_plain_head(False)
     c, e = res["captured"], res["eager"]
     assert c["per_grad_step"]["graph_launches"] == 1, (name, c)
     # a replay launches 2 kernels (its seed and offset) per generator the
@@ -1345,14 +1461,15 @@ def _graphs_path(name, make, tmp):
               f"{GRAPH_CHUNK}) | per grad step {r['per_grad_step']} | per "
               f"env sweep + ingest {r['per_sweep']} | K1 {r['k1']} sweep "
               f"launches by site {r['sites']}, one per call | Adam kernel "
-              f"{r['adam']} | step-tail kernel {r['tail']} | graph pools "
+              f"{r['adam']} | step-tail kernel {r['tail']} | head kernel "
+              f"{r['head']} | graph pools "
               f"{r['pool_bytes']} B | s "
               + ", ".join(f"{k} {v:.2f}" for k, v in r["stages"].items()),
               flush=True)
     res["tensors"] = n_tensors
     res["path_s"] = time.perf_counter() - t_path
-    print(f"graphs {name}: captured (Adam and step-tail kernels) and eager "
-          f"(Adam loop, tail chain) torch.equal after warmup, "
+    print(f"graphs {name}: captured (Adam, step-tail and head kernels) and "
+          f"eager (Adam loop, tail and head chains) torch.equal after warmup, "
           f"{cg.WARMUP_CALLS + 1 + GRAPH_TIMED_CYCLES + 2} fused cycles, "
           f"their refreshes and a save / restore ({n_tensors} tensors and 4 "
           f"generator states) | {res['path_s']:.2f} s", flush=True)
@@ -1448,6 +1565,7 @@ def phase_learners():
         counts, sites = dict(rk.launches), dict(hooks["sites"].sites)
         adam = _check_adam_launches(tr, name)
         tail = _check_tail_launches(tr, name)
+        _check_head_launches(tr, name)
         rets = tr.evaluate(8, max_steps=200)
 
         for k, p in _leaves(tr.params):
@@ -1808,6 +1926,7 @@ def phase_atari():
         counts, ("ingest", "initialize_stats", "refresh"), name)
     assert modes == {"retrace": counts["retrace_sweep"], "GAE": 0}, \
         (name, modes, counts)
+    _check_head_launches(tr, name, used=False)
     n_checked = _check_catch_frames(tr)
     # the statistics pass never holds a second copy of the replay
     init_extra = hooks["init_peak"] - hooks["init_base"]
@@ -3682,6 +3801,7 @@ def _mc_rank(rank, store, out_dir):
         # every grad step's tail on the kernel, its finish after the
         # collectives
         tail = _check_tail_launches(tr, f"multichip rank {rank}", mesh=True)
+        _check_head_launches(tr, f"multichip rank {rank}", used=True)
         sites.check_one_launch_per_call(
             counts, ("ingest", "initialize_stats", "refresh"),
             f"multichip rank {rank}")
@@ -4132,8 +4252,8 @@ def phase_bench():
                       "serving": srv, "phase_s": phase_s}}
 
 
-# phases 2b, 2c, 4, 4b, 8, 8b and 17-23, by the names `--only` takes
-NEW_PHASES = {"adam": phase_adam, "tail": phase_tail,
+# phases 2b-2d, 4, 4b, 8, 8b and 17-23, by the names `--only` takes
+NEW_PHASES = {"adam": phase_adam, "tail": phase_tail, "head": phase_head,
               "main": lambda: {"main": phase_main_path()},
               "graphs": phase_graphs,
               "atari": phase_atari, "bf16": phase_bf16,
@@ -4168,6 +4288,7 @@ def main(argv=None):
     kern = phase_kernels()
     adam = phase_adam()
     tail = phase_tail()["tail"]
+    head = phase_head()["head"]
     phase_reference()
     main_res = phase_main_path()
     graphs = phase_graphs()["graphs"]
@@ -4323,6 +4444,26 @@ def main(argv=None):
             "vracer_main": main_res["tail"],
             **{k: v["tail"] for k, v in learners.items() if "tail" in v},
             **{f"graphs_{k}": graphs[k]["captured"]["tail"]
+               for k in graph_paths}},
+    }, {
+        "name": "policy_head",
+        "route": "cuda",
+        "source": "smarties_tpu_torch/csrc/policy_head.cu",
+        "replaces": None,
+        "launches": main_res["head"]["continuous"],
+        "max_abs_err": 0.0,
+        # at the main path's shapes; batch 128 with 6 dims under "phase"
+        "ms": head["vracer_cartpole"]["ms"],
+        "plain_ms": head["vracer_cartpole"]["plain_ms"],
+        "bound_ms": head["vracer_cartpole"]["bound_ms"],
+        "bound_by": "bytes",
+        "share_of_bound": head["vracer_cartpole"]["bound_ms"]
+        / head["vracer_cartpole"]["ms"],
+        "library_ms": None,
+        "phase": head,
+        "launches_by_path": {
+            "vracer_main": main_res["head"],
+            **{f"graphs_{k}": graphs[k]["captured"]["head"]
                for k in graph_paths}},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -44,6 +44,7 @@ from smarties_tpu_torch.models.optim import (AdamConfig, AdamState,
 from smarties_tpu_torch.ops import advantages as adv_ops
 from smarties_tpu_torch.ops import continuous_policy as cp
 from smarties_tpu_torch.ops import discrete_policy as dpol
+from smarties_tpu_torch.ops import policy_head_kernel
 from smarties_tpu_torch.ops.stamp import on_grad
 from smarties_tpu_torch.ops.value_scale import scale_net2v, scale_vdiff
 from smarties_tpu_torch.replay import buffer as rb
@@ -136,6 +137,90 @@ class VRacer(Learner):
                                           sigma * sigma)
 
     # ------------------------------------------------------------------
+    def output_grad(self, out, mb, rs):
+        """The head after the forward: from the net's outputs at the
+        sampled rows to the analytic output gradient (ascent) that the
+        pullback receives -> (g, rho, dkl, delta_q, v_val, a_val, is_far).
+        CUDA tensors of V-RACER's continuous head (the zero advantage)
+        take the hand-written kernel (ops/policy_head_kernel.py: one
+        launch, bit-equal); the CPU, RACER's Gaussian advantage and the
+        discrete head take the chain (output_grad_plain)."""
+        if out.is_cuda and not self.discrete and self.adv_kind == "zero":
+            return policy_head_kernel.continuous_head(
+                out, mb.action, mb.mu, mb.qret, mb.valid,
+                self.mdp.consts(out)[1], rs.cmax_ret, rs.cinv_ret, rs.beta)
+        return self.output_grad_plain(out, mb, rs)
+
+    def output_grad_plain(self, out, mb, rs):
+        """output_grad as PyTorch ops (RACER_train.cpp:14-57): V, rho, the
+        KL, the far-policy flags and the TD error of the sampled rows, then
+        the ReF-ER beta mix of the policy gradient and the KL penalty, far-
+        policy gated, with the advantage head's rows where there is one;
+        invalid rows get no gradient."""
+        a_t, mu_t, qret_t = mb.action, mb.mu, mb.qret
+        v_raw, adv_out, pol, sraw = self._split_out(out)
+        v_val = scale_net2v(v_raw)
+        if self.discrete:
+            opt = a_t[..., 0].long()
+            un, norm, probs = dpol.probs_of(pol)
+            rho = dpol.imp_weight(opt, probs, mu_t)
+            dkl = dpol.kl_mu_pi(mu_t, probs)
+            a_val = self._advantage(adv_out, opt, pol, probs=probs)
+        else:
+            bounded = self.mdp.consts(pol)[1]
+            sigma = cp.sigma_of(sraw)
+            rho = cp.imp_weight(a_t, pol, sigma, mu_t, bounded)
+            dkl = cp.kl_div(mu_t, pol, sigma)
+            a_val = self._advantage(adv_out, a_t, pol, sigma)
+
+        cmax, cinv, beta = rs.cmax_ret, rs.cinv_ret, rs.beta
+        is_far = rb.is_far_policy(rho, cmax, cinv)
+        a_ret = qret_t - v_val                  # Retrace advantage
+        delta_q = a_ret - a_val                 # TD error
+        ver = torch.minimum(torch.ones_like(rho), rho) * delta_q
+
+        # ---- analytic output gradient (ascent), :46-57 ----
+        zero = torch.zeros_like(v_val)
+        far2 = is_far[:, None]
+        g_v = torch.where(is_far, zero, ver * beta * scale_vdiff(v_raw))
+        pg_coef = torch.where(is_far, zero,
+                              a_ret * torch.minimum(cmax, rho))
+        if self.discrete:
+            pol_g = dpol.pol_grad(opt, pol, un, norm, probs, pg_coef)
+            pol_g = torch.where(far2, torch.zeros_like(pol_g), pol_g)
+            pen_g = dpol.kl_grad(mu_t, pol, un, norm, probs,
+                                 -torch.ones_like(pg_coef))
+            g_pol = beta * pol_g + (1 - beta) * pen_g
+        else:
+            pg_m, pg_s = cp.pol_grad(a_t, pol, sigma, sraw, pg_coef,
+                                     bounded)
+            pg_m = torch.where(far2, torch.zeros_like(pg_m), pg_m)
+            pg_s = torch.where(far2, torch.zeros_like(pg_s), pg_s)
+            pn_m, pn_s = cp.kl_grad(mu_t, pol, sigma, sraw,
+                                    -torch.ones_like(pg_coef))
+            g_pol = torch.cat([beta * pg_m + (1 - beta) * pn_m,
+                               beta * pg_s + (1 - beta) * pn_s], dim=-1)
+        parts = [g_v[:, None]]
+        if self.nL > 0:
+            # advantage head: ADV.grad(a, isFar ? 0 : beta * Aer),
+            # per-sample rows of dA/d(adv outputs)
+            aer = torch.minimum(cmax, rho) * delta_q
+            adv_coef = torch.where(is_far, zero, beta * aer)
+            if self.discrete:
+                g_adv, = adv_ops.per_sample_grad(
+                    adv_ops.discrete_advantage, (adv_out, opt, probs))
+            else:
+                g_adv, = adv_ops.per_sample_grad(
+                    adv_ops.gaussian_advantage,
+                    (adv_out, a_t, cp.eff_mean(pol, bounded),
+                     sigma * sigma))
+            parts.append(adv_coef[:, None] * g_adv)
+        g = torch.cat(parts + [g_pol], dim=-1)
+        # invalid (empty-replay) samples contribute no gradient
+        g = torch.where(mb.valid[:, None], g, torch.zeros_like(g))
+        return g, rho, dkl, delta_q, v_val, a_val, is_far
+
+    # ------------------------------------------------------------------
     def make_act_fn(self, train: bool = True):
         """Batched action selection (RACER::selectAction, RACER.cpp:31-47):
         forward, sample (train) or the mode, record V and Q = V + A(a).
@@ -204,7 +289,6 @@ class VRacer(Learner):
         mb = self.sample_minibatch(rs, gen, sample_override, mesh)
         if stamp is not None:
             stamp("gather")
-        a_t, mu_t, qret_t = mb.action, mb.mu, mb.qret
         last_grads = "backward"         # the phase that ends with the grads
 
         if spec.is_recurrent:
@@ -235,66 +319,8 @@ class VRacer(Learner):
                                 torch.cat([g, torch.zeros_like(g)]))
 
         with torch.no_grad():
-            v_raw, adv_out, pol, sraw = self._split_out(out)
-            v_val = scale_net2v(v_raw)
-            if self.discrete:
-                opt = a_t[..., 0].long()
-                un, norm, probs = dpol.probs_of(pol)
-                rho = dpol.imp_weight(opt, probs, mu_t)
-                dkl = dpol.kl_mu_pi(mu_t, probs)
-                a_val = self._advantage(adv_out, opt, pol, probs=probs)
-            else:
-                bounded = self.mdp.consts(pol)[1]
-                sigma = cp.sigma_of(sraw)
-                rho = cp.imp_weight(a_t, pol, sigma, mu_t, bounded)
-                dkl = cp.kl_div(mu_t, pol, sigma)
-                a_val = self._advantage(adv_out, a_t, pol, sigma)
-
-            cmax, cinv, beta = rs.cmax_ret, rs.cinv_ret, rs.beta
-            is_far = rb.is_far_policy(rho, cmax, cinv)
-            a_ret = qret_t - v_val                  # Retrace advantage
-            delta_q = a_ret - a_val                 # TD error
-            ver = torch.minimum(torch.ones_like(rho), rho) * delta_q
-
-            # ---- analytic output gradient (ascent), :46-57 ----
-            zero = torch.zeros_like(v_val)
-            far2 = is_far[:, None]
-            g_v = torch.where(is_far, zero, ver * beta * scale_vdiff(v_raw))
-            pg_coef = torch.where(is_far, zero,
-                                  a_ret * torch.minimum(cmax, rho))
-            if self.discrete:
-                pol_g = dpol.pol_grad(opt, pol, un, norm, probs, pg_coef)
-                pol_g = torch.where(far2, torch.zeros_like(pol_g), pol_g)
-                pen_g = dpol.kl_grad(mu_t, pol, un, norm, probs,
-                                     -torch.ones_like(pg_coef))
-                g_pol = beta * pol_g + (1 - beta) * pen_g
-            else:
-                pg_m, pg_s = cp.pol_grad(a_t, pol, sigma, sraw, pg_coef,
-                                         bounded)
-                pg_m = torch.where(far2, torch.zeros_like(pg_m), pg_m)
-                pg_s = torch.where(far2, torch.zeros_like(pg_s), pg_s)
-                pn_m, pn_s = cp.kl_grad(mu_t, pol, sigma, sraw,
-                                        -torch.ones_like(pg_coef))
-                g_pol = torch.cat([beta * pg_m + (1 - beta) * pn_m,
-                                   beta * pg_s + (1 - beta) * pn_s], dim=-1)
-            parts = [g_v[:, None]]
-            if self.nL > 0:
-                # advantage head: ADV.grad(a, isFar ? 0 : beta * Aer),
-                # per-sample rows of dA/d(adv outputs)
-                aer = torch.minimum(cmax, rho) * delta_q
-                adv_coef = torch.where(is_far, zero, beta * aer)
-                if self.discrete:
-                    g_adv, = adv_ops.per_sample_grad(
-                        adv_ops.discrete_advantage, (adv_out, opt, probs))
-                else:
-                    g_adv, = adv_ops.per_sample_grad(
-                        adv_ops.gaussian_advantage,
-                        (adv_out, a_t, cp.eff_mean(pol, bounded),
-                         sigma * sigma))
-                parts.append(adv_coef[:, None] * g_adv)
-            g = torch.cat(parts + [g_pol], dim=-1)
-            # invalid (empty-replay) samples contribute no gradient
-            g = torch.where(mb.valid[:, None], g, torch.zeros_like(g))
+            g, rho, dkl, delta_q, v_val, a_val, is_far = self.output_grad(
+                out, mb, rs)
 
         if stamp is not None:
             stamp("forward")
