@@ -75,7 +75,9 @@ Phases, each reported on its own line:
    path from one state: the main path, then RACER, RACER-discrete, DQN,
    NAF, DPG and MixedPG at their recipes' widths with 1024 envs (phase
    5's settings), then V-RACER under PERrank + farpolfrac (phase 9's,
-   the draw inside the captured step). The captured side runs the Adam
+   the draw inside the captured step), then RACER_RNN on cartpole.pomdp
+   (phase 7's trainer: the BPTT step and the acting carry captured; its
+   eager fused cycles take about 2 min). The captured side runs the Adam
    and step-tail kernels, the eager side the loop and the chain they
    replace. Per path: warmup, the
    graphs' warm-up calls and their capture in short fused cycles (1
@@ -113,7 +115,9 @@ Phases, each reported on its own line:
    cartpole.pomdp with the Trainer built as the main path's (1024 envs,
    4096 slots x 501 steps, training from 16384 observations): warmup,
    train(200), a refresh, evaluate(8, 200); the GRU recipe
-   VRACER_expensiveData the same way at 1024 slots.
+   VRACER_expensiveData the same way at 1024 slots. Both run captured
+   (the Trainer's default); the ms per grad step is printed beside the
+   eager 60.889 and 42.948 measured before the capture.
    Checks that every K1 launch ran in Retrace mode, one per site call;
    then LSTM and GRU V-RACER on the card against the CPU at a small size.
 8. conv / Atari: app `catch` with recipe RACER_atari through the launcher
@@ -278,9 +282,9 @@ Phases, each reported on its own line:
    (tools/serving_bench.py) for 3 s over 4 forked apps: served > 0.
    Prints the phase's time.
 `--only NAME ...` runs the device phase and the named phases of 2b-2d,
-4, 4b, 8, 8b and 17-23 alone (adam, tail, head, main, graphs, atari,
-bf16, glider, predator_prey, multitrainer, logs, multichip, curves,
-bench).
+4, 4b, 7, 8, 8b and 17-23 alone (adam, tail, head, main, graphs,
+graphs_rnn: 4b's racer_rnn path alone, recurrent, atari, bf16, glider,
+predator_prey, multitrainer, logs, multichip, curves, bench).
 Then one JSON line with the kernels' results and, last, the device line.
 
 The script imports no JAX and nothing of the JAX package. Any failed
@@ -345,6 +349,10 @@ PPO_ENVS, PPO_STEPS = 64, 640
 RNN_PATHS = (("racer_rnn", "RACER_RNN", 4096, 16384),
              ("vracer_gru", "VRACER_expensiveData", 1024, 4096))
 RNN_ENVS, RNN_STEPS = 1024, 200
+# the eager grad steps of the two recipes before their capture (the
+# launcher's RACER_RNN and VRACER_expensiveData on an NVIDIA H100 80GB
+# HBM3), ms
+RNN_EAGER_MS = {"racer_rnn": 60.889, "vracer_gru": 42.948}
 # the conv / Atari phase
 ATARI_ENVS, ATARI_STEPS = 1024, 300
 # the bf16 phase: the grad step at atari_setup's shapes timed in each
@@ -1476,9 +1484,26 @@ def _graphs_path(name, make, tmp):
     return res
 
 
-def phase_graphs():
+def _rnn_trainer(graphs=None):
+    """Phase 4b's recurrent path: phase 7's RACER_RNN trainer (1024
+    envs, 4096 x 501 slots, training from 16384 observations)."""
+    from smarties_tpu_torch import launch
+    from smarties_tpu_torch.envs import cartpole
+    from smarties_tpu_torch.runtime.trainer import Trainer
+
+    _, recipe, n_slots, min_obs = RNN_PATHS[0]
+    cfg = launch.load_recipe(recipe, 0)
+    cfg.minTotObsNum = min_obs
+    env = cartpole.pomdp
+    tr = Trainer(env, env.MDP, cfg, n_envs=RNN_ENVS, n_slots=n_slots,
+                 max_len=env.MAX_STEPS, device="cuda", graphs=graphs)
+    tr.log_flush_threshold = 10 ** 9
+    return tr
+
+
+def phase_graphs(only=None):
     """Every captured path against its eager loops, from one state
-    (phase 4b in the module docstring)."""
+    (phase 4b in the module docstring); `only`: these paths alone."""
     import functools
     import shutil
     import tempfile
@@ -1493,6 +1518,9 @@ def phase_graphs():
     for name, app, recipe in LEARNER_PATHS:
         paths[name] = functools.partial(_learner_trainer, app, recipe)
     paths["vracer_perrank"] = _per_trainer
+    paths["racer_rnn"] = _rnn_trainer
+    if only:
+        paths = {k: paths[k] for k in only}
     try:
         res = {name: _graphs_path(name, make, tmp)
                for name, make in paths.items()}
@@ -1744,6 +1772,7 @@ def phase_recurrent():
                      max_len=env.MAX_STEPS, device="cuda")
         tr.log_flush_threshold = 10 ** 9
         assert tr.algo_is_recurrent and tr.algo.spec.kind == cfg.nnType
+        assert tr.graphs, f"{name}: not captured"
         assert tr.replay.rewards.shape == (n_slots, MAIN_L1)
         sites = SiteCounter(tr, rk)
         cuda_lib.reset_launches()
@@ -1779,7 +1808,8 @@ def phase_recurrent():
               f"{cfg.nnLayerSizes}, BPTT {cfg.nnBPTTseq}, batch "
               f"{cfg.batchSize}, {RNN_ENVS} envs, {n_slots} x {MAIN_L1} "
               f"slots): warmup {warm_s:.2f} s | train({RNN_STEPS}) "
-              f"{train_ms:.1f} ms by events ({ms_step:.3f} ms/grad step, "
+              f"{train_ms:.1f} ms by events ({ms_step:.3f} ms/grad step "
+              f"captured, against {RNN_EAGER_MS[name]} eager, "
               f"host wall {train_s:.2f} s) | stored steps "
               f"{int(tr.replay.n_stored_steps())} | evaluate(8, 200) mean "
               f"return {float(np.mean(rets)):.2f} | K1 sweep launches by "
@@ -4252,10 +4282,13 @@ def phase_bench():
                       "serving": srv, "phase_s": phase_s}}
 
 
-# phases 2b-2d, 4, 4b, 8, 8b and 17-23, by the names `--only` takes
+# phases 2b-2d, 4, 4b (graphs_rnn: its recurrent path alone), 7, 8, 8b
+# and 17-23, by the names `--only` takes
 NEW_PHASES = {"adam": phase_adam, "tail": phase_tail, "head": phase_head,
               "main": lambda: {"main": phase_main_path()},
               "graphs": phase_graphs,
+              "graphs_rnn": lambda: phase_graphs(("racer_rnn",)),
+              "recurrent": lambda: {"recurrent": phase_recurrent()},
               "atari": phase_atari, "bf16": phase_bf16,
               "glider": phase_glider,
               "predator_prey": phase_predator_prey,

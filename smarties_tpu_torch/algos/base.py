@@ -68,6 +68,21 @@ def seq_outputs(params, spec, xs, active):
     return y, y1
 
 
+def bptt_counts(spec, xs) -> dict:
+    """What a BPTT window over xs [B, P, n_in] runs, from the shapes:
+    "bptt_cells", the cell applications of the forward (P positions x
+    layers, the no-grad step to t+1 among them) and of the backward
+    (P - 1 positions x layers); "bptt_macs", the multiply-adds of the
+    forward's cells, one entry per layer (gates x (in h + h h) a row and
+    position: 4 gates for LSTM, 2 for GRU, 1 for RNN)."""
+    B, P = xs.shape[0], xs.shape[1]
+    gates = {"LSTM": 4, "GRU": 2, "RNN": 1}[spec.kind]
+    sizes = [spec.n_in] + list(spec.hidden)
+    return {"bptt_cells": (2 * P - 1) * len(spec.hidden),
+            "bptt_macs": tuple(B * P * gates * (a * h + h * h)
+                               for a, h in zip(sizes[:-1], sizes[1:]))}
+
+
 def seq_forward_vjp(params, spec, xs, active):
     """seq_outputs with its pullback: (out_t.detach(), out_t1, pullback),
     where pullback(g) backpropagates an output-space gradient at the
@@ -199,9 +214,13 @@ class Learner:
     CUDA graphs (runtime/graphs.py): the step reads no device value back,
     keeps its shapes and updates every state tensor in its own storage.
     Every off-policy learner with a feed-forward net is, under any
-    sampler of `rb.sample`; the recurrent nets and PPO are not, and a
-    learner whose step is not held under capture says so (ACER,
-    RACER-ES)."""
+    sampler of `rb.sample`; with a recurrent net only a learner whose
+    BPTT step and acting carry are held under capture (`captures_bptt`:
+    the V-RACER family). PPO is not, and a learner whose step is not held
+    under capture says so (ACER, RACER-ES). DQN's, NAF's and DPG's
+    recurrent steps stay refused: their target nets' windows, and NAF's
+    and DPG's OU state beside the net's carry, have not been held
+    captured against eager."""
     on_policy = False
     presample = True
     # the phases a traced train step stamps (`train_step(..., stamp=)`;
@@ -212,10 +231,15 @@ class Learner:
     # by the learners that stack frames (RACER family, DQN)
     n_appended = 0
 
+    # a recurrent net's truncated-BPTT step and acting carry are held
+    # under capture (tests/test_torch_graphs.py)
+    captures_bptt = False
+
     @property
     def capturable(self) -> bool:
         return (not self.on_policy
-                and self.cfg.nnType not in ("LSTM", "GRU", "RNN"))
+                and (self.cfg.nnType not in ("LSTM", "GRU", "RNN")
+                     or self.captures_bptt))
 
     def sample_minibatch(self, rs: rb.ReplayState, gen, sample_override,
                          mesh=None):

@@ -27,15 +27,17 @@ With a recurrent nnType the forward is a truncated-BPTT window of
 nnBPTTseq steps ending at the sampled step (algos/base.py): the output at
 t takes the gradient, which is pulled back through the window, and the
 output at t+1 gives the V(s_T) refresh. Acting threads the net's carry.
+The recurrent step and the acting carry are captured as the feed-forward
+ones are (`captures_bptt`; runtime/trainer.py).
 """
 from __future__ import annotations
 
 import torch
 
-from smarties_tpu_torch.algos.base import (Learner, backprop, bptt_window,
-                                           check_ported, psum_grads_,
-                                           returns_mode_of, seq_forward_vjp,
-                                           step_tail_)
+from smarties_tpu_torch.algos.base import (Learner, backprop, bptt_counts,
+                                           bptt_window, check_ported,
+                                           psum_grads_, returns_mode_of,
+                                           seq_forward_vjp, step_tail_)
 from smarties_tpu_torch.core.mdp import MDPSpec
 from smarties_tpu_torch.models.net import (Conv2DDesc, NetSpec, apply_net,
                                            init_carry, init_params)
@@ -54,11 +56,17 @@ from smarties_tpu_torch.utils.config import HyperParameters
 # the traced step's phases of a feed-forward net with a conv stack
 CONV_STEP_PHASES = ("gather", "conv_forward", "forward", "backward",
                     "conv_backward", "adam", "writeback")
+# and of a recurrent net: the window's forward (to the output at t, with
+# the no-grad step to t+1), the head (output_grad) and the pullback
+# through the window
+RNN_STEP_PHASES = ("gather", "bptt_forward", "head", "bptt_backward",
+                   "adam", "writeback")
 
 
 class VRacer(Learner):
     """RACER family learner. adv_kind selects the advantage family; the
     default follows the factory rules from cfg.learner."""
+    captures_bptt = True
 
     def __init__(self, mdp: MDPSpec, cfg: HyperParameters,
                  adv_kind: str | None = None):
@@ -96,7 +104,9 @@ class VRacer(Learner):
                 param_init=tuple([sig0] * nA), out_bias_init=tuple(bias),
                 **common)
         self.adv_start, self.pol_start = 1, 1 + self.nL
-        if self.spec.conv and not self.spec.is_recurrent:
+        if self.spec.is_recurrent:
+            self.step_phases = RNN_STEP_PHASES
+        elif self.spec.conv:
             self.step_phases = CONV_STEP_PHASES
         self.adam_cfg = AdamConfig(eta=cfg.learnrate, lambda_=cfg.nnLambda,
                                    eps_anneal=cfg.epsAnneal)
@@ -284,18 +294,27 @@ class VRacer(Learner):
         output enters the dense layers, backward where the backward pass
         reaches that output again, and conv_backward with the stack's
         gradients; stamp.counters["conv_macs"] gets the multiply-adds of
-        each conv of the forward, from the shapes it ran."""
+        each conv of the forward, from the shapes it ran. With a
+        recurrent net the phases are RNN_STEP_PHASES, and
+        stamp.counters gets the window's bptt_cells and bptt_macs
+        (algos/base.py::bptt_counts)."""
         cfg, spec = self.cfg, self.spec
         mb = self.sample_minibatch(rs, gen, sample_override, mesh)
-        if stamp is not None:
-            stamp("gather")
         last_grads = "backward"         # the phase that ends with the grads
 
         if spec.is_recurrent:
             xs, active = bptt_window(rs, mb.ep, mb.t, cfg.nnBPTTseq)
+            if stamp is not None:
+                stamp("gather")
+                stamp.counters.update(bptt_counts(spec, xs))
             out, out_next, pullback = seq_forward_vjp(params, spec, xs,
                                                       active)
+            if stamp is not None:
+                stamp("bptt_forward")
+            last_grads = "bptt_backward"
         else:
+            if stamp is not None:
+                stamp("gather")
             # ONE forward over [s_t; s_t1]: the t+1 values (V(s_T)
             # refresh, RACER_train.cpp:22-27) ride along; their rows get
             # zero cotangent
@@ -323,7 +342,7 @@ class VRacer(Learner):
                 out, mb, rs)
 
         if stamp is not None:
-            stamp("forward")
+            stamp("head" if spec.is_recurrent else "forward")
         grads = psum_grads_(pullback(g), mesh)
         if stamp is not None:
             stamp(last_grads)

@@ -92,7 +92,13 @@ launcher's 65,536 x 40 uint8 slots, filled by 156 sweeps, four whole
 episodes of every env): its step has the phases gather, conv_forward,
 forward, backward, conv_backward, Adam and write-back, and each row adds
 the conv stack's forward multiply-adds a replay and the TFLOP/s its
-FLOPs make over the two conv phases (Profiler.summary).
+FLOPs make over the two conv phases (Profiler.summary). `--trace-rnn`
+traces RACER_RNN on cartpole.pomdp instead (`rnn_trainer`: LSTM [32, 32],
+a 16-step BPTT window, batch 128, 1024 envs, the main path's 4096 x 501
+slots, filled by 256 sweeps): its step has the phases gather,
+bptt_forward, head, bptt_backward, Adam and write-back, and each row adds
+the window's cell applications a replay, their forward multiply-adds and
+the µs of one cell application (Profiler.summary).
 
 Needs a CUDA card (exits 2 without one). Imports no JAX.
 """
@@ -151,6 +157,21 @@ def atari_trainer(seed: int = 0, device="cuda", n_envs: int = 1024,
     tr = Trainer(catch, catch.MDP, cfg, n_envs=n_envs, n_slots=n_slots,
                  max_len=catch.MAX_STEPS, device=device,
                  state_dtype=torch.uint8, graphs=graphs)
+    tr.log_flush_threshold = 10 ** 9
+    return tr
+
+
+def rnn_trainer(seed: int = 0, device="cuda", n_envs: int = 1024,
+                n_slots: int = 4096, graphs=None) -> Trainer:
+    """RACER_RNN on the no-velocity cart-pole: the recipe's V-RACER with
+    an LSTM [32, 32], a 16-step BPTT window and batch 128, on the main
+    path's replay shape, episode logs held on the device."""
+    from smarties_tpu_torch.utils.recipes import RECIPES
+    cfg = HyperParameters.from_dict(dict(RECIPES["RACER_RNN"],
+                                         randSeed=seed))
+    env = cartpole.pomdp
+    tr = Trainer(env, env.MDP, cfg, n_envs=n_envs, n_slots=n_slots,
+                 max_len=env.MAX_STEPS, device=device, graphs=graphs)
     tr.log_flush_threshold = 10 ** 9
     return tr
 
@@ -442,6 +463,9 @@ def main(argv=None):
     p.add_argument("--trace-atari", action="store_true",
                    help="with --trace: RACER_atari on catch in place of "
                         "the main path")
+    p.add_argument("--trace-rnn", action="store_true",
+                   help="with --trace: RACER_RNN on cartpole.pomdp in "
+                        "place of the main path")
     args = p.parse_args(argv)
     if args.graphs and (not args.path or "RACER_atari" in args.path):
         p.error("--graphs needs --path, without RACER_atari")
@@ -463,7 +487,7 @@ def main(argv=None):
     if args.trace is not None:
         trace_main(args.trace, args.trace_after, args.trace_out,
                    fill_sweeps=4 * catch.MAX_STEPS if args.trace_atari
-                   else 256, atari=args.trace_atari)
+                   else 256, atari=args.trace_atari, rnn=args.trace_rnn)
         return
     if args.path:
         return
@@ -648,7 +672,8 @@ def kernel_launches(tr: Trainer) -> dict:
 
 def trace_main(seconds: float, plain_s: float = 0.0, out=None,
                device="cuda", n_envs: int = 1024, n_slots: int = 4096,
-               fill_sweeps: int = 256, atari: bool = False):
+               fill_sweeps: int = 256, atari: bool = False,
+               rnn: bool = False):
     """The main path's fused cycles with the profiler tracing (the module
     docstring, --trace): from the Trainer's construction, or after
     `plain_s` seconds of plain cycles (each one's TRAIN ms per grad
@@ -656,11 +681,14 @@ def trace_main(seconds: float, plain_s: float = 0.0, out=None,
     per-cycle rows. The tests pass the CPU (the graphs' static-buffer
     form) and smaller sizes. atari: RACER_atari on catch
     (`atari_trainer`, its replay's slots the Trainer's own) in place of
-    the main path."""
+    the main path; rnn: RACER_RNN on cartpole.pomdp (`rnn_trainer`)."""
     from smarties_tpu_torch.ops.stamp import timer_ticks_ns
     cuda_lib.reset_launches()
     if atari:
         tr = atari_trainer(device=device, n_envs=n_envs, graphs=True)
+    elif rnn:
+        tr = rnn_trainer(device=device, n_envs=n_envs, n_slots=n_slots,
+                         graphs=True)
     else:
         tr = main_path_trainer(device=device, n_envs=n_envs,
                                n_slots=n_slots, graphs=True)
@@ -702,8 +730,9 @@ def trace_main(seconds: float, plain_s: float = 0.0, out=None,
                / 1e6 / n_train,
                "presample_ms": sm["presample_ms"],
                "device_gap_share": sm["device_gap_share"]}
-        row.update((k, sm[k]) for k in ("conv_macs", "conv_tflop_s")
-                   if k in sm)
+        row.update((k, sm[k]) for k in ("conv_macs", "conv_tflop_s",
+                                        "bptt_cells", "bptt_macs",
+                                        "bptt_cell_us") if k in sm)
         rows.append(row)
         print(json.dumps(row), flush=True)
     if cuda:

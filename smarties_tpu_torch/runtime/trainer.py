@@ -17,7 +17,9 @@ jits its programs; eagerly, a "program" is a Python loop issuing CUDA
 kernels on the current stream. On a card, without a mesh, for a learner
 that is `capturable` (every off-policy learner with a feed-forward net:
 V-RACER, RACER, RACER-discrete, DQN, NAF, DPG and MixedPG, under any
-sampler; not the recurrent nets, PPO, ACER or RACER-ES), the Trainer
+sampler; the V-RACER family with a recurrent net too, its truncated-BPTT
+step and the acting carry that the sweep threads; not PPO, ACER,
+RACER-ES, or DQN, NAF and DPG with a recurrent net), the Trainer
 captures two kinds of CUDA graph and replays them: the env sweep (n_roll
 sweeps with their commits, then the at-ingest K1 sweep; one graph per
 n_roll) and one grad step, which writes its metrics into a row of static
@@ -79,7 +81,8 @@ by CUDA events on the card, read only there). `profiler.trace()` turns
 on its span records: besides the four phases, PRESAMPLE, STEP (one per
 step replay) and METRICS inside TRAIN and LOGS inside ROLL, and the
 phases of a V-RACER / RACER step, stamped on the card by a second step
-graph; `profiler.export_chrome_trace` writes them.
+graph (algos/vracer.py: a conv stack's and a recurrent window's phases
+among them); `profiler.export_chrome_trace` writes them.
 
 Left out of the JAX trainer: the TPU-worker crash retry of train_fused,
 SMT_PACK_STATES and the single-controller shard addressing
@@ -288,12 +291,13 @@ class Trainer:
         (runtime/graphs.py; the module docstring). None, the default,
         captures on a card without a mesh when the learner is
         `capturable` (the off-policy learners with a feed-forward net,
-        under any sampler); False runs the eager loops (on the card: the
-        counterpart of jax.disable_jit, to hold the two against each
-        other); True asks for the graphs and raises where the learner or
-        the mesh does not allow them (the recurrent nets, PPO, ACER,
-        RACER-ES, a mesh), and on the CPU runs their static-buffer form
-        uncaptured."""
+        under any sampler, and the V-RACER family with a recurrent one);
+        False runs the eager loops (on the card: the counterpart of
+        jax.disable_jit, to hold the two against each other); True asks
+        for the graphs and raises where the learner or the mesh does not
+        allow them (PPO, ACER, RACER-ES, DQN, NAF and DPG with a
+        recurrent net, a mesh), and on the CPU runs their static-buffer
+        form uncaptured."""
         # the learner first: one the port lacks is reported before any
         # settings check
         if algo_cls is None:
@@ -715,7 +719,8 @@ class Trainer:
         i of the static [rows, len(step_phases) + 1] stamp buffer
         (ops/stamp.py: the card's timer, in stream order), and the
         counters the step reports as it is captured (the conv stack's
-        multiply-adds a replay) into `_stamp_counters`."""
+        multiply-adds, or a BPTT window's cells and multiply-adds, a
+        replay) into `_stamp_counters`."""
         dev = self.device
         if self._step_rows is None:
             rows = max(int(round(self.n_envs / self.cfg.obsPerStep)), 100)

@@ -285,7 +285,8 @@ class Profiler:
         on the CPU). Kept on the device until `read()`. counters: what
         each of these replays counted (the same for every replay of a
         graph), e.g. "conv_macs": the multiply-adds of each conv of the
-        forward."""
+        forward, "bptt_cells" and "bptt_macs" those of a BPTT window
+        (algos/base.py::bptt_counts)."""
         self._stamps.append([list(spans), tuple(names), times, None])
         self.counters.update(counters or {})
 
@@ -436,7 +437,11 @@ class Profiler:
         FLOPs over the median conv_forward plus conv_backward ms
         (conv_tflop_s): 2 per multiply-add of the forward, the weight
         gradients and the input gradients of every conv but the first,
-        whose input takes none."""
+        whose input takes none. A recurrent step adds its window's cell
+        applications a replay, forward and backward (bptt_cells), its
+        forward cells' multiply-adds (bptt_macs) and the µs of one cell
+        application over the median bptt_forward plus bptt_backward
+        (bptt_cell_us)."""
         recs = self._select(cycles)
         busy = [r for r in recs if r.name in BUSY_SPANS
                 and r.dev0 is not None]
@@ -453,15 +458,23 @@ class Profiler:
                 phases[name].append((b - a) / 1e6)
         med = statistics.median
         phases_ms = {k: med(v) for k, v in phases.items()}
-        conv = {}
+        counted = {}
         macs = self.counters.get("conv_macs")
         if macs:
-            conv["conv_macs"] = sum(macs)
+            counted["conv_macs"] = sum(macs)
             conv_ms = (phases_ms.get("conv_forward", 0.0)
                        + phases_ms.get("conv_backward", 0.0))
             if conv_ms > 0:
-                conv["conv_tflop_s"] = (2 * (3 * sum(macs) - macs[0])
-                                        / (conv_ms * 1e-3) / 1e12)
+                counted["conv_tflop_s"] = (2 * (3 * sum(macs) - macs[0])
+                                           / (conv_ms * 1e-3) / 1e12)
+        cells = self.counters.get("bptt_cells")
+        if cells:
+            counted["bptt_cells"] = cells
+            counted["bptt_macs"] = sum(self.counters["bptt_macs"])
+            bptt_ms = (phases_ms.get("bptt_forward", 0.0)
+                       + phases_ms.get("bptt_backward", 0.0))
+            if bptt_ms > 0:
+                counted["bptt_cell_us"] = bptt_ms * 1e3 / cells
         return {
             "cycles": n_cycles,
             "window_ms": (hi - lo) / 1e6,
@@ -475,7 +488,7 @@ class Profiler:
                              if steps else None),
             "phases_ms": phases_ms,
             "mapping_error_us": self.mapping_error_ns() / 1e3,
-            **conv,
+            **counted,
         }
 
     def export_chrome_trace(self, path: str, onto: str | None = None):

@@ -5,14 +5,18 @@ sweep) and the grad step of every off-policy learner with a feed-forward
 net as CUDA graphs on a card: V-RACER's main path, RACER (Gaussian and
 discrete), DQN, NAF, DPG and MixedPG, on uniform minibatches drawn up
 front or with the prioritized draw (PERrank, PERerr, PERseq) inside the
-step. A graph replays the addresses it captured, so what it needs of the
+step; and the V-RACER family with a recurrent net (V-RACER with an
+LSTM, a GRU or an RNN on the no-velocity cart-pole, RACER with an LSTM,
+RACER-discrete with a GRU): its truncated-BPTT step and the acting carry
+of every lane, which the sweep threads and zeroes where an episode ends. A graph replays the addresses it captured, so what it needs of the
 code is held here on the CPU, at tests/test_fused.py's sizes (16 envs,
 64 slots):
 
 (a) one train step, one sweep with its ingest, the 1000-step refresh and
     a save / restore round trip leave every tensor of the params (target
     nets included), the optimiser state, the replay, the in-progress
-    episodes, the env state and the acting carry in its own storage;
+    episodes, the env state and the acting carry (the recurrent nets'
+    (h, c) or h of every layer) in its own storage;
 (b) no host-reading op in a grad step or a sweep (a TorchDispatchMode
     over them): no .item(), nonzero, masked_select, unique, and no
     indexing by a bool mask; for each learner, each prioritized draw and
@@ -104,6 +108,30 @@ PATHS = {
                    ("params.net.layers.0.W", "opt.step"), ()),
 }
 LEARNERS = ("racer", "racer_discrete", "dqn", "naf", "dpg", "mixedpg")
+# V-RACER with a recurrent net: its window's leaves and the acting carry
+PATHS.update({
+    "lstm": ("cartpole_pomdp", dict(nnType="LSTM", nnBPTTseq=4),
+             ("params.layers.0.Wc", "params.layers.1.Ro", "opt.step",
+              "carry.replay.rho_tm"),
+             ("carry.rnn.0.0", "carry.rnn.0.1", "carry.rnn.1.0",
+              "carry.rnn.1.1")),
+    "gru": ("cartpole_pomdp", dict(nnType="GRU", nnBPTTseq=4),
+            ("params.layers.0.Wf", "params.layers.1.Rh", "opt.step",
+             "carry.replay.rho_tm"), ("carry.rnn.0", "carry.rnn.1")),
+    # the plain RNN, and RACER's Gaussian and discrete heads over the
+    # window (the family shares VRacer.train_step's recurrent branch)
+    "rnn": ("cartpole_pomdp", dict(nnType="RNN", nnBPTTseq=4),
+            ("params.layers.0.R", "opt.step"), ("carry.rnn.0",)),
+    "racer_lstm": ("cartpole_pomdp", dict(learner="RACER", nnType="LSTM",
+                                          nnBPTTseq=4),
+                   ("params.layers.0.Wi", "opt.step"), ("carry.rnn.0.0",)),
+    "racer_discrete_gru": ("cartpole_discrete",
+                           dict(learner="RACER", nnType="GRU", nnBPTTseq=4),
+                           ("params.layers.0.Wh", "opt.step"),
+                           ("carry.rnn.0",)),
+})
+RECURRENT = ("lstm", "gru")
+RECURRENT_MORE = ("rnn", "racer_lstm", "racer_discrete_gru")
 
 
 def _trainer(device="cpu", graphs=None, app="cartpole", **kw):
@@ -167,8 +195,9 @@ SWEEP_MOVES = ("carry.inprog.t", "carry.inprog.cum_reward",
 
 @pytest.mark.parametrize("path, what", [
     *(pytest.param("vracer", w, id=w) for w in MAIN_MOVES),
-    *((p, w) for p in (*LEARNERS, "PERrank")
+    *((p, w) for p in (*LEARNERS, "PERrank", *RECURRENT)
       for w in ("train_step", "sweep", "restore")),
+    *((p, "refresh") for p in RECURRENT),
 ])
 def test_state_keeps_its_storage(path, what, tmp_path):
     tr = _path_trainer(path, graphs=False)
@@ -248,6 +277,10 @@ class _HostReads(TorchDispatchMode):
     *(pytest.param("sweep", "cartpole", dict(ERoldSeqFilter=f),
                    id=f"sweep-{f}")
       for f in ("farpolfrac", "maxkldiv", "minerror")),
+    # the BPTT step and the sweep that threads the acting carry
+    *(pytest.param(w, PATHS[p][0], PATHS[p][1], id=f"{w}-{p}")
+      for p in (*RECURRENT, *RECURRENT_MORE)
+      for w in ("train_step", "sweep")),
 ])
 def test_no_host_reads(what, app, kw):
     env = launch.env_module(app)
@@ -285,7 +318,8 @@ def _pinned(tr):
 @pytest.mark.parametrize("what", ["fused", "long_chunk", *LEARNERS,
                                   "dqn_eps_greedy", "dqn_refer_retrace",
                                   "PERrank", "PERerr", "PERseq",
-                                  "naf_PERerr"])
+                                  "naf_PERerr", *RECURRENT,
+                                  *RECURRENT_MORE])
 def test_static_cycle_equals_eager_loop(what):
     """"fused": V-RACER's two fused cycles (the first on pinned
     presamples) and a third after the refresh; every other path the same
@@ -323,12 +357,26 @@ def test_static_cycle_equals_eager_loop(what):
     dict(nnType="LSTM", nnBPTTseq=4),
     dict(learner="VRACER", ESpopSize=4),
     dict(learner="PPO"),
+    dict(learner="DQN", nnType="LSTM", nnBPTTseq=4),
 ])
 def test_graphs_only_for_capturable_learners(kw):
-    assert not _trainer(**kw).graphs
+    """The learners without a captured step refuse graphs=True; V-RACER
+    with a recurrent net has one, and its static cycle equals the eager
+    one over a fused cycle."""
+    app = "cartpole_discrete" if kw.get("learner") == "DQN" else "cartpole"
+    assert not _trainer(app=app, **kw).graphs
     assert not _trainer().graphs          # the CPU captures nothing
+    if kw.get("learner", "VRACER") == "VRACER" and "nnType" in kw:
+        trs = [_trainer(graphs=g, app="cartpole_pomdp", **kw)
+               for g in (False, True)]
+        assert trs[1].graphs and trs[1].algo.capturable
+        for tr in trs:
+            tr.warmup(chunk=16)
+            _cycle(tr, N_ENVS)
+        _assert_same_state(*trs)
+        return
     with pytest.raises(ValueError, match="no captured step"):
-        _trainer(graphs=True, **kw)
+        _trainer(graphs=True, app=app, **kw)
 
 
 @pytest.fixture
@@ -340,7 +388,7 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["vracer", *LEARNERS, "PERrank", "PERerr",
-                                  "PERseq"])
+                                  "PERseq", *RECURRENT, *RECURRENT_MORE])
 def test_captured_cycle_equals_eager_on_card(cuda, path, tmp_path):
     from torch.profiler import ProfilerActivity, profile
 

@@ -527,3 +527,75 @@ def test_conv_traced_step_is_the_plain_step_the_stamps_and_a_view():
     k = next(k for k, (a, b) in enumerate(zip(rest, plain)) if a != b)
     assert rest[k] == "aten::view"
     assert rest[:k] + rest[k + 1:] == plain
+
+
+# ---------------------------------------------------------------------
+# a recurrent net: V-RACER with an LSTM on the no-velocity cart-pole
+
+RNN_PHASES = ("gather", "bptt_forward", "head", "bptt_backward", "adam",
+              "writeback")
+
+
+@pytest.mark.parametrize("kind, gates", [("LSTM", 4), ("GRU", 2)])
+def test_recurrent_phases_in_order_and_count_cells(kind, gates):
+    """The traced recurrent step stamps its six phases, in order, summing
+    to the stamped replay; bptt_cells is (2W + 1) x layers and bptt_macs
+    each layer's gates x (in h + h h) over the window's W + 1 positions
+    and the batch's rows; the summary gives one cell's µs."""
+    W = 4
+    tr = _trainer(app="cartpole_pomdp", nnType=kind, nnBPTTseq=W,
+                  nnLayerSizes=[8, 6])
+    assert tr.algo.step_phases == RNN_PHASES
+    tr.profiler.trace()
+    tr.warmup(chunk=16, blind_sweeps=16)
+    tr.train_fused(N_ENVS, log_every=10 ** 9)
+    steps = [r for r in tr.profiler.read() if r.name == "STEP"]
+    assert len(steps) == N_ENVS
+    for r in steps:
+        assert [n for n, _, _ in r.phases] == list(RNN_PHASES)
+        for (_, _, end), (_, start, _) in zip(r.phases, r.phases[1:]):
+            assert start == end
+        assert all(a <= b for _, a, b in r.phases)
+        assert r.host0 <= r.phases[0][1] and r.phases[-1][2] <= r.host1
+    B, n_in = CFG["batchSize"], tr.mdp.dim_net_input
+    assert tr.profiler.counters["bptt_cells"] == (2 * W + 1) * 2
+    assert list(tr.profiler.counters["bptt_macs"]) == [
+        B * (W + 1) * gates * (a * h + h * h)
+        for a, h in ((n_in, 8), (8, 6))]
+    s = tr.profiler.summary()
+    assert set(s["phases_ms"]) == set(RNN_PHASES)
+    assert s["bptt_cells"] == 18
+    assert s["bptt_cell_us"] == pytest.approx(
+        (s["phases_ms"]["bptt_forward"] + s["phases_ms"]["bptt_backward"])
+        * 1e3 / 18)
+    assert "conv_macs" not in s
+
+
+def test_recurrent_traced_cycle_equals_untraced():
+    """The recurrent step traced, from the start, equals it untraced bit
+    for bit over two fused cycles and a refresh."""
+    trs = []
+    for traced in (False, True):
+        tr = _trainer(app="cartpole_pomdp", nnType="LSTM", nnBPTTseq=4)
+        if traced:
+            tr.profiler.trace()
+        tr.warmup(chunk=16)
+        for _ in range(2):
+            tr.train_fused(N_ENVS, log_every=10 ** 9)
+        tr._update_replay(tr._refresh, 1000.0)
+        trs.append(tr)
+    _assert_same(*trs)
+    assert (True, "traced") in trs[1]._step_graphs
+
+
+def test_profile_main_traces_the_recurrent_step_on_the_cpu(tmp_path, capsys):
+    """`profile_main --trace --trace-rnn`'s loop at a small size: the
+    RACER_RNN recipe on cartpole.pomdp, one row with the window's phases
+    and its cell counts."""
+    from smarties_tpu_torch.runtime import profile_main as pm
+    rows = pm.trace_main(0.0, device="cpu", n_envs=N_ENVS, n_slots=N_SLOTS,
+                         fill_sweeps=4, rnn=True)
+    capsys.readouterr()
+    assert len(rows) == 1 and set(rows[0]["phases_ms"]) == set(RNN_PHASES)
+    assert rows[0]["bptt_cells"] == (2 * 16 + 1) * 2
+    assert rows[0]["bptt_cell_us"] > 0
