@@ -59,6 +59,22 @@ Phases, each reported on its own line:
    V-RACER's captured paths (the main path and PERrank), none on the
    eager side of 4b (the chain) and on the other learners (RACER's
    Gaussian advantage, RACER-discrete, DQN, NAF, DPG, MixedPG).
+2e. lstm_window: builds the LSTM window's kernel (csrc/lstm_window.cu)
+   and holds it, at the benchmark cell's shapes (RACER_RNN's LSTM [32,
+   32] over cartpole.pomdp's 3 inputs, batch 128, W = 16, rows that
+   cover inactive prefixes and holes), against the chain it replaces
+   (algos/base.py::chain_outputs) on the card and against the float64
+   chain on the CPU: the outputs at t and t+1 and every leaf's gradient,
+   one forward, one backward and one reduce launch; then the window's
+   time (forward, output layer and backward; the forward alone) and the
+   chain's, 200 and 20 calls in one CUDA graph, beside the bound of its
+   FLOPs at the FP32 peak. Then the other learners whose LSTM it takes
+   on the card (RACER, DQN, NAF, DPG and PPO's encoder, each with an LSTM
+   [16, 16] and W = 8) against the CPU's chain at a small size (4 pinned
+   train steps and a refresh), each launching the kernel. Phases 4b and
+   7 count its launches against
+   the optimiser's step counter: one forward, one backward and one reduce
+   a grad step on RACER_RNN's path (captured and eager), none elsewhere.
 3. reference: the port on the card against the port on the CPU at a
    small size, from one state (8 train steps and a refresh, so K1 runs
    inside the pipeline against its plain version).
@@ -76,10 +92,10 @@ Phases, each reported on its own line:
    NAF, DPG and MixedPG at their recipes' widths with 1024 envs (phase
    5's settings), then V-RACER under PERrank + farpolfrac (phase 9's,
    the draw inside the captured step), then RACER_RNN on cartpole.pomdp
-   (phase 7's trainer: the BPTT step and the acting carry captured; its
-   eager fused cycles take about 2 min). The captured side runs the Adam
-   and step-tail kernels, the eager side the loop and the chain they
-   replace. Per path: warmup, the
+   (phase 7's trainer: the BPTT step and the acting carry captured).
+   The captured side runs the Adam and step-tail kernels, the eager side
+   the loop and the chain they replace; both run the LSTM window's
+   kernel. Per path: warmup, the
    graphs' warm-up calls and their capture in short fused cycles (1
    sweep + 8 grad steps), 2 fused cycles timed by CUDA events, a save,
    a short cycle, a restore and a short cycle (the 1000-step refresh after each
@@ -117,7 +133,9 @@ Phases, each reported on its own line:
    train(200), a refresh, evaluate(8, 200); the GRU recipe
    VRACER_expensiveData the same way at 1024 slots. Both run captured
    (the Trainer's default); the ms per grad step is printed beside the
-   eager 60.889 and 42.948 measured before the capture.
+   eager 60.889 and 42.948 measured before the capture and the captured
+   8.885 and 5.732 measured before the LSTM window's kernel (the GRU keeps
+   the chain).
    Checks that every K1 launch ran in Retrace mode, one per site call;
    then LSTM and GRU V-RACER on the card against the CPU at a small size.
 8. conv / Atari: app `catch` with recipe RACER_atari through the launcher
@@ -281,10 +299,10 @@ Phases, each reported on its own line:
    steady and Atari phases. Then the serving bench
    (tools/serving_bench.py) for 3 s over 4 forked apps: served > 0.
    Prints the phase's time.
-`--only NAME ...` runs the device phase and the named phases of 2b-2d,
-4, 4b, 7, 8, 8b and 17-23 alone (adam, tail, head, main, graphs,
-graphs_rnn: 4b's racer_rnn path alone, recurrent, atari, bf16, glider,
-predator_prey, multitrainer, logs, multichip, curves, bench).
+`--only NAME ...` runs the device phase and the named phases of 2b-2e,
+4, 4b, 7, 8, 8b and 17-23 alone (adam, tail, head, lstm_window, main,
+graphs, graphs_rnn: 4b's racer_rnn path alone, recurrent, atari, bf16,
+glider, predator_prey, multitrainer, logs, multichip, curves, bench).
 Then one JSON line with the kernels' results and, last, the device line.
 
 The script imports no JAX and nothing of the JAX package. Any failed
@@ -351,8 +369,10 @@ RNN_PATHS = (("racer_rnn", "RACER_RNN", 4096, 16384),
 RNN_ENVS, RNN_STEPS = 1024, 200
 # the eager grad steps of the two recipes before their capture (the
 # launcher's RACER_RNN and VRACER_expensiveData on an NVIDIA H100 80GB
-# HBM3), ms
+# HBM3), ms; their captured steps in train() before the LSTM window's
+# kernel (the same card)
 RNN_EAGER_MS = {"racer_rnn": 60.889, "vracer_gru": 42.948}
+RNN_CAPTURED_MS = {"racer_rnn": 8.885, "vracer_gru": 5.732}
 # the conv / Atari phase
 ATARI_ENVS, ATARI_STEPS = 1024, 300
 # the bf16 phase: the grad step at atari_setup's shapes timed in each
@@ -426,6 +446,15 @@ TAIL_TIMED = 200
 HEAD_SHAPES = (("vracer_cartpole", 256, 1, "bounded"),
                ("batch128_6dims", 128, 6, "mixed"))
 HEAD_TIMED = 200
+# the LSTM window phase: (hidden, n_in, batch, W) of the benchmark cell
+# racer_rnn_cartpole.fused; calls timed of the kernel and of the chain;
+# the learners whose LSTM it also takes, (name, app, recipe)
+LSTM_CELL = ((32, 32), 3, 128, 16)
+LSTM_TIMED, LSTM_CHAIN_TIMED = 200, 20
+LSTM_LEARNERS = (("racer", "cartpole", "RACER"),
+                 ("dqn", "cartpole_discrete", "DQN"),
+                 ("naf", "pendulum", "NAF"), ("dpg", "pendulum", "DPG"),
+                 ("ppo", "cartpole", "PPO"))
 # the bench phase: timed fused cycles, the Atari step's presampled steps,
 # quality cycles of seed 0; the serving bench's apps and seconds
 BENCH_CYCLES, BENCH_ATARI_STEPS, BENCH_QUALITY_CYCLES = 2, 128, 2
@@ -753,6 +782,29 @@ def _use_plain_head(plain):
         else _HEAD_KERNEL[0]
 
 
+def _takes_window_kernel(algo):
+    """Whether a learner's CUDA grad step runs the LSTM window's kernel:
+    a recurrent net that ops/lstm_window_kernel.py takes."""
+    from smarties_tpu_torch.ops import lstm_window_kernel
+    spec = getattr(algo, "spec", None)
+    return spec is not None and lstm_window_kernel.takes(spec)
+
+
+def _check_window_launches(tr, what):
+    """The LSTM window kernel's launches since the last reset against the
+    optimiser's step counter: one forward, one backward and one reduce a
+    grad step (a graph's replays count what its capture launched) where
+    the learner's net takes the kernel, none elsewhere."""
+    from smarties_tpu_torch.ops import lstm_window_kernel
+    opt = tr.opt_state
+    steps = int((opt if hasattr(opt, "step") else opt.adam).step) \
+        * _takes_window_kernel(tr.algo)
+    want = {"forward": steps, "backward": steps, "reduce": steps}
+    assert lstm_window_kernel.launches == want, \
+        f"{what}: window launches {lstm_window_kernel.launches} != {want}"
+    return want
+
+
 def _graph_ms(fn, n):
     """Median ms of one fn() call: n calls captured in one CUDA graph,
     replayed 5 times between CUDA events (no host time inside)."""
@@ -1064,6 +1116,123 @@ def phase_head():
     return {"head": out}
 
 
+def _window_flops(hidden, n_in, B, W):
+    """The LSTM window's FLOPs from its shapes (2 a multiply-add): the
+    forward's gate products at the W + 1 positions, 4 H (in + H) a cell;
+    the backward's at the W positions through t, as many for dW and dR
+    and 4 H (in + H) for dx and dh_prev, less 4 H in at the first layer,
+    whose input takes no gradient."""
+    fwd = bwd = 0
+    nin = n_in
+    for li, h in enumerate(hidden):
+        cell = 4 * h * (nin + h)
+        fwd += cell
+        bwd += 2 * cell - (4 * h * nin if li == 0 else 0)
+        nin = h
+    return 2 * B * ((W + 1) * fwd + W * bwd)
+
+
+def phase_lstm_window():
+    """The LSTM window's kernel against the chain it replaces and the
+    float64 chain, and its time (phase 2e in the module docstring)."""
+    import torch
+    from smarties_tpu_torch import launch
+    from smarties_tpu_torch.algos import base
+    from smarties_tpu_torch.models import net as tnet
+    from smarties_tpu_torch.ops import cuda_lib
+    from smarties_tpu_torch.ops import lstm_window_kernel as lw
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _torch_lstm_window_cases as cases
+
+    t0 = time.perf_counter()
+    lw.LIB.load()
+    build_s = time.perf_counter() - t0
+    regs = [ln.strip() for ln in lw.LIB.build_info["log"].splitlines()
+            if "registers" in ln or "Compiling entry" in ln]
+    dev = torch.device("cuda")
+    hidden, n_in, B, W = LSTM_CELL
+    spec = cases.spec_of(hidden, n_in)
+    p64 = cases.params_of(spec, seed=21)
+    xs64, act64 = cases.window(n_in, W, seed=22, B=B)
+    cot64 = cases.cotangent(spec, B, seed=23)
+    want = cases.outputs_and_grads(p64, spec, xs64, act64, cot64, False)
+    params = tnet.tree_map(
+        lambda x: x.detach().float().to(dev).requires_grad_(True), p64)
+    xs, act = xs64.float().to(dev), act64.to(dev)
+    cot = cot64.float().to(dev)
+    cuda_lib.reset_launches()
+    got = cases.outputs_and_grads(params, spec, xs, act, cot, True)
+    torch.cuda.synchronize()
+    assert lw.launches == {"forward": 1, "backward": 1, "reduce": 1}, \
+        lw.launches
+    chain = cases.outputs_and_grads(params, spec, xs, act, cot, False)
+
+    def rel(a, b):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        return float((a - b).abs().max() / b.abs().max())
+
+    def worst(x, y):
+        return max(rel(a, b) for a, b in zip([x[0], x[1], *x[2]],
+                                             [y[0], y[1], *y[2]]))
+
+    err = {"kernel_vs_f64": worst(got, want),
+           "chain_vs_f64": worst(chain, want),
+           "kernel_vs_chain": worst(got, chain)}
+    # tests/test_torch_lstm_window_cuda.py's tolerance on the gradients
+    assert err["kernel_vs_f64"] <= 2e-5, err
+
+    def kernel_step():
+        y_t, _ = base.window_outputs(params, spec, xs, act)
+        base.backprop(params, y_t, cot)
+
+    def chain_step():
+        y_t, _ = base.chain_outputs(params, spec, xs, act)
+        base.backprop(params, y_t, cot)
+
+    def kernel_forward():
+        with torch.no_grad():
+            lw.lstm_window(xs, act, params["layers"])
+
+    ms = _graph_ms(kernel_step, LSTM_TIMED)
+    fwd_ms = _graph_ms(kernel_forward, LSTM_TIMED)
+    chain_ms = _graph_ms(chain_step, LSTM_CHAIN_TIMED)
+    flops = _window_flops(hidden, n_in, B, W)
+    bound_ms = flops / (FP32_PEAK_TFLOPS * 1e12) * 1e3
+    cells = (2 * W + 1) * len(hidden)
+    learners = {}
+    for name, app, recipe in LSTM_LEARNERS:
+        cfg = _small_cfg(recipe)
+        cfg.nnType, cfg.nnBPTTseq = "LSTM", 8
+        cuda_lib.reset_launches()
+        worst = _card_vs_cpu(launch.env_module(app), cfg, 4)
+        assert lw.launches["forward"] > 0 and lw.launches["backward"] > 0, \
+            (name, lw.launches)
+        learners[name] = {"card_vs_cpu": worst, "launches": dict(lw.launches)}
+        print(f"lstm_window: {name} ({recipe} with an LSTM "
+              f"{cfg.nnLayerSizes}, BPTT 8) on the card against the CPU's "
+              f"chain, 4 pinned steps: max |diff| {_fmt_diffs(worst)} | "
+              f"window launches {dict(lw.launches)}", flush=True)
+    cuda_lib.reset_launches()
+    print(f"lstm_window: LSTM {list(hidden)} over {n_in} inputs, batch {B}, "
+          f"W = {W}: kernel against float64 {err['kernel_vs_f64']:.3e}, "
+          f"chain against float64 {err['chain_vs_f64']:.3e}, kernel against "
+          f"chain {err['kernel_vs_chain']:.3e} (largest |diff| over the "
+          f"tensor's largest magnitude, outputs and every gradient) | "
+          f"window {ms * 1e3:.3f} us a call (forward, output layer, "
+          f"backward, reduce; {LSTM_TIMED} in one graph; "
+          f"{ms * 1e3 / cells:.3f} us a cell of {cells}), forward alone "
+          f"{fwd_ms * 1e3:.3f} us | chain {chain_ms * 1e3:.3f} us "
+          f"({LSTM_CHAIN_TIMED} in one graph) | bound {flops} FLOP -> "
+          f"{bound_ms * 1e3:.4f} us at {FP32_PEAK_TFLOPS} TFLOP/s "
+          f"({bound_ms / ms:.5f} of the kernel's time) | built in "
+          f"{build_s:.2f} s ({'; '.join(regs)})", flush=True)
+    return {"lstm_window": {"build_s": build_s, "registers": regs,
+                            "err": err, "ms": ms, "forward_ms": fwd_ms,
+                            "plain_ms": chain_ms, "flops": flops,
+                            "bound_ms": bound_ms, "cells": cells,
+                            "learners": learners}}
+
+
 def _clone_replay(rs):
     import dataclasses
     return dataclasses.replace(rs, **{f.name: getattr(rs, f.name).clone()
@@ -1368,6 +1537,7 @@ def _graphs_path(name, make, tmp):
         head = _check_head_launches(
             tr, f"graphs {name} {mode}",
             mode == "captured" and _takes_head_kernel(tr.algo))
+        window = _check_window_launches(tr, f"graphs {name} {mode}")
         if mode == "captured":
             adam = _check_adam_launches(tr, f"graphs {name} {mode}")
         else:
@@ -1396,7 +1566,7 @@ def _graphs_path(name, make, tmp):
             assert tr._step_graphs and tr._sweep_graphs[1].graph is not None
         res[mode] = {"fused_cycle_ms": cycle_ms,
                      "k1": counts.get("retrace_sweep", 0), "adam": adam,
-                     "tail": tail, "head": head,
+                     "tail": tail, "head": head, "window": window,
                      "sites": dict(sites.sites), "stages": stages}
         tr._pending_logs.clear()
         trainers[mode] = tr
@@ -1470,7 +1640,7 @@ def _graphs_path(name, make, tmp):
               f"env sweep + ingest {r['per_sweep']} | K1 {r['k1']} sweep "
               f"launches by site {r['sites']}, one per call | Adam kernel "
               f"{r['adam']} | step-tail kernel {r['tail']} | head kernel "
-              f"{r['head']} | graph pools "
+              f"{r['head']} | window kernel {r['window']} | graph pools "
               f"{r['pool_bytes']} B | s "
               + ", ".join(f"{k} {v:.2f}" for k, v in r["stages"].items()),
               flush=True)
@@ -1792,6 +1962,7 @@ def phase_recurrent():
         tr.carry = tr.carry._replace(
             replay=tr._refresh(tr.replay, float(tr.n_grad_steps)))
         counts, modes = dict(rk.launches), dict(rk.launch_modes)
+        window = _check_window_launches(tr, name)
         rets = tr.evaluate(8, max_steps=200)
 
         _check_finite(name, tr, rets, 8)
@@ -1809,13 +1980,15 @@ def phase_recurrent():
               f"{cfg.batchSize}, {RNN_ENVS} envs, {n_slots} x {MAIN_L1} "
               f"slots): warmup {warm_s:.2f} s | train({RNN_STEPS}) "
               f"{train_ms:.1f} ms by events ({ms_step:.3f} ms/grad step "
-              f"captured, against {RNN_EAGER_MS[name]} eager, "
-              f"host wall {train_s:.2f} s) | stored steps "
+              f"captured, against {RNN_CAPTURED_MS[name]} captured before "
+              f"the window kernel and {RNN_EAGER_MS[name]} eager, "
+              f"host wall {train_s:.2f} s) | window kernel {window} | "
+              f"stored steps "
               f"{int(tr.replay.n_stored_steps())} | evaluate(8, 200) mean "
               f"return {float(np.mean(rets)):.2f} | K1 sweep launches by "
               f"site {dict(sites.sites)}, one per call, by mode {modes} | "
               f"card vs CPU max |diff| {_fmt_diffs(worst)}", flush=True)
-        results[name] = {"sites": dict(sites.sites),
+        results[name] = {"sites": dict(sites.sites), "window": window,
                          "launches": counts["retrace_sweep"], "modes": modes,
                          "ms_per_grad_step": ms_step, "warmup_s": warm_s,
                          "card_vs_cpu": worst}
@@ -4282,9 +4455,10 @@ def phase_bench():
                       "serving": srv, "phase_s": phase_s}}
 
 
-# phases 2b-2d, 4, 4b (graphs_rnn: its recurrent path alone), 7, 8, 8b
+# phases 2b-2e, 4, 4b (graphs_rnn: its recurrent path alone), 7, 8, 8b
 # and 17-23, by the names `--only` takes
 NEW_PHASES = {"adam": phase_adam, "tail": phase_tail, "head": phase_head,
+              "lstm_window": phase_lstm_window,
               "main": lambda: {"main": phase_main_path()},
               "graphs": phase_graphs,
               "graphs_rnn": lambda: phase_graphs(("racer_rnn",)),
@@ -4322,6 +4496,7 @@ def main(argv=None):
     adam = phase_adam()
     tail = phase_tail()["tail"]
     head = phase_head()["head"]
+    window = phase_lstm_window()["lstm_window"]
     phase_reference()
     main_res = phase_main_path()
     graphs = phase_graphs()["graphs"]
@@ -4497,6 +4672,26 @@ def main(argv=None):
         "launches_by_path": {
             "vracer_main": main_res["head"],
             **{f"graphs_{k}": graphs[k]["captured"]["head"]
+               for k in graph_paths}},
+    }, {
+        "name": "lstm_window",
+        "route": "cuda",
+        "source": "smarties_tpu_torch/csrc/lstm_window.cu",
+        "replaces": None,
+        "launches": graphs["racer_rnn"]["captured"]["window"]["forward"],
+        # against the float64 chain, relative to each tensor's magnitude
+        "max_abs_err": window["err"]["kernel_vs_f64"],
+        "ms": window["ms"],
+        "plain_ms": window["plain_ms"],
+        "bound_ms": window["bound_ms"],
+        "bound_by": "flops",
+        "share_of_bound": window["bound_ms"] / window["ms"],
+        "library_ms": None,
+        "phase": window,
+        "launches_by_path": {
+            "recurrent": {k: v["window"]
+                          for k, v in learners.items() if "window" in v},
+            **{f"graphs_{k}": graphs[k]["captured"]["window"]
                for k in graph_paths}},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,12 @@ Recurrent nets train by truncated BPTT over a window that ends at the
 sampled step (the reference builds per-sample windows [t - nnBPTTseq,
 t + 2) with a zeroed recurrent context at the window start for every
 learner, MemoryBuffer.cpp:393-402, Network.h:155-193): `bptt_window`
-gathers the window, `seq_outputs` runs the net over it, a Python loop of
-nnBPTTseq + 1 net steps under autograd, and `seq_forward_vjp` pairs the
-outputs with the pullback of an output-space gradient.
+gathers the window, `seq_outputs` runs the net over it, and
+`seq_forward_vjp` pairs the outputs with the pullback of an output-space
+gradient. On the card an LSTM that ops/lstm_window_kernel.py `takes` runs
+the window in its two launches (`window_outputs`); every other net, and
+every net on the CPU, runs a Python loop of nnBPTTseq + 1 net steps under
+autograd.
 """
 from __future__ import annotations
 
@@ -21,10 +24,11 @@ from typing import NamedTuple
 
 import torch
 
-from smarties_tpu_torch.models.net import (apply_net, init_carry,
-                                           tree_leaves, tree_map)
+from smarties_tpu_torch.models.net import (apply_net, apply_out,
+                                           init_carry, tree_leaves,
+                                           tree_map)
 from smarties_tpu_torch.ops import continuous_policy as cp
-from smarties_tpu_torch.ops import step_tail_kernel
+from smarties_tpu_torch.ops import lstm_window_kernel, step_tail_kernel
 from smarties_tpu_torch.ops.value_scale import scale_net2v
 from smarties_tpu_torch.parallel.mesh import pmax_, pmean, psum_tree_
 from smarties_tpu_torch.replay import buffer as rb
@@ -55,8 +59,18 @@ def seq_outputs(params, spec, xs, active):
     outputs at the last two window positions (the sampled step and its
     successor). out_t is differentiable; the step to t+1 runs without
     grad, since no learner differentiates it (the JAX package's learners
-    stop its gradient or give it a zero cotangent)."""
-    carry = init_carry(spec, (xs.shape[0],), xs.device)
+    stop its gradient or give it a zero cotangent). CUDA tensors of an
+    LSTM that the window kernel takes go to `window_outputs`; the rest
+    run `chain_outputs`."""
+    if xs.is_cuda and lstm_window_kernel.takes(spec):
+        return window_outputs(params, spec, xs, active)
+    return chain_outputs(params, spec, xs, active)
+
+
+def chain_outputs(params, spec, xs, active):
+    """seq_outputs as a Python loop of apply_net under autograd: the
+    window's W + 1 net steps, each with its output layer."""
+    carry = init_carry(spec, (xs.shape[0],), xs.device, xs.dtype)
     steps = list(zip(xs.unbind(1), active.unbind(1)))
     y = None
     for x, m in steps[:-1]:
@@ -66,6 +80,17 @@ def seq_outputs(params, spec, xs, active):
     with torch.no_grad():
         y1, _ = apply_net(params, spec, steps[-1][0], carry)
     return y, y1
+
+
+def window_outputs(params, spec, xs, active):
+    """seq_outputs of an LSTM through ops/lstm_window_kernel.py: the top
+    layer's h at t and t+1 from the window, then ONE output layer over
+    [h_t; h_t1] (the t+1 rows detached, so they take a zero cotangent).
+    The positions before t run no output layer: nothing reads it."""
+    h_t, h_t1 = lstm_window_kernel.lstm_window(xs, active, params["layers"])
+    y = apply_out(params, spec, torch.cat([h_t, h_t1]))
+    B = xs.shape[0]
+    return y[:B], y[B:].detach()
 
 
 def bptt_counts(spec, xs) -> dict:

@@ -25,7 +25,9 @@ by gate (torch.nn.LSTM / GRU have another gate layout, fused biases and
 the standard GRU, so their leaves would not map 1:1). The recurrent
 carry is a tuple with one entry per hidden layer: a tensor, or the pair
 (h, c) for an LSTM layer. Truncated BPTT is a Python loop over
-`apply_net` under autograd (`apply_net_seq`, algos/base.py::seq_outputs).
+`apply_net` under autograd (`apply_net_seq`, algos/base.py::seq_outputs),
+except for the LSTM windows on the card that ops/lstm_window_kernel.py
+runs, whose output layer is `apply_out`.
 
 Init conventions follow the reference exactly:
 - weights ~ U(-f, f), f = act.initFactor(nIn, nOut) (Layer_Base.h:115-141,
@@ -299,7 +301,8 @@ def init_params(gen: Optional[torch.Generator], spec: NetSpec,
     return tree_map(lambda x: x.to(device).requires_grad_(True), params)
 
 
-def init_carry(spec: NetSpec, batch_shape=(), device=None):
+def init_carry(spec: NetSpec, batch_shape=(), device=None,
+               dtype=torch.float32):
     """Zero recurrent state (AgentContext analog, ThreadContext.h): () for
     a feed-forward net, else one entry per hidden layer, [*batch, h], an
     (h, c) pair for LSTM layers."""
@@ -307,7 +310,7 @@ def init_carry(spec: NetSpec, batch_shape=(), device=None):
         return ()
 
     def z(h):
-        return torch.zeros(tuple(batch_shape) + (h,), dtype=torch.float32,
+        return torch.zeros(tuple(batch_shape) + (h,), dtype=dtype,
                            device=device)
 
     return tuple((z(h), z(h)) if spec.kind == "LSTM" else z(h)
@@ -397,13 +400,20 @@ def apply_net(params: Dict, spec: NetSpec, x, carry=(), conv_boundary=None):
                             + layer["bh"])
             h = (1 - f) * hprev + f * hh
             new_carry.append(h)
+    return apply_out(params, spec, h), tuple(new_carry)
+
+
+def apply_out(params: Dict, spec: NetSpec, h):
+    """The output layer and the param head: the last hidden layer's h
+    [..., hidden[-1]] -> y [..., total_out]."""
+    bf16 = spec.compute_dtype == "bfloat16"
     y = _ACTS[spec.out_act](_mm(h, params["out"]["W"], bf16)
                             + params["out"]["b"])
     if spec.n_param_out:
         p = params["param"].expand(tuple(y.shape[:-1])
                                    + (spec.n_param_out,))
         y = torch.cat([y, p], dim=-1)
-    return y, tuple(new_carry)
+    return y
 
 
 def apply_net_seq(params: Dict, spec: NetSpec, xs, carry):

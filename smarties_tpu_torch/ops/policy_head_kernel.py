@@ -55,7 +55,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIB = Library(
     "smt_policy_head", ("policy_head.cu",),
     ("--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"),
-    {"smt_policy_head": [_P, _P, _I, _I] + [_F] * 4,
+    {"smt_policy_head": [_P, _P, _I, _I] + [_F] * 4 + [_P],
      "smt_policy_head_max_dims": []},
     counters=(launches,), check=_check_sizes)
 

@@ -79,10 +79,12 @@ replays of the traced step graph under torch.profiler (CUPTI). Then the
 cost of tracing, in turns plain, traced, traced, plain of 3 cycles
 each: TRAIN ms per grad step, and the host's µs per replay of 64
 replays launched on an idle card; the card timer's resolution and the
-mapping's measured error, the launches of the Adam, step-tail and
-continuous-head kernels since the Trainer's construction (`launches`:
-one update, one advance, one grad_stats and one step_tail a grad step,
-and one continuous head a V-RACER step); and the Chrome
+mapping's measured error, the launches of the Adam, step-tail,
+continuous-head and LSTM window kernels since the Trainer's construction
+(`launches`: one update, one advance, one grad_stats and one step_tail a
+grad step, one continuous head a V-RACER step, and one forward, one
+backward and one reduce of the window a step of an LSTM that the window
+kernel takes); and the Chrome
 trace of one more traced cycle at --trace-out. `--trace-after S` runs S
 seconds of plain cycles first
 (each one's TRAIN ms per grad step printed) and turns tracing on after
@@ -120,7 +122,8 @@ from smarties_tpu_torch.core.mdp import MDPSpec
 from smarties_tpu_torch.envs import cartpole, catch
 from smarties_tpu_torch.models.net import _mlp_in_dim
 from smarties_tpu_torch.ops import (adam_kernel, cuda_lib,
-                                    policy_head_kernel, step_tail_kernel)
+                                    lstm_window_kernel, policy_head_kernel,
+                                    step_tail_kernel)
 from smarties_tpu_torch.ops import retrace_kernel as rk
 from smarties_tpu_torch.replay import buffer as rb
 from smarties_tpu_torch.runtime.trainer import Trainer, set_precision
@@ -660,14 +663,16 @@ def phase_kernels(tr: Trainer, n: int = 8) -> dict:
 
 
 def kernel_launches(tr: Trainer) -> dict:
-    """The Adam, step-tail and continuous-head kernels' launch counters
-    beside the grad steps the trainer's optimiser has taken."""
+    """The Adam, step-tail, continuous-head and LSTM window kernels'
+    launch counters beside the grad steps the trainer's optimiser has
+    taken."""
     opt = tr.opt_state
     return {"grad_steps": int((opt if hasattr(opt, "step")
                                else opt.adam).step),
             "adam": dict(adam_kernel.launches),
             "step_tail": dict(step_tail_kernel.launches),
-            "policy_head": dict(policy_head_kernel.launches)}
+            "policy_head": dict(policy_head_kernel.launches),
+            "lstm_window": dict(lstm_window_kernel.launches)}
 
 
 def trace_main(seconds: float, plain_s: float = 0.0, out=None,

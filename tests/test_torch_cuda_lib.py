@@ -23,7 +23,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ("adam_kernel", "libsmt_adam_08c1919e30c7bfc3.so"),
     ("step_tail_kernel", "libsmt_step_tail_a22b129c5e4b30b1.so"),
     ("stamp", "libsmt_stamp_6c301da00b3935f0.so"),
-    ("policy_head_kernel", "libsmt_policy_head_045743156c111fd9.so")])
+    ("policy_head_kernel", "libsmt_policy_head_045743156c111fd9.so"),
+    ("lstm_window_kernel", "libsmt_lstm_window_e8421bdf633ee245.so")])
 def test_library_name_is_pinned(module, name):
     lib = importlib.import_module(f"smarties_tpu_torch.ops.{module}").LIB
     assert lib in cuda_lib.LIBRARIES
@@ -33,15 +34,16 @@ def test_library_name_is_pinned(module, name):
 
 
 def test_reset_launches_zeroes_every_registered_counter():
-    from smarties_tpu_torch.ops import (adam_kernel, policy_head_kernel,
-                                        retrace_kernel, step_tail_kernel)
+    from smarties_tpu_torch.ops import (adam_kernel, lstm_window_kernel,
+                                        policy_head_kernel, retrace_kernel,
+                                        step_tail_kernel)
     own = {"site": 3}
     cuda_lib.register(own, own)
     try:
         assert sum(c is own for c in cuda_lib.COUNTERS) == 1
         wrappers = (retrace_kernel.launches, retrace_kernel.launch_modes,
                     adam_kernel.launches, step_tail_kernel.launches,
-                    policy_head_kernel.launches)
+                    policy_head_kernel.launches, lstm_window_kernel.launches)
         assert all(any(w is c for c in cuda_lib.COUNTERS) for w in wrappers)
         for counts in cuda_lib.COUNTERS:
             for k in counts:

@@ -47,13 +47,14 @@ def test_port_imports_no_jax():
     assert res["jax"] == [], res["jax"]
     assert res["reference"] == [], res["reference"]
     assert res["matplotlib"] == [], res["matplotlib"]
-    assert res["libraries"] == ["smt_adam", "smt_policy_head",
-                                "smt_retrace", "smt_stamp", "smt_step_tail"]
+    assert res["libraries"] == ["smt_adam", "smt_lstm_window",
+                                "smt_policy_head", "smt_retrace", "smt_stamp",
+                                "smt_step_tail"]
     assert not res["kernel_loaded"]
     for sub in ("core.mdp", "ops.returns", "ops.cuda_lib",
                 "ops.retrace_kernel", "ops.stamp", "ops.adam_kernel",
                 "ops.step_tail_kernel", "ops.policy_head_kernel",
-                "ops.leaf_table",
+                "ops.lstm_window_kernel", "ops.leaf_table",
                 "ops.continuous_policy", "ops.discrete_policy",
                 "ops.advantages", "envs.cartpole", "envs.pendulum",
                 "envs.acrobot", "envs.mountaincar", "envs.catch",
